@@ -1,0 +1,35 @@
+"""Federation API: FedKT's one-round protocol (``repro.federation``).
+
+    Party / Server / FedKTSession  — the protocol (who sends what, once)
+    bindings.PartyBinding           — what ONE party brings to a round
+    engines.LoopEngine / VmapEngine — how teachers train and vote
+    codec                           — PartyUpdate <-> bytes, frames
+                                      byte-identical to the reference's
+    transport.InProcessTransport    — parties in-process, every update
+                                      through the codec
+    aggregate.StreamingVoteAggregate— the server's running vote fold
+    domain.VoteDomain               — the typed vote layout
+"""
+from repro_torch.federation import codec  # noqa: F401
+from repro_torch.federation.aggregate import (  # noqa: F401
+    StreamingVoteAggregate)
+from repro_torch.federation.bindings import (PartyBinding,  # noqa: F401
+                                             ResolvedBinding, learner_kind)
+from repro_torch.federation.domain import (VoteDomain,  # noqa: F401
+                                           example_domain,
+                                           fingerprint_queries,
+                                           learner_domain)
+from repro_torch.federation.engines import (Engine,  # noqa: F401
+                                            LoopEngine, VmapEngine,
+                                            get_engine)
+from repro_torch.federation.messages import (PartyUpdate,  # noqa: F401
+                                             RoundResult, ShapeDtype,
+                                             TokenLabels, label_wire_bytes,
+                                             pytree_bytes)
+from repro_torch.federation.party import Party, query_budget  # noqa: F401
+from repro_torch.federation.server import Server  # noqa: F401
+from repro_torch.federation.session import (FedKTSession,  # noqa: F401
+                                            party_starting_keys)
+from repro_torch.federation.transport import (InProcessTransport,  # noqa: F401
+                                              Transport, TransportBase,
+                                              get_transport)
