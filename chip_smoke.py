@@ -12,8 +12,10 @@ non-zero before printing a result):
   2. kernels  : each kernel against its plain PyTorch version on the
                 card, at the round's shapes: the vote kernel bit for
                 bit on all five outputs; the histogram kernel exact on
-                integer weights and run-to-run identical on float
-                weights.  Times with CUDA events beside each kernel's
+                integer weights, and on float weights run-to-run
+                identical and within float32 summation's own limit cell
+                by cell (a bfloat16-accumulated stand-in is read beside
+                it).  Times with CUDA events beside each kernel's
                 bound and the plain version's time.
   3. round    : the one-shot FedKT round at full width (Adult's size:
                 48,842 rows x 14 features; 10 parties, s=2, t=5) for RF
@@ -175,9 +177,10 @@ def _hist_inputs(G, Gf, N, F, B, K, n, integer, g):
     return xb, node, w.contiguous()
 
 
-def _scatter_yardstick(xb, node, w, n, B):
+def _scatter_yardstick(xb, node, w, n, B, dtype=torch.float32):
     """One scatter_add_ over a precomputed flat index computing the same
-    histogram (the nearest single-call library yardstick)."""
+    histogram (the nearest single-call library yardstick), accumulating
+    in ``dtype``."""
     Gf, N, F = xb.shape
     G, K, _ = w.shape
     per = G // Gf
@@ -189,10 +192,10 @@ def _scatter_yardstick(xb, node, w, n, B):
              * n + node[:, None, :, None].long()) * F
             + f_ix[None, None, None, :]) * B
            + xbg[:, None].long())                          # (G,K,N,F)
-    src = w[:, :, :, None].expand(G, K, N, F).contiguous()
+    src = w[:, :, :, None].expand(G, K, N, F).to(dtype).contiguous()
     idx = idx.reshape(-1)
     src = src.reshape(-1)
-    out = torch.empty((G * K * n * F * B,), device="cuda")
+    out = torch.empty((G * K * n * F * B,), dtype=dtype, device="cuda")
 
     def run():
         out.zero_()
@@ -218,9 +221,8 @@ def phase_hist(N_teacher, N_student):
                                  f"at G=200 N={N_teacher} n={n}")
     # leaf build (node_hist) of the teacher grid, 2^6 leaves
     _, node, w = _hist_inputs(200, 10, N_teacher, 1, B, K, 64, True, g)
-    got = ops.node_hist(node, w, num_nodes=64)
-    want = ops.node_hist(node, w, num_nodes=64, impl="plain")
-    if not torch.equal(got, want):
+    if not torch.equal(ops.node_hist(node, w, num_nodes=64),
+                       ref.node_hist_ref(node, w, 64)):
         raise AssertionError("node_hist != plain (integer weights)")
     # GBDT level: float g/h, 10 stacked GBDTs, level 5 and the leaves
     for n, Fk, Bk in ((32, F, B), (1, 1, 64)):
@@ -228,16 +230,24 @@ def phase_hist(N_teacher, N_student):
                                    g)
         a = th.tree_hist(xb, node, w, num_nodes=n, num_bins=Bk)
         b = th.tree_hist(xb, node, w, num_nodes=n, num_bins=Bk)
-        want = ref.tree_hist_ref(xb, node, w, n, Bk)
         torch.cuda.synchronize()
         if not same_bits(a, b):
             raise AssertionError("tree_hist float weights differ run to run")
-        # fp32 sums of N terms in two orders: |err| <= N * 2^-23 * sum|w|
-        atol = N_teacher * 2.0 ** -23 * float(w.abs().sum(-1).max())
-        err = float((a - want).abs().max())
-        if err > atol:
+        # each cell within what float32 summation of its own terms can
+        # explain (ratio <= 1); a bfloat16-accumulated stand-in (atomic
+        # adds into a bfloat16 histogram) is read beside it
+        err, ratio = ref.tree_hist_f32_error(a, xb, node, w, n, Bk)
+        bf16 = _scatter_yardstick(xb, node, w, n, Bk, torch.bfloat16)()
+        bf_err, bf_ratio = ref.tree_hist_f32_error(
+            bf16.float().reshape(a.shape), xb, node, w, n, Bk)
+        log("[hist-f32] " + json.dumps({
+            "G": 10, "N": N_teacher, "F": Fk, "n": n, "B": Bk,
+            "max_abs_err": err, "err_over_limit": ratio,
+            "bf16_standin_max_abs_err": bf_err,
+            "bf16_standin_err_over_limit": str(bf_ratio)}))
+        if not ratio <= 1.0:
             raise AssertionError(f"tree_hist float weights: max |err| "
-                                 f"{err} > {atol}")
+                                 f"{err} is {ratio} x the float32 limit")
         worst = max(worst, err)
     # the student level-5 shape: 2 students x 20 trees over 8192 rows
     rows = []

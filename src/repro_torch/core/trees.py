@@ -81,7 +81,7 @@ def _best_split(score, num_bins):
 # Classification trees (gini)
 # ---------------------------------------------------------------------------
 def fit_trees_gini(xb, y, w, feat_mask, *, depth, num_classes,
-                   num_bins=NUM_BINS, impl="auto"):
+                   num_bins=NUM_BINS):
     """G gini trees, batched.  xb: (Gf, N, F) int32 bins; y: (Gf, N)
     labels; w: (G, N) f32 sample weights (bootstrap counts, zero on
     padding rows); feat_mask: (G, F) f32 in {0, 1}.  Tree g fits on the
@@ -106,7 +106,7 @@ def fit_trees_gini(xb, y, w, feat_mask, *, depth, num_classes,
         n_nodes = 2 ** level
         base = n_nodes - 1
         hist = ops.tree_hist(xb, node, wc, num_nodes=n_nodes,
-                             num_bins=num_bins, impl=impl)
+                             num_bins=num_bins)
         hist = hist.permute(0, 2, 3, 4, 1)                  # (G,n,F,B,C)
         left = torch.cumsum(hist, dim=3)                    # bin <= b
         total = left[:, :, :, -1:, :]
@@ -126,8 +126,8 @@ def fit_trees_gini(xb, y, w, feat_mask, *, depth, num_classes,
         node = _descend(xb, node, bf, bb, forest)
 
     # leaves: class histograms
-    leaf = ops.node_hist(node, wc, num_nodes=2 ** depth,
-                         impl=impl).transpose(1, 2)         # (G, L, C)
+    leaf = ops.node_hist(node, wc,
+                         num_nodes=2 ** depth).transpose(1, 2)  # (G, L, C)
     leaf = leaf / torch.clamp_min(leaf.sum(-1, keepdim=True), 1e-9)
     return split_feat, split_bin, leaf
 
@@ -155,7 +155,7 @@ def tree_apply(tree, xb):
 # Random forest
 # ---------------------------------------------------------------------------
 def fit_forest_stacked(X, edges, y, w, fm, *, depth, num_classes,
-                       num_bins=NUM_BINS, impl="auto"):
+                       num_bins=NUM_BINS):
     """k forests of T trees as one batched fit.  X: (k, M, F) f32 rows
     padded to a shared bucket M; edges: (k, F, num_bins-1); y: (k, M);
     w: (k, T, M); fm: (k, T, F).  Padding rows ride at w == 0 and add
@@ -165,7 +165,7 @@ def fit_forest_stacked(X, edges, y, w, fm, *, depth, num_classes,
     xb = binize(X, edges)
     sf, sb, leaf = fit_trees_gini(
         xb, y, w.reshape(k * T, -1), fm.reshape(k * T, -1), depth=depth,
-        num_classes=num_classes, num_bins=num_bins, impl=impl)
+        num_classes=num_classes, num_bins=num_bins)
     return (sf.reshape(k, T, -1), sb.reshape(k, T, -1),
             leaf.reshape(k, T, *leaf.shape[1:]))
 
@@ -217,8 +217,7 @@ class RandomForest:
 # ---------------------------------------------------------------------------
 # GBDT (binary, logistic loss, XGBoost-style gains)
 # ---------------------------------------------------------------------------
-def fit_trees_gh(xb, g, h, *, depth, num_bins=NUM_BINS, lam=1.0,
-                 impl="auto"):
+def fit_trees_gh(xb, g, h, *, depth, num_bins=NUM_BINS, lam=1.0):
     """G regression trees on gradients/hessians, batched: xb (G, N, F),
     g/h (G, N).  Returns tree arrays with scalar leaves (G, 2^depth, 1)."""
     G, N, Fn = xb.shape
@@ -234,7 +233,7 @@ def fit_trees_gh(xb, g, h, *, depth, num_bins=NUM_BINS, lam=1.0,
         n_nodes = 2 ** level
         base = n_nodes - 1
         gh = ops.tree_hist(xb, node, gh_w, num_nodes=n_nodes,
-                           num_bins=num_bins, impl=impl)    # (G,2,n,F,B)
+                           num_bins=num_bins)               # (G,2,n,F,B)
         Gs, Hs = gh[:, 0], gh[:, 1]
         GL, HL = torch.cumsum(Gs, 3), torch.cumsum(Hs, 3)
         GT, HT = GL[..., -1:], HL[..., -1:]
@@ -247,13 +246,13 @@ def fit_trees_gh(xb, g, h, *, depth, num_bins=NUM_BINS, lam=1.0,
         split_bin[:, base:base + n_nodes] = bb
         node = _descend(xb, node, bf, bb, forest)
 
-    GHs = ops.node_hist(node, gh_w, num_nodes=2 ** depth, impl=impl)
+    GHs = ops.node_hist(node, gh_w, num_nodes=2 ** depth)
     leaf = (-GHs[:, 0] / (GHs[:, 1] + lam))[:, :, None]
     return split_feat, split_bin, leaf
 
 
 def fit_gbdt_stacked(X, edges, y, w, lr, *, num_rounds, depth,
-                     num_bins=NUM_BINS, impl="auto"):
+                     num_bins=NUM_BINS):
     """k GBDTs as one batched fit.  X: (k, M, F) rows padded to a shared
     bucket; edges: (k, F, num_bins-1); y: (k, M); w: (k, M) masks the
     gradients/hessians, zero on padding rows, so padding never changes
@@ -270,7 +269,7 @@ def fit_gbdt_stacked(X, edges, y, w, lr, *, num_rounds, depth,
         # g/h depend on the row count (stacked vs serial fits)
         p = torch.sigmoid(logits.to(torch.float64)).to(torch.float32)
         tree = fit_trees_gh(xb, (p - yf) * w, (p * (1.0 - p)) * w,
-                            depth=depth, num_bins=num_bins, impl=impl)
+                            depth=depth, num_bins=num_bins)
         logits = logits + lr * tree_apply(tree, xb)[..., 0]
         rounds.append(tree)
     return tuple(torch.stack([t[i] for t in rounds], dim=1)

@@ -42,8 +42,8 @@ def laplace(key, shape, scale, device=None):
     return (-scale * torch.sign(u)) * torch.log1p(-2.0 * torch.abs(u))
 
 
-def teacher_vote(preds, num_classes, *, gamma=0.0, key=None,
-                 impl="auto") -> VoteResult:
+def teacher_vote(preds, num_classes, *, gamma=0.0,
+                 key=None) -> VoteResult:
     """Party-side ensemble vote.  preds: (t, T) int32 teacher predictions.
 
     gamma > 0 adds Lap(1/gamma) to the histogram (FedKT-L2, lines 9-10).
@@ -55,7 +55,7 @@ def teacher_vote(preds, num_classes, *, gamma=0.0, key=None,
         assert key is not None
         noise = laplace(key, (T, num_classes), 1.0 / gamma, preds.device)
     labels, counts, c1, c2 = ops.votes_with_clean(preds, num_classes,
-                                                  noise, impl=impl)
+                                                  noise)
     return VoteResult(labels, counts, c1 - c2)
 
 

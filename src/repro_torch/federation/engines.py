@@ -69,10 +69,6 @@ def _students_vote_counts(engine, learner, states, X, domain,
     return party_vote_counts(preds, domain, consistent=consistent)
 
 
-def _serial_fit_students(keys, learner, X, labelsets):
-    return [learner.fit(kk, X, y) for kk, y in zip(keys, labelsets)]
-
-
 def _serial_predict(learner, states, X):
     return torch.stack([learner.predict(st, X) for st in states])
 
@@ -104,7 +100,7 @@ class LoopEngine:
                                gamma, key)
 
     def fit_students(self, keys, learner, X, labelsets):
-        return _serial_fit_students(keys, learner, X, labelsets)
+        return [learner.fit(kk, X, y) for kk, y in zip(keys, labelsets)]
 
     def predict_students(self, learner, states, X):
         return _serial_predict(learner, states, X)
@@ -116,27 +112,18 @@ class LoopEngine:
 
 
 class VmapEngine:
-    """Batched engine: one stacked fit over the teacher grid.  Learners
-    without the stacked hooks fall back to the serial path with
-    identical keys."""
+    """Batched engine: every fit and predict is one stacked call."""
     name = "vmap"
 
     def fit_teachers(self, keys, learner, datasets):
-        if not hasattr(learner, "fit_stacked"):
-            return [learner.fit(kk, X, y)
-                    for kk, (X, y) in zip(keys, datasets)]
         return learner.fit_stacked(np.stack(list(keys)),
                                    [X for X, _ in datasets],
                                    [y for _, y in datasets])
 
     def slice_bank(self, bank, start, stop):
-        if isinstance(bank, list):                 # serial fallback
-            return bank[start:stop]
         return tree_map(lambda leaf: leaf[start:stop], bank)
 
     def predict_teachers(self, learner, bank, X):
-        if isinstance(bank, list):                 # serial fallback
-            return _serial_predict(learner, bank, X)
         return learner.predict_stacked(bank, X)
 
     def label_queries(self, learner, bank, X, num_classes, *,
@@ -145,8 +132,6 @@ class VmapEngine:
                                gamma, key)
 
     def fit_students(self, keys, learner, X, labelsets):
-        if not hasattr(learner, "fit_stacked") or len(labelsets) < 2:
-            return _serial_fit_students(keys, learner, X, labelsets)
         stacked = learner.fit_stacked(np.stack(list(keys)),
                                       [X] * len(labelsets),
                                       list(labelsets))
@@ -154,8 +139,6 @@ class VmapEngine:
                 for i in range(len(labelsets))]
 
     def predict_students(self, learner, states, X):
-        if not hasattr(learner, "predict_stacked") or len(states) < 2:
-            return _serial_predict(learner, states, X)
         return learner.predict_stacked(tree_map(_stack, *states), X)
 
     def student_vote_counts(self, learner, states, X, domain, *,

@@ -8,9 +8,8 @@ port dispatches on where the data lies:
     raises: there is no fallback when a build or launch fails);
   - a CPU tensor goes to the plain PyTorch version (``ref.py``).
 
-``impl`` is "auto" (the rule above), "kernel" (CUDA tensors only) or
-"plain" (the plain version on any device — for comparing a kernel with
-its plain version on the card, never on the main path).
+To compare a kernel with its plain version on the card, call ``ref``
+directly: nothing here runs a plain version on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -20,26 +19,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import tree_hist as _th
 from repro_torch.kernels import vote_aggregate as _va
 
-IMPLS = ("auto", "kernel", "plain")
-
-
-def _use_kernel(t: torch.Tensor, impl: str) -> bool:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    if impl == "plain":
-        return False
-    if t.is_cuda:
-        return True
-    if impl == "kernel":
-        raise ValueError(f"impl='kernel' needs CUDA tensors, got "
-                         f"{t.device}")
-    return False
-
 
 # ---------------------------------------------------------------------------
 # Vote aggregation
 # ---------------------------------------------------------------------------
-def votes(preds, num_classes, noise=None, *, impl="auto"):
+def votes(preds, num_classes, noise=None):
     """Max-vote labels + top-2 vote scores.
 
     preds: (M, T) int32; noise: optional (T, U) f32.
@@ -47,7 +31,7 @@ def votes(preds, num_classes, noise=None, *, impl="auto"):
     if noise is None and num_classes > 2048:
         # vocabulary-scale noise-free voting: no U-sized tensors
         return votes_sort(preds)
-    if _use_kernel(preds, impl):
+    if preds.is_cuda:
         labels, top1, top2, _, _ = _va.vote_aggregate(
             preds, noise, num_classes=num_classes)
     else:
@@ -56,7 +40,7 @@ def votes(preds, num_classes, noise=None, *, impl="auto"):
     return labels, top1, top2
 
 
-def votes_with_clean(preds, num_classes, noise=None, *, impl="auto"):
+def votes_with_clean(preds, num_classes, noise=None):
     """Noisy max-vote labels + CLEAN top-2 from ONE histogram build.
 
     Returns (labels, counts, clean_top1, clean_top2) where ``counts`` is
@@ -65,7 +49,7 @@ def votes_with_clean(preds, num_classes, noise=None, *, impl="auto"):
     if noise is None and num_classes > 2048:
         labels, top1, top2 = votes_sort(preds)
         return labels, None, top1, top2
-    if _use_kernel(preds, impl):
+    if preds.is_cuda:
         labels, _, _, c1, c2 = _va.vote_aggregate(
             preds, noise, num_classes=num_classes)
         return labels, None, c1, c2
@@ -106,7 +90,7 @@ def votes_sort(preds):
 # ---------------------------------------------------------------------------
 # Tree-fit histogram
 # ---------------------------------------------------------------------------
-def tree_hist(xb, node, w, *, num_nodes, num_bins, impl="auto"):
+def tree_hist(xb, node, w, *, num_nodes, num_bins):
     """Weighted (channel, node, feature, bin) histograms of a stacked
     level of G trees — the per-level build inside the tree fits.
 
@@ -114,18 +98,18 @@ def tree_hist(xb, node, w, *, num_nodes, num_bins, impl="auto"):
     node: (G, N) int32; w: (G, K, N) f32.  Returns
     (G, K, num_nodes, F, num_bins) f32; rows at w == 0 contribute exact
     zeros (the stacked-fit padding invariant)."""
-    if _use_kernel(xb, impl):
+    if xb.is_cuda:
         return _th.tree_hist(xb, node, w, num_nodes=num_nodes,
                              num_bins=num_bins)
     return ref.tree_hist_ref(xb, node, w, num_nodes, num_bins)
 
 
-def node_hist(node, w, *, num_nodes, impl="auto"):
+def node_hist(node, w, *, num_nodes):
     """Weighted per-node histograms — the leaf builds of the tree fits.
 
     node: (G, N) int32; w: (G, K, N) f32.  Returns (G, K, num_nodes)
     f32.  The leaf build IS a tree_hist with the node id as the single
     feature and the leaves as its bins."""
     out = tree_hist(node[:, :, None].contiguous(), torch.zeros_like(node),
-                    w, num_nodes=1, num_bins=num_nodes, impl=impl)
+                    w, num_nodes=1, num_bins=num_nodes)
     return out[:, :, 0, 0, :]

@@ -57,6 +57,20 @@ def vote_aggregate_plain(preds, num_classes, noise=None):
     return labels, top1, top2, c1, c2
 
 
+def _hist64(xb, node, w, num_nodes, num_bins):
+    """The one-hot contraction of ``tree_hist_ref`` in float64."""
+    Gf, N, Fn = xb.shape
+    G, K, _ = w.shape
+    per = G // Gf
+    onehot_n = F.one_hot(node.long(), num_nodes).to(torch.float64)
+    ncw = w.to(torch.float64)[:, :, None, :] \
+        * onehot_n.transpose(1, 2)[:, None]                 # (G, K, n, N)
+    onehot_b = F.one_hot(xb.long(), num_bins).to(torch.float64)
+    h = torch.bmm(ncw.reshape(Gf, per * K * num_nodes, N),
+                  onehot_b.reshape(Gf, N, Fn * num_bins))
+    return h.reshape(G, K, num_nodes, Fn, num_bins)
+
+
 def tree_hist_ref(xb, node, w, num_nodes, num_bins):
     """Weighted (channel, node, feature, bin) histograms of G trees.
 
@@ -74,13 +88,32 @@ def tree_hist_ref(xb, node, w, num_nodes, num_bins):
     summation order, and so not on the zero-weight padding a stacked
     fit adds: stacked fits equal serial fits on this path too.
     """
-    Gf, N, Fn = xb.shape
-    G, K, _ = w.shape
-    per = G // Gf
-    onehot_n = F.one_hot(node.long(), num_nodes).to(torch.float64)
-    ncw = w.to(torch.float64)[:, :, None, :] \
-        * onehot_n.transpose(1, 2)[:, None]                 # (G, K, n, N)
-    onehot_b = F.one_hot(xb.long(), num_bins).to(torch.float64)
-    h = torch.bmm(ncw.reshape(Gf, per * K * num_nodes, N),
-                  onehot_b.reshape(Gf, N, Fn * num_bins))
-    return h.reshape(G, K, num_nodes, Fn, num_bins).to(torch.float32)
+    return _hist64(xb, node, w, num_nodes, num_bins).to(torch.float32)
+
+
+def node_hist_ref(node, w, num_nodes):
+    """Weighted per-node histograms (G, K, num_nodes): ``tree_hist_ref``
+    with the node id as the single feature and the nodes as its bins."""
+    return tree_hist_ref(node[:, :, None], torch.zeros_like(node), w, 1,
+                         num_nodes)[:, :, 0, 0, :]
+
+
+def tree_hist_f32_error(got, xb, node, w, num_nodes, num_bins):
+    """How far a float32 histogram ``got`` is from the exact sums, in
+    units of what float32 summation can explain.
+
+    A float32 sum of a cell's m nonzero terms, in any order, is within
+    gamma(m - 1) * sum |w| of the exact sum, gamma(j) = j*u / (1 - j*u)
+    with u = 2^-24 (plus 2^-52 for the float64 yardstick's own
+    rounding): zero for a cell of one term.  Returns (max |got - exact|,
+    the largest ratio of a cell's error to its limit) — the ratio is at
+    most 1 for any float32 accumulation and far above it for one held in
+    bfloat16 or float16 (0/0 counts as 0, x/0 as inf)."""
+    exact = _hist64(xb, node, w, num_nodes, num_bins)
+    mass = _hist64(xb, node, w.abs(), num_nodes, num_bins)
+    terms = _hist64(xb, node, (w != 0).to(w.dtype), num_nodes, num_bins)
+    ju = (terms - 1).clamp_min(0) * (2.0 ** -24 + 2.0 ** -52)
+    limit = ju / (1 - ju) * mass
+    err = (got.to(torch.float64) - exact).abs()
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / limit)
+    return float(err.max()), float(ratio.max())

@@ -4,9 +4,10 @@ Run on a GPU host with ``python -m pytest -m cuda tests/test_torch_cuda.py``;
 elsewhere every test here skips (the decision is made in a fixture, at
 run time, so every worker collects the same tests).  Tolerances: the
 vote kernel is bit-identical on all five outputs; the histogram kernel
-is exact on integer weights, identical run to run on float weights and
-within N * 2^-23 * sum|w| of the plain version (float32 sums in another
-order).
+is exact on integer weights, identical run to run on float weights and,
+cell by cell, within what float32 summation of that cell's own terms
+can explain: gamma(m - 1) * sum |w| of the exact sum for its m nonzero
+terms (``ref.tree_hist_f32_error``).
 """
 import numpy as np
 import pytest
@@ -88,16 +89,15 @@ def test_tree_hist_kernel_against_plain(cuda, G, Gf, N, F, n, K):
     b = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
     torch.cuda.synchronize()
     assert _bits_equal(a, b)
-    atol = N * 2.0 ** -23 * float(w.abs().sum(-1).max())
-    torch.testing.assert_close(a, ref.tree_hist_ref(xb, node, w, n, B),
-                               rtol=0, atol=atol)
+    err, ratio = ref.tree_hist_f32_error(a, xb, node, w, n, B)
+    assert ratio <= 1.0, (err, ratio)
 
 
 def test_node_hist_kernel_against_plain(cuda):
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     _, node, w = _hist_inputs(cuda, 5, 5, 777, 1, 64, 2, 64, True, 3)
     assert torch.equal(ops.node_hist(node, w, num_nodes=64),
-                       ops.node_hist(node, w, num_nodes=64, impl="plain"))
+                       ref.node_hist_ref(node, w, 64))
 
 
 def test_wrappers_refuse_bad_inputs(cuda):

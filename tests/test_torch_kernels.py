@@ -157,15 +157,60 @@ def test_node_hist_matches_reference(integer):
 
 
 def test_cpu_tensors_take_the_plain_version_only():
-    """On a CPU tensor the ops run the plain version; asking for the
-    kernel there raises instead of falling back."""
-    preds = torch.zeros((2, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.votes(preds, 2, impl="kernel")
-    with pytest.raises(ValueError, match="unknown impl"):
-        ops.votes(preds, 2, impl="triton")
-    xb = torch.zeros((1, 4, 2), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.tree_hist(xb, torch.zeros((1, 4), dtype=torch.int32),
-                      torch.ones((1, 1, 4)), num_nodes=1, num_bins=2,
-                      impl="kernel")
+    """On CPU tensors the ops run the plain versions: no kernel launch
+    is counted and the results are the plain versions' own."""
+    from repro_torch.kernels import tree_hist as th
+    from repro_torch.kernels import vote_aggregate as va
+    rng = np.random.default_rng(2)
+    preds = _t(rng.integers(0, 3, (4, 16)).astype(np.int32))
+    noise = _t(rng.laplace(0, 1, (16, 3)).astype(np.float32))
+    xb = _t(rng.integers(0, 8, (1, 40, 3)).astype(np.int32))
+    node = _t(rng.integers(0, 4, (2, 40)).astype(np.int32))
+    w = _t(rng.random((2, 2, 40)).astype(np.float32))
+    before = (va.launches, th.launches)
+    got = ops.votes(preds, 3, noise)
+    for a, b in zip(got, ref.vote_aggregate_plain(preds, 3, noise)[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(ops.tree_hist(xb, node, w, num_nodes=4, num_bins=8),
+                       ref.tree_hist_ref(xb, node, w, 4, 8))
+    assert torch.equal(ops.node_hist(node, w, num_nodes=4),
+                       ref.node_hist_ref(node, w, 4))
+    assert (va.launches, th.launches) == before
+
+
+def _sequential_f32_hist(xb, node, w, n, B, dtype=np.float32):
+    """The kernel's summation order emulated on the CPU: each cell adds
+    its samples' weights one after another, in sample order, in
+    ``dtype`` (np.add.at is unbuffered and runs in index order)."""
+    K, N = w.shape
+    F = xb.shape[1]
+    out = np.zeros((K, n, F, B), dtype)
+    for k in range(K):
+        for f in range(F):
+            np.add.at(out[k, :, f], (node, xb[:, f]), w[k].astype(dtype))
+    return out
+
+
+@pytest.mark.parametrize("N,n,B", [(2000, 32, 32), (3000, 1, 64)])
+def test_float_hist_limit_holds_float32_and_rejects_bfloat16(N, n, B):
+    """The float-weight check of the kernel (``ref.tree_hist_f32_error``)
+    passes every float32 accumulation order — the plain version's single
+    rounding and the kernel's sample-order sum — and fails a sum held in
+    bfloat16 or float16, at a GBDT level-5 and a leaf-build shape."""
+    F = 3 if n > 1 else 1
+    rng = np.random.default_rng(N + n)
+    xb = rng.integers(0, B, (N, F)).astype(np.int32)
+    node = rng.integers(0, n, (N,)).astype(np.int32)
+    w = (rng.random((2, N)) * 2 - 1).astype(np.float32)
+    w[:, -N // 8:] = 0.0
+    args = (_t(xb)[None], _t(node)[None], _t(w)[None], n, B)
+    plain = ref.tree_hist_ref(*args)
+    seq = _t(_sequential_f32_hist(xb, node, w, n, B))[None]
+    for got in (plain, seq):
+        err, ratio = ref.tree_hist_f32_error(got, *args)
+        assert 0 < err and ratio <= 1.0
+    half = _t(_sequential_f32_hist(xb, node, w, n, B, np.float16)
+              .astype(np.float32))[None]
+    bf16 = plain.to(torch.bfloat16).to(torch.float32)
+    for got in (half, bf16):
+        assert ref.tree_hist_f32_error(got, *args)[1] > 100.0
