@@ -6,17 +6,22 @@
 Phases, each failing loudly (a failed check raises and the script exits
 non-zero before printing a result):
 
-  1. device   : the card's name, count, power limit; both CUDA kernels
-                built from ``src/repro_torch/csrc`` (nvcc -Xptxas -v
-                report printed per kernel).
+  1. device   : the card's name, count, power limit; the three CUDA
+                kernels built from ``src/repro_torch/csrc``, one nvcc
+                each, all started together (-Xptxas -v report printed
+                per kernel).
   2. kernels  : each kernel against its plain PyTorch version on the
-                card, at the round's shapes: the vote kernel bit for
+                card, at the main paths' shapes: the vote kernel bit for
                 bit on all five outputs; the histogram kernel exact on
                 integer weights, and on float weights run-to-run
                 identical and within float32 summation's own limit cell
                 by cell (a bfloat16-accumulated stand-in is read beside
-                it).  Times with CUDA events beside each kernel's
-                bound and the plain version's time.
+                it); flash attention at (a) the phi4-mini prefill, (b)
+                gemma2's widths at 6144 positions with window and
+                soft-cap, (c) float32 MQA, within the reference's
+                kernel-test tolerances and identical run to run.  Times
+                with CUDA events beside each kernel's bound, the plain
+                version's time and one library call's where there is one.
   3. round    : the one-shot FedKT round at full width (Adult's size:
                 48,842 rows x 14 features; 10 parties, s=2, t=5) for RF
                 and GBDT at L0 and RF at L2, through FedKTSession on
@@ -24,8 +29,21 @@ non-zero before printing a result):
                 config implies.
   4. parity   : a smaller RF round on the card and on the CPU (plain
                 versions): identical server labels, accuracy, epsilon.
+  5. serving  : phi4-mini-3.8b at full width (random weights from a
+                seeded generator, bf16) behind ``Engine(num_slots=8,
+                cache_len=1024)``: 16 requests of 1-512 prompt tokens,
+                32 tokens each, closed loop.  Every prefill layer must
+                launch the attention kernel (32 per prefill dispatch).
+                TTFT, per-token latency, tok/s, prefill ms per bucket,
+                peak memory.  Three streams against solo
+                ``serve_batch`` runs under the parity rule
+                (``serving.compare_stream``).
+  6. window   : the gemma2 smoke config in float32 (window 64, soft-cap)
+                through the engine, prompts crossing the window, every
+                stream against its solo ``serve_batch`` run.
   --profile    : device time by kernel and the device's busy share of
-                each full-width round (torch.profiler).
+                each full-width round and of the serving run
+                (torch.profiler).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -47,7 +65,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA cores, float32
+BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16 dense
 ADULT_ROWS, ADULT_FEATURES = 48_842, 14
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 
 
 def log(msg=""):
@@ -70,12 +90,17 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the float32 CUDA-core peak."""
+    operations over the peak rate for their type (float32 CUDA cores
+    unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def percentile(xs, q):
+    return sorted(xs)[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
 
 
 def same_bits(a, b):
@@ -275,6 +300,79 @@ def phase_hist(N_teacher, N_student):
     return rows, worst
 
 
+def valid_keys(Sq, Skv, causal, window, q_offset=0):
+    """(query, key) pairs the mask lets through: the work this input
+    needs."""
+    q = np.arange(Sq) + q_offset
+    hi = np.minimum(q + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def phase_attention():
+    """Flash attention against ``ref.attention_ref`` at (a) the phi4-mini
+    prefill, (b) gemma2-27b's widths, (c) float32 MQA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = [  # label, B, S, H, KV, dh, dtype, window, softcap, library
+        ("a_phi4_prefill", 8, 512, 24, 8, 128, torch.bfloat16, 0, 0.0,
+         True),
+        ("b_gemma2_window", 1, 6144, 32, 16, 128, torch.bfloat16, 4096,
+         50.0, False),
+        ("c_f32_mqa", 2, 384, 8, 1, 128, torch.float32, 0, 0.0, True),
+    ]
+    rows, worst = [], 0.0
+    for label, B, S, H, KV, dh, dt, window, cap, lib in cases:
+        q = torch.randn((B, S, H, dh), device="cuda", generator=g).to(dt)
+        k = torch.randn((B, S, KV, dh), device="cuda", generator=g).to(dt)
+        v = torch.randn((B, S, KV, dh), device="cuda", generator=g).to(dt)
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention differs run to run at "
+                                 f"{label}")
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATT_TOL[dt]
+        if not torch.allclose(got.float(), want.float(), atol=tol,
+                              rtol=tol):
+            raise AssertionError(f"flash_attention != plain at {label}: "
+                                 f"max |err| {err}")
+        worst = max(worst, err)
+        del want
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        plain = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3,
+                        warmup=1)
+        lib_ms = None
+        if lib:   # SDPA computes the same function only without extras
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+            torch.testing.assert_close(sdpa.float(), got.float(), atol=tol,
+                                       rtol=tol)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        nops = 4 * B * H * valid_keys(S, S, True, window) * dh
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
+               "H": H, "KV": KV, "dh": dh, "dtype": str(dt),
+               "window": window, "softcap": cap, "max_abs_err": err,
+               "tol": tol, "kernel_ms": ms, "plain_ms": plain,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "flop": nops}
+        log("[kernel] " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, got, again
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3
 # ---------------------------------------------------------------------------
@@ -368,34 +466,184 @@ def phase_parity():
         raise AssertionError("card and CPU rounds disagree")
 
 
-def phase_profile(data):
-    """``--profile``: where the time of each full-width round goes, from
-    torch.profiler: device time by kernel, and the device's busy share
-    of the round's wall time (profiler overhead included in the wall)."""
+def _profiled(name, fn):
+    """Runs ``fn`` under torch.profiler and logs device time by kernel
+    and the device's busy share of the wall time (profiler overhead
+    included in the wall; kernels that overlap would count twice, but
+    everything here runs on one stream)."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    from torch.autograd import DeviceType
+    # device-side events only (kernels, memcpy, memset): an aten op's
+    # device time is its kernels' time, which would count twice
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log("[profile] " + json.dumps({
+        "run": name, "wall_s": secs, "device_busy_s": busy,
+        "busy_share": busy / secs,
+        "top": [{"name": k[:60], "device_ms": us / 1e3, "calls": c}
+                for us, k, c in rows[:10]]}))
+
+
+def phase_profile(data):
+    """``--profile``: where the time of each full-width round goes."""
     from repro_torch.configs.base import FedKTConfig
     from repro_torch.core.learners import GBDTLearner, RFLearner
     for name, learner in (("rf_L0", RFLearner(num_classes=2)),
                           ("gbdt_L0", GBDTLearner())):
         cfg = FedKTConfig(num_classes=2)
         run_round(learner, data, cfg, "cuda")          # warm
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, secs = run_round(learner, data, cfg, "cuda")
-        rows = []
-        for e in prof.key_averages():
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            if dev_us > 0:
-                rows.append((dev_us, e.key, e.count))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows) / 1e6
-        log("[profile] " + json.dumps({
-            "round": name, "wall_s": secs, "device_busy_s": busy,
-            "busy_share": busy / secs,
-            "top": [{"name": k[:60], "device_ms": us / 1e3, "calls": c}
-                    for us, k, c in rows[:8]]}))
+        _profiled(name, lambda: run_round(learner, data, cfg, "cuda"))
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: serving
+# ---------------------------------------------------------------------------
+def serve_prompts(cfg, lens, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, (int(m),)).astype(np.int32)
+            for m in lens]
+
+
+def hold_to_serial(model, params, results, prompts, idx, rtol):
+    """Streams ``idx`` of an engine run (kept logits) against solo
+    ``serve_batch`` runs of the same prompts, under the parity rule:
+    identical, or first differing at a step whose reference top-1 minus
+    top-2 gap the measured logit difference can flip.  Returns the
+    comparisons; raises where the rule fails or the logits are further
+    apart than ``rtol`` of the largest reference logit."""
+    from repro_torch.serving import compare_stream, serve_batch
+    out = []
+    for i in idx:
+        r = results[i]
+        toks, stats = serve_batch(model, params, prompts[i][None],
+                                  r.num_tokens, verbose=False,
+                                  keep_logits=True)
+        ref_logits = stats["logits"][0]
+        info = compare_stream(r.tokens, r.logits, toks[0].tolist(),
+                              ref_logits)
+        info["rid"] = i
+        info["logit_scale"] = float(ref_logits.abs().max())
+        if not bool(torch.isfinite(ref_logits).all()):
+            raise AssertionError(f"stream {i}: non-finite logits")
+        if not info["explained"] or \
+                info["max_diff"] > rtol * info["logit_scale"]:
+            raise AssertionError(f"stream {i} breaks the parity rule: "
+                                 f"{info}")
+        out.append(info)
+    return out
+
+
+def serve_run(model, params, prompts, max_tokens, device, keep_logits,
+              **engine_kw):
+    """Warms an engine on the prompts' buckets, zeroes the kernel's
+    launch count, serves the prompts closed loop.  Returns (engine,
+    results, wall seconds, launches, peak bytes)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import Engine
+    eng = Engine(model, params, device=device, keep_logits=keep_logits,
+                 **engine_kw)
+    eng.warmup(buckets=[len(p) for p in prompts])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    res = eng.serve(prompts, max_tokens=max_tokens)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    return eng, res, wall, launches, peak
+
+
+def serving_metrics(eng, res, wall):
+    lats = [t for r in res for t in r.timing["token_latencies"][1:]]
+    ttft = [r.timing["ttft"] for r in res]
+    toks = sum(r.num_tokens for r in res)
+    return {"streams": len(res), "tokens": toks, "wall_s": wall,
+            "tok_per_s": toks / wall,
+            "ttft_s": {"p50": percentile(ttft, .5),
+                       "p95": percentile(ttft, .95), "max": max(ttft)},
+            "token_latency_ms": {"p50": percentile(lats, .5) * 1e3,
+                                 "p95": percentile(lats, .95) * 1e3},
+            "dispatches": dict(eng.dispatches),
+            "prefill_ms_by_bucket": {
+                f"{b}x{n}": [1e3 * s for s in secs]
+                for (b, n), secs in sorted(eng.prefill_seconds.items())}}
+
+
+def phase_serving(cfg, lens, device="cuda", max_tokens=32, num_slots=8,
+                  cache_len=1024, compare=3, rtol=0.25, profile=False):
+    """The serving path at ``cfg``'s widths: a timed engine run over
+    prompts of ``lens`` tokens, then a replay that keeps logits (it must
+    give the same streams), then ``compare`` streams held to solo
+    serve_batch runs."""
+    from repro_torch.models import Model
+    model = Model(cfg)
+    dev = torch.device(device)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = serve_prompts(cfg, lens)
+    n_requests = len(prompts)
+    kw = dict(num_slots=num_slots, cache_len=cache_len)
+    eng, res, wall, launches, peak = serve_run(
+        model, params, prompts, max_tokens, device, False, **kw)
+    m = serving_metrics(eng, res, wall)
+    m.update({"arch": cfg.name, "dtype": cfg.dtype,
+              "attention_launches": launches, "peak_mem_bytes": peak})
+    log("[serve] " + json.dumps(m))
+    if len(res) != n_requests or any(
+            r.num_tokens != max_tokens or r.finish_reason != "length"
+            for r in res):
+        raise AssertionError("a request did not complete its budget")
+    want = cfg.num_layers * eng.dispatches["prefill"]
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"attention launches {launches} != {want} "
+                             f"(layers x prefill dispatches)")
+    if any(not 0 <= t < cfg.vocab_size for r in res for t in r.tokens):
+        raise AssertionError("token id out of the vocabulary")
+    del eng
+    _, replay, _, _, _ = serve_run(model, params, prompts, max_tokens,
+                                   device, True, **kw)
+    if [r.tokens for r in replay] != [r.tokens for r in res]:
+        raise AssertionError("the engine's streams differ run to run")
+    checks = hold_to_serial(model, params, replay, prompts,
+                            range(compare), rtol)
+    log("[serve-parity] " + json.dumps({
+        "arch": cfg.name, "compared": len(checks),
+        "matched_whole": sum(c["match"] for c in checks),
+        "streams": checks}))
+    if profile:
+        eng, _, _, _, _ = serve_run(model, params, prompts[:num_slots],
+                                    max_tokens, device, False, **kw)
+        for p in prompts[num_slots:]:
+            eng.submit(p, max_tokens)
+        _profiled(f"serve_{cfg.name}", eng.run)
+    return m, launches
+
+
+def phase_window(device="cuda"):
+    """gemma2's sliding window and soft-caps at the smoke widths in
+    float32: prompts shorter and longer than the 64-key window."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("gemma2-27b").replace(dtype="float32",
+                                          param_dtype="float32")
+    return phase_serving(cfg, [30, 70, 100, 129, 64, 5], device,
+                         max_tokens=8, num_slots=2, cache_len=256,
+                         compare=6, rtol=1e-4)
 
 
 def main():
@@ -423,6 +671,7 @@ def main():
     n_student = _pow2_bucket(T)
     vote_rows, vote_err = phase_votes(T)
     hist_rows, hist_err = phase_hist(n_teacher, n_student)
+    att_rows, att_err = phase_attention()
     log(f"[phase] kernels ok at {time.time() - t_start:.1f} s")
 
     _, launches = phase_round(data)
@@ -434,9 +683,24 @@ def main():
     if profile_rounds:
         phase_profile(data)
         torch.cuda.synchronize()
+        log(f"[phase] profile ok at {time.time() - t_start:.1f} s")
+
+    from repro_torch.configs import get_config
+    phi4 = get_config("phi4-mini-3.8b")
+    lens = np.random.default_rng(0).integers(1, 513, 16)
+    _, launches["flash_attention"] = phase_serving(
+        phi4, lens, max_tokens=32, num_slots=8, cache_len=1024,
+        profile=profile_rounds)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[phase] serving ok at {time.time() - t_start:.1f} s")
+    phase_window()
+    torch.cuda.synchronize()
+    log(f"[phase] window ok at {time.time() - t_start:.1f} s")
 
     v = next(r for r in vote_rows if r["U"] == 2 and r["noise"])
     h = hist_rows[0]
+    a = att_rows[0]
     kernels = [
         {"name": "vote_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/vote_aggregate.cu",
@@ -452,6 +716,13 @@ def main():
          "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
          "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
          "library_ms": h["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:83",
+         "launches": launches["flash_attention"], "max_abs_err": att_err,
+         "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
+         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+         "library_ms": a["library_ms"]},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,2 +1,4 @@
-"""Configuration dataclasses (the FedKT round's only, in this slice)."""
-from repro_torch.configs.base import FedKTConfig  # noqa: F401
+"""Configuration dataclasses and the --arch registry."""
+from repro_torch.configs.base import FedKTConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: F401
+                                          get_smoke)

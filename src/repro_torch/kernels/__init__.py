@@ -1,2 +1,2 @@
-"""The round's kernels: hand-written CUDA (``csrc/``) behind ``ops``,
-with their plain PyTorch versions in ``ref``."""
+"""The kernels: hand-written CUDA (``csrc/``) behind ``ops``, with their
+plain PyTorch versions in ``ref``."""

@@ -1,23 +1,52 @@
-"""The vote and tree-histogram ops, dispatched on the tensors' device.
+"""The attention, vote and tree-histogram ops, dispatched on the
+tensors' device.
 
-The counterpart of the vote and tree parts of ``repro.kernels.ops``.
-Where the reference picks a backend by ``jax.default_backend()``, the
-port dispatches on where the data lies:
+The counterpart of ``repro.kernels.ops``.  Where the reference picks a
+backend by ``jax.default_backend()``, the port dispatches on where the
+data lies:
 
   - a CUDA tensor goes to the hand-written kernel (or the kernel
     raises: there is no fallback when a build or launch fails);
   - a CPU tensor goes to the plain PyTorch version (``ref.py``).
 
-To compare a kernel with its plain version on the card, call ``ref``
-directly: nothing here runs a plain version on a CUDA tensor.
+The one plain path on the card is attention's decode (one query row,
+or per-row offsets), which the reference also computes outside its
+kernel (``repro/kernels/ops.py:78``).  To compare a kernel with its
+plain version on the card, call ``ref`` directly: nothing here runs a
+plain version in place of a kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import tree_hist as _th
 from repro_torch.kernels import vote_aggregate as _va
+
+
+# ---------------------------------------------------------------------------
+# Attention  (model layout: q (B, Sq, H, dh), k/v (B, Skv, KV, dh))
+# ---------------------------------------------------------------------------
+def attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
+    """Softmax attention.
+
+    ``q_offset`` is the absolute position of q[:, 0]: an int, or a (B,)
+    integer tensor of per-row offsets (continuous-batching decode, where
+    each batch row is a stream at its own position).  Per-row offsets
+    need Sq == 1.  On a CUDA tensor a prefill (Sq > 1, an int offset)
+    launches the flash-attention kernel; a decode takes the plain path,
+    as in the reference.  A CPU tensor takes the plain path."""
+    per_row = torch.is_tensor(q_offset) and q_offset.dim() == 1
+    if per_row and q.shape[1] != 1:
+        raise NotImplementedError(
+            "per-row q_offset is only supported for single-token decode "
+            f"(Sq == 1); got Sq={q.shape[1]}")
+    if q.is_cuda and q.shape[1] > 1:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=int(q_offset))
+    return ref.attention_plain(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the round's two kernels.
+"""Plain PyTorch versions of the kernels.
 
 These are the semantic ground truth beside each hand-written kernel:
 small, obviously correct, memory-naive.  ``ops.py`` runs them for
@@ -12,6 +12,76 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Attention  (model layout: q (B, Sq, H, dh), k/v (B, Skv, KV, dh))
+# ---------------------------------------------------------------------------
+def _mask(qpos, Skv, causal, window, device):
+    """(..., Sq, Skv) bool: which keys each query row may attend."""
+    kpos = torch.arange(Skv, device=device)
+    m = torch.ones(qpos.shape + (Skv,), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos[..., None]
+    if window > 0:
+        m &= kpos > qpos[..., None] - window
+    return m
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  q_offset=0):
+    """Naive softmax attention oracle (``repro.kernels.ref.attention_ref``).
+
+    q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) with H % KV == 0.
+    ``q_offset`` is the absolute position of q[:, 0] (an int).
+    ``window``: sliding window size (0 = unbounded).  Everything in
+    float32; returns (B, Sq, H, dh) in q.dtype.
+    """
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float() * dh ** -0.5
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    mask = _mask(qpos, Skv, causal, window, q.device)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return out.to(q.dtype)
+
+
+def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    q_offset=0):
+    """The counterpart of the reference's ``_attention_xla``
+    (``repro/kernels/ops.py:97``): the path that every decode step takes
+    on the card and every attention call takes on the CPU.
+
+    ``q_offset`` is an int, or a (B,) integer tensor of per-row offsets
+    (continuous-batching decode, Sq == 1).  Scores, softmax and the
+    P·V sums are float32; the probabilities are rounded to v's dtype
+    before P·V, as the reference does.  GQA folds the group into the
+    head axis without repeating k and v.  (The reference's q-chunking
+    only bounds memory: each query row's softmax is its own.)
+    """
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float().reshape(B, Sq, KV, g, dh) * dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())  # (B,KV,g,Sq,Skv)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    base = torch.as_tensor(q_offset, device=q.device)
+    qpos = base[..., None] + torch.arange(Sq, device=q.device)
+    m = _mask(qpos, Skv, causal, window, q.device)
+    m = m[:, None, None] if m.dim() == 3 else m[None, None, None]
+    s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, dh).to(q.dtype)
 
 
 def vote_aggregate_ref(preds, num_classes, noise=None):

@@ -1,0 +1,60 @@
+"""Uniform model interface (``repro.models.registry``) for the decoder
+LMs the port serves.  Batches are plain dicts with ``tokens`` (B, S),
+an integer tensor on the parameters' device.  ``loss`` and ``predict``
+(training and the teacher vote) are not ported yet."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import device as D
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device=D.DEFAULT) -> transformer.Transformer:
+        """Random parameters on ``device`` (the card unless "cpu" is
+        asked for; raises where there is none), drawn from
+        ``generator``, a ``torch.Generator`` on that device (seed 0 when
+        None)."""
+        dev = D.resolve(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return transformer.init_params(self.cfg, generator, dev)
+
+    def hidden(self, params, batch: Dict[str, Any], *, mode="train",
+               cache=None, pos=None):
+        """(hidden (B, S, D), new_cache)."""
+        return transformer.forward(self.cfg, params, batch["tokens"],
+                                   mode=mode, cache=cache, pos=pos)
+
+    def logits(self, params, batch, *, mode="train", cache=None, pos=None):
+        """(float32 logits (B, S, V), new_cache)."""
+        h, new_cache = self.hidden(params, batch, mode=mode, cache=cache,
+                                   pos=pos)
+        return transformer.logits_fn(self.cfg, params, h), new_cache
+
+    def grow_cache(self, cache, extra_tokens: int):
+        """``cache`` with every KV buffer grown by ``extra_tokens`` slots
+        (sliding-window layers become rings)."""
+        return transformer.grow_cache(self.cfg, cache, extra_tokens)
+
+    def insert_cache(self, slot_cache, prefill_cache, slots, plens):
+        """Writes each request of a padded-bucket prefill cache into its
+        row of the continuous-batching slot cache, in place (see
+        ``transformer.insert_cache``)."""
+        return transformer.insert_cache(self.cfg, slot_cache, prefill_cache,
+                                        slots, plens)
+
+    def init_cache(self, batch_size, cache_len, dtype=None,
+                   device=D.DEFAULT):
+        return transformer.init_cache(self.cfg, batch_size, cache_len,
+                                      dtype, D.resolve(device))
+

@@ -7,7 +7,9 @@ vote kernel is bit-identical on all five outputs; the histogram kernel
 is exact on integer weights, identical run to run on float weights and,
 cell by cell, within what float32 summation of that cell's own terms
 can explain: gamma(m - 1) * sum |w| of the exact sum for its m nonzero
-terms (``ref.tree_hist_f32_error``).
+terms (``ref.tree_hist_f32_error``); the flash-attention kernel is
+within the reference's kernel-test tolerances of ``ref.attention_ref``
+(2e-5 float32, 2e-2 bfloat16) and identical run to run.
 """
 import numpy as np
 import pytest
@@ -115,6 +117,125 @@ def test_wrappers_refuse_bad_inputs(cuda):
         th.tree_hist(xb, node,
                      torch.zeros((2, 8, 2), device=cuda).transpose(1, 2),
                      num_nodes=1, num_bins=4)
+
+
+ATT_SHAPES = [
+    # B, Sq, Skv, H, KV, dh, q_offset
+    (1, 128, 128, 4, 4, 64, 0),
+    (2, 256, 256, 4, 2, 64, 0),      # GQA
+    (2, 256, 256, 8, 1, 128, 0),     # MQA
+    (1, 384, 384, 2, 2, 128, 0),
+    (3, 77, 77, 8, 4, 32, 0),        # ragged edges on both axes
+    (2, 1, 9, 4, 2, 64, 8),          # one query row
+    (1, 100, 300, 4, 2, 128, 200),   # chunked prefill: q_offset
+]
+
+
+def _att_inputs(cuda, B, Sq, Skv, H, KV, dh, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, Sq, H, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, KV, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, KV, dh), generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("shape", ATT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (96, 0.0), (0, 30.0)])
+def test_flash_attention_kernel_against_plain(cuda, shape, dtype, window,
+                                              softcap):
+    """The kernel against ``ref.attention_ref`` at the tolerances of the
+    reference's own kernel test (2e-5 float32, 2e-2 bfloat16), and
+    identical run to run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, Sq, Skv, H, KV, dh, off = shape
+    q, k, v = _att_inputs(cuda, B, Sq, Skv, H, KV, dh, dtype, Sq + dh)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=window,
+                             softcap=softcap, q_offset=off)
+    again = fa.flash_attention(q, k, v, causal=True, window=window,
+                               softcap=softcap, q_offset=off)
+    want = ref.attention_ref(q, k, v, causal=True, window=window,
+                             softcap=softcap, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_attention_op_launches_only_for_prefill(cuda):
+    """ops.attention: a prefill launches the kernel, a decode (one row,
+    scalar or per-row offsets) takes the plain path, as the reference's
+    ops.attention does."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    q, k, v = _att_inputs(cuda, 2, 16, 16, 4, 2, 64, torch.float32, 1)
+    before = fa.launches
+    out = ops.attention(q, k, v, causal=True)
+    assert fa.launches == before + 1
+    torch.testing.assert_close(out, ref.attention_ref(q, k, v), atol=2e-5,
+                               rtol=2e-5)
+    pos = torch.tensor([3, 15], device=cuda)
+    one = ops.attention(q[:, :1], k, v, causal=True, q_offset=pos)
+    one_s = ops.attention(q[:, :1], k, v, causal=True, q_offset=15)
+    assert fa.launches == before + 1
+    torch.testing.assert_close(one[1], one_s[1])
+
+
+def test_flash_attention_wrapper_refuses_bad_inputs(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _att_inputs(cuda, 1, 8, 8, 4, 2, 64, torch.float32, 2)
+    with pytest.raises(TypeError):                 # dtype
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):                 # mixed dtypes
+        fa.flash_attention(q, k.bfloat16(), v)
+    qd, kd, vd = _att_inputs(cuda, 1, 8, 8, 4, 2, 48, torch.float32, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(qd, kd, vd)
+    with pytest.raises(ValueError, match="contiguous"):  # (B, H, S, dh)
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="split"):
+        fa.flash_attention(q, k[:, :, :1].repeat(1, 1, 3, 1).contiguous(),
+                           v[:, :, :1].repeat(1, 1, 3, 1).contiguous())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), v)
+    buf = torch.zeros(q.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(buf[1:].view(q.shape), k, v)
+
+
+def test_engine_on_card_holds_to_serve_batch(cuda):
+    """The gemma2 smoke in float32 on the card (window 64, prompts
+    crossing it): every prefill layer launches the attention kernel,
+    and every stream holds to its solo serve_batch run under the parity
+    rule, with logits within 1e-4 of the largest."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine, compare_stream, serve_batch
+    cfg = get_smoke("gemma2-27b").replace(dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (30, 70, 100)]
+    before = fa.launches
+    eng = Engine(model, params, num_slots=2, cache_len=256,
+                 keep_logits=True)
+    res = eng.serve(prompts, max_tokens=6)
+    assert fa.launches - before == cfg.num_layers * eng.dispatches["prefill"]
+    for r, p in zip(res, prompts):
+        toks, stats = serve_batch(model, params, p[None], 6, verbose=False,
+                                  keep_logits=True)
+        info = compare_stream(r.tokens, r.logits, toks[0].tolist(),
+                              stats["logits"][0])
+        assert info["explained"], info
+        assert info["max_diff"] <= 1e-4 * stats["logits"].abs().max(), info
 
 
 @pytest.mark.parametrize("kind", ["rf", "gbdt"])

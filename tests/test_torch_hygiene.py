@@ -53,8 +53,11 @@ def test_every_port_module_imports_without_cuda():
 
 
 def test_cuda_sources_say_what_they_replace():
+    from repro_torch.kernels import build
     for name, tpu in (("vote_aggregate", "vote_aggregate.py"),
-                      ("tree_hist", "tree_hist.py")):
+                      ("tree_hist", "tree_hist.py"),
+                      ("flash_attention", "flash_attention.py")):
+        assert name in build.KERNELS
         text = (PORT / "csrc" / f"{name}.cu").read_text()
         assert f"src/repro/kernels/{tpu}" in text
         assert "bounds it on the H100" in text
@@ -84,6 +87,43 @@ def test_default_device_is_the_card_and_raises_without_one():
                      FedKTConfig(num_parties=2, num_classes=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_reference((np.zeros(3),))
+
+
+def test_serving_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the no-card path "
+                    "is checked on CPU-only hosts")
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine
+    model = Model(get_smoke("phi4-mini-3.8b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init()
+    params = model.init(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--concurrent", "1", "--max-tokens", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+
+
+def test_cpu_serve_builds_no_kernel():
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine
+    model = Model(get_smoke("gemma2-27b").replace(dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    before = fa.launches
+    eng = Engine(model, params, num_slots=2, cache_len=128, device="cpu")
+    res = eng.serve([np.arange(70) % 512, np.arange(9)], max_tokens=3)
+    assert [r.num_tokens for r in res] == [3, 3]
+    assert eng.dispatches["prefill"] == 2
+    assert build._LIBS == {}
+    assert fa.launches == before
 
 
 def test_cpu_round_builds_no_kernel():
