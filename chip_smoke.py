@@ -6,7 +6,7 @@
 Phases, each failing loudly (a failed check raises and the script exits
 non-zero before printing a result):
 
-  1. device   : the card's name, count, power limit; the three CUDA
+  1. device   : the card's name, count, power limit; the five CUDA
                 kernels built from ``src/repro_torch/csrc``, one nvcc
                 each, all started together (-Xptxas -v report printed
                 per kernel).
@@ -18,10 +18,15 @@ non-zero before printing a result):
                 by cell (a bfloat16-accumulated stand-in is read beside
                 it); flash attention at (a) the phi4-mini prefill, (b)
                 gemma2's widths at 6144 positions with window and
-                soft-cap, (c) float32 MQA, within the reference's
-                kernel-test tolerances and identical run to run.  Times
-                with CUDA events beside each kernel's bound, the plain
-                version's time and one library call's where there is one.
+                soft-cap, (c) float32 MQA, (d) recurrentgemma's local
+                attention at head dim 256, (e) float32 at head dim 256;
+                the RG-LRU scan at the recurrentgemma-2b prefill, at a
+                ragged S = 1000 and in float32; the WKV recurrence at
+                the rwkv6-7b prefill, from a nonzero state, and in
+                float32; each within the reference's kernel-test
+                tolerances and identical run to run.  Times with CUDA
+                events beside each kernel's bound, the plain version's
+                time and one library call's where there is one.
   3. round    : the one-shot FedKT round at full width (Adult's size:
                 48,842 rows x 14 features; 10 parties, s=2, t=5) for RF
                 and GBDT at L0 and RF at L2, through FedKTSession on
@@ -41,8 +46,20 @@ non-zero before printing a result):
   6. window   : the gemma2 smoke config in float32 (window 64, soft-cap)
                 through the engine, prompts crossing the window, every
                 stream against its solo ``serve_batch`` run.
+  7. recurrent: recurrentgemma-2b, then rwkv6-7b, at full width (random
+                weights, bf16) through ``serve_batch``: 4 prompts of
+                1024 tokens, 32 tokens each.  The one prefill must
+                launch one RG-LRU scan per RG-LRU layer, one attention
+                kernel per local-attention layer and one WKV kernel per
+                RWKV layer (18 + 8 + 0 and 0 + 0 + 32); every logit
+                finite.  Prefill ms, decode tok/s, peak memory.
+  8. rec-parity: the recurrentgemma and rwkv6 smokes in float32 through
+                ``serve_batch`` on the card (kernels) and on the CPU
+                (plain versions) with the same weights, held to the
+                parity rule with logits within 1e-4 of the largest; and
+                prefill(P) + decode steps against prefill(P + n).
   --profile    : device time by kernel and the device's busy share of
-                each full-width round and of the serving run
+                each full-width round and of the serving runs
                 (torch.profiler).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -68,6 +85,8 @@ FP32_OPS_PER_S = 67e12         # H100 SXM CUDA cores, float32
 BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16 dense
 ADULT_ROWS, ADULT_FEATURES = 48_842, 14
 ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # test_kernels.py
+WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}    # test_kernels.py
 
 
 def log(msg=""):
@@ -322,6 +341,9 @@ def phase_attention():
         ("b_gemma2_window", 1, 6144, 32, 16, 128, torch.bfloat16, 4096,
          50.0, False),
         ("c_f32_mqa", 2, 384, 8, 1, 128, torch.float32, 0, 0.0, True),
+        ("d_recurrentgemma_local", 4, 1024, 10, 1, 256, torch.bfloat16,
+         2048, 0.0, True),
+        ("e_f32_dh256", 2, 300, 4, 1, 256, torch.float32, 64, 0.0, True),
     ]
     rows, worst = [], 0.0
     for label, B, S, H, KV, dh, dt, window, cap, lib in cases:
@@ -348,14 +370,20 @@ def phase_attention():
         plain = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3,
                         warmup=1)
         lib_ms = None
-        if lib:   # SDPA computes the same function only without extras
+        if lib:   # SDPA computes the same function only without soft-cap
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window:   # the causal window as an explicit mask
+                mask = ref._mask(torch.arange(S, device="cuda"), S, True,
+                                 window, "cuda")
+                sdpa_kw = dict(attn_mask=mask, enable_gqa=True)
+            else:
+                sdpa_kw = dict(is_causal=True, enable_gqa=True)
             sdpa = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+                qt, kt, vt, **sdpa_kw).transpose(1, 2)
             torch.testing.assert_close(sdpa.float(), got.float(), atol=tol,
                                        rtol=tol)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+                qt, kt, vt, **sdpa_kw), reps=10)
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         nops = 4 * B * H * valid_keys(S, S, True, window) * dh
         b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
@@ -369,6 +397,110 @@ def phase_attention():
         log("[kernel] " + json.dumps(row))
         rows.append(row)
         del q, k, v, got, again
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def _rec_row(kernel, label, shape, dt, err, tol, ms, plain, nbytes, nops):
+    b_ms, b_by = bound(nbytes, nops)
+    row = {"kernel": kernel, "shape": label, **shape, "dtype": str(dt),
+           "max_abs_err": err, "tol": tol, "kernel_ms": ms,
+           "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "ops": nops,
+           "bit_identical_run_to_run": True}
+    log("[kernel] " + json.dumps(row))
+    return row
+
+
+def phase_rglru():
+    """The RG-LRU scan against ``ref.rglru_scan_ref`` at the
+    recurrentgemma-2b prefill (4 x 1024 x 2560, bf16), at a ragged S and
+    in float32, from a nonzero h0.  Its operations: exp, multiply, add
+    per element."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = [("recurrentgemma_prefill", 4, 1024, 2560, torch.bfloat16),
+             ("ragged_S1000", 4, 1000, 2560, torch.bfloat16),
+             ("f32_small", 2, 1000, 512, torch.float32)]
+    rows, worst = [], 0.0
+    for label, B, S, D, dt in cases:
+        x = torch.randn((B, S, D), device="cuda", generator=g).to(dt)
+        log_a = (-torch.rand((B, S, D), device="cuda", generator=g)
+                 * 0.1).to(dt)
+        h0 = torch.randn((B, D), device="cuda", generator=g) * 0.5
+        h, hl = rg.rglru_scan(x, log_a, h0)
+        h2, hl2 = rg.rglru_scan(x, log_a, h0)
+        want_h, want_hl = ref.rglru_scan_ref(x, log_a, h0)
+        torch.cuda.synchronize()
+        if not (torch.equal(h, h2) and same_bits(hl, hl2)):
+            raise AssertionError(f"rglru_scan differs run to run at {label}")
+        err = max(float((h.float() - want_h.float()).abs().max()),
+                  float((hl - want_hl).abs().max()))
+        tol = RGLRU_TOL[dt]
+        if not (torch.allclose(h.float(), want_h.float(), atol=tol,
+                               rtol=tol)
+                and torch.allclose(hl, want_hl, atol=tol, rtol=tol)):
+            raise AssertionError(f"rglru_scan != plain at {label}: max "
+                                 f"|err| {err}")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: rg.rglru_scan(x, log_a, h0))
+        plain = cuda_ms(lambda: ref.rglru_scan_ref(x, log_a, h0), reps=3,
+                        warmup=1)
+        nbytes = x.element_size() * 3 * x.numel() + 4 * 2 * B * D
+        rows.append(_rec_row("rglru_scan", label, {"B": B, "S": S, "D": D},
+                             dt, err, tol, ms, plain, nbytes, 3 * B * S * D))
+    return rows, worst
+
+
+def phase_wkv():
+    """The WKV recurrence against ``ref.wkv6_ref`` at the rwkv6-7b
+    prefill (4 x 1024 x 64 heads x 64, bf16) from the zero state, from a
+    nonzero state, and in float32.  Its operations: at least three
+    float32 instructions per state element per step (k_i v_j, the
+    state's multiply-add, the output's multiply-add), counted as 6 at
+    the 67 TFLOP/s that counts an FMA as 2."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = [("rwkv6_prefill", 4, 1024, 64, torch.bfloat16, False),
+             ("rwkv6_prefill_nonzero_s0", 4, 1024, 64, torch.bfloat16, True),
+             ("f32_small", 2, 200, 8, torch.float32, True)]
+    rows, worst = [], 0.0
+    dh = 64
+    for label, B, S, H, dt, nonzero in cases:
+        r, k, v = (torch.randn((B, S, H, dh), device="cuda", generator=g)
+                   .mul(0.5).to(dt) for _ in range(3))
+        w = torch.sigmoid(torch.randn((B, S, H, dh), device="cuda",
+                                      generator=g)).to(dt)
+        u = torch.randn((H, dh), device="cuda", generator=g) * 0.1
+        s0 = (torch.randn((B, H, dh, dh), device="cuda", generator=g) * 0.1
+              if nonzero else torch.zeros((B, H, dh, dh), device="cuda"))
+        o, sl = wk.wkv6(r, k, v, w, u, s0)
+        o2, sl2 = wk.wkv6(r, k, v, w, u, s0)
+        want_o, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and same_bits(sl, sl2)):
+            raise AssertionError(f"wkv6 differs run to run at {label}")
+        err = max(float((o.float() - want_o.float()).abs().max()),
+                  float((sl - want_s).abs().max()))
+        tol = WKV_TOL[dt]
+        if not (torch.allclose(o.float(), want_o.float(), atol=tol,
+                               rtol=tol)
+                and torch.allclose(sl, want_s, atol=tol, rtol=tol)):
+            raise AssertionError(f"wkv6 != plain at {label}: max |err| "
+                                 f"{err}")
+        worst = max(worst, err)
+        del want_o, want_s
+        ms = cuda_ms(lambda: wk.wkv6(r, k, v, w, u, s0))
+        plain = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), reps=2,
+                        warmup=1)
+        nbytes = (r.element_size() * 5 * r.numel() + 4 * u.numel()
+                  + 4 * 2 * s0.numel())
+        rows.append(_rec_row("wkv6", label, {"B": B, "S": S, "H": H,
+                                             "dh": dh}, dt, err, tol, ms,
+                             plain, nbytes, 6 * B * S * H * dh * dh))
+        del r, k, v, w, o, o2
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -646,6 +778,120 @@ def phase_window(device="cuda"):
                          compare=6, rtol=1e-4)
 
 
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: recurrent serving
+# ---------------------------------------------------------------------------
+LAUNCH_KINDS = {"rglru_scan": ("rglru",), "wkv6": ("rwkv",),
+                "flash_attention": ("attn", "attn_local")}
+
+
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention, rglru_scan, wkv6
+    return {"rglru_scan": rglru_scan, "wkv6": wkv6,
+            "flash_attention": flash_attention}
+
+
+def phase_recurrent_serving(cfg, device="cuda", batch=4, prompt_len=1024,
+                            gen=32, profile=False):
+    """``serve_batch`` at ``cfg``'s widths: a short warm-up, then one
+    timed run over ``batch`` prompts of ``prompt_len`` tokens with the
+    launch counts zeroed just before it.  Its one prefill must launch
+    one kernel per layer of the kernel's kinds (on the card).  Returns
+    (metrics, launches by kernel)."""
+    from repro_torch.models import Model
+    from repro_torch.serving import serve_batch
+    mods = _kernel_modules()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    serve_batch(model, params, prompts[:, :32], 2, verbose=False)  # warm
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    toks, stats = serve_batch(model, params, prompts, gen, verbose=False,
+                              keep_logits=True)
+    launches = {n: m.launches for n, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    finite = bool(torch.isfinite(stats["logits"]).all())
+    metrics = {"arch": cfg.name, "dtype": cfg.dtype, "batch": batch,
+               "prompt_len": prompt_len, "gen": gen,
+               "prefill_ms": stats["prefill_s"] * 1e3,
+               "decode_s": stats["decode_s"],
+               "decode_tok_per_s": stats["tok_per_s"],
+               "generated": stats["generated"], "peak_mem_bytes": peak,
+               "launches": launches, "logits_finite": finite}
+    log("[recurrent] " + json.dumps(metrics))
+    want = {n: sum(cfg.layer_kinds.count(k) for k in kinds)
+            for n, kinds in LAUNCH_KINDS.items()}
+    if on_card and launches != want:
+        raise AssertionError(f"{cfg.name}: launches {launches} != {want} "
+                             "(one per layer of each kernel's kinds)")
+    if toks.shape != (batch, gen) or stats["generated"] != batch * gen:
+        raise AssertionError(f"{cfg.name}: not every stream completed")
+    if not finite or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name}: non-finite logits or a token "
+                             "out of the vocabulary")
+    del stats
+    if profile:
+        _profiled(f"serve_batch_{cfg.name}", lambda: serve_batch(
+            model, params, prompts, gen, verbose=False))
+    return metrics, launches
+
+
+def phase_recurrent_parity(arch, device="cuda", prompt_len=100, gen=8,
+                           rtol=1e-4):
+    """The smoke of ``arch`` in float32 through ``serve_batch`` on
+    ``device`` and on the CPU with the same weights: streams under the
+    parity rule, logits within ``rtol`` of the largest; and prefill(P)
+    followed by decode steps against one prefill(P + n) on ``device``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+    from repro_torch.serving import compare_stream, serve_batch
+    cfg = get_smoke(arch).replace(dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    dev = torch.device(device)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    cpu_params = model.init(device="cpu")
+    cpu_params.load_state_dict({n: t.cpu() for n, t in
+                                params.state_dict().items()})
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, prompt_len)).astype(np.int32)
+    toks, stats = serve_batch(model, params, prompts, gen, verbose=False,
+                              keep_logits=True)
+    ctoks, cstats = serve_batch(model, cpu_params, prompts, gen,
+                                verbose=False, keep_logits=True)
+    scale = float(cstats["logits"].abs().max())
+    checks = []
+    for i in range(len(prompts)):
+        info = compare_stream(toks[i].tolist(), stats["logits"][i],
+                              ctoks[i].tolist(), cstats["logits"][i])
+        checks.append(info)
+        if not info["explained"] or info["max_diff"] > rtol * scale:
+            raise AssertionError(f"{cfg.name} stream {i}: card and CPU "
+                                 f"break the parity rule: {info}")
+    longer = np.concatenate([prompts, toks[:, :gen - 1]], axis=1)
+    with torch.inference_mode():
+        lg, _ = model.logits(params, {"tokens": torch.as_tensor(
+            longer, device=dev)}, mode="prefill")
+    handoff = float((lg[:, -1] - stats["logits"][:, gen - 1]).abs().max())
+    row = {"arch": cfg.name, "compared": len(checks),
+           "matched_whole": sum(c["match"] for c in checks),
+           "max_diff": max(c["max_diff"] for c in checks),
+           "logit_scale": scale, "handoff_max_diff": handoff}
+    log("[rec-parity] " + json.dumps(row))
+    if handoff > rtol * scale:
+        raise AssertionError(f"{cfg.name}: prefill(P) + decode != "
+                             f"prefill(P + n): {handoff}")
+    return row
+
+
 def main():
     profile_rounds = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -659,7 +905,7 @@ def main():
     from repro_torch.data.synthetic import tabular_binary
 
     t_start = time.time()
-    name, smi = phase_device()
+    device_name, smi = phase_device()
     torch.cuda.synchronize()
 
     data = tabular_binary(n=ADULT_ROWS, num_features=ADULT_FEATURES,
@@ -672,6 +918,8 @@ def main():
     vote_rows, vote_err = phase_votes(T)
     hist_rows, hist_err = phase_hist(n_teacher, n_student)
     att_rows, att_err = phase_attention()
+    rg_rows, rg_err = phase_rglru()
+    wk_rows, wk_err = phase_wkv()
     log(f"[phase] kernels ok at {time.time() - t_start:.1f} s")
 
     _, launches = phase_round(data)
@@ -698,9 +946,23 @@ def main():
     torch.cuda.synchronize()
     log(f"[phase] window ok at {time.time() - t_start:.1f} s")
 
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        _, rec = phase_recurrent_serving(get_config(arch),
+                                         profile=profile_rounds)
+        for kname, n in rec.items():
+            launches[kname] = launches.get(kname, 0) + n
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[phase] {arch} serving ok at {time.time() - t_start:.1f} s")
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        phase_recurrent_parity(arch)
+    torch.cuda.synchronize()
+    log(f"[phase] recurrent parity ok at {time.time() - t_start:.1f} s")
+
     v = next(r for r in vote_rows if r["U"] == 2 and r["noise"])
     h = hist_rows[0]
     a = att_rows[0]
+    rg, wk = rg_rows[0], wk_rows[0]
     kernels = [
         {"name": "vote_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/vote_aggregate.cu",
@@ -723,11 +985,25 @@ def main():
          "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
          "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
          "library_ms": a["library_ms"]},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:48",
+         "launches": launches["rglru_scan"], "max_abs_err": rg_err,
+         "ms": rg["kernel_ms"], "plain_ms": rg["plain_ms"],
+         "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
+         "library_ms": None},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6.py:53",
+         "launches": launches["wkv6"], "max_abs_err": wk_err,
+         "ms": wk["kernel_ms"], "plain_ms": wk["plain_ms"],
+         "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
+         "library_ms": None},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -13,14 +13,16 @@ from repro_torch.configs.base import ModelConfig
 _MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "gemma2-27b":     "repro_torch.configs.gemma2_27b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "rwkv6-7b":       "repro_torch.configs.rwkv6_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
 
-# the reference's other archs: MoE, recurrent, encoder-decoder, frontends
-NOT_PORTED = ("mixtral-8x7b", "recurrentgemma-2b", "llava-next-mistral-7b",
-              "stablelm-3b", "deepseek-moe-16b", "whisper-tiny",
-              "rwkv6-7b", "granite-20b")
+# the reference's other archs: MoE, encoder-decoder, frontends, and the
+# dense archs whose layers (parallel blocks, partial rotary) wait for them
+NOT_PORTED = ("mixtral-8x7b", "llava-next-mistral-7b", "stablelm-3b",
+              "deepseek-moe-16b", "whisper-tiny", "granite-20b")
 
 
 def _module(arch_id: str):

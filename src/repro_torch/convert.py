@@ -65,10 +65,13 @@ def _fill(module, tree):
 
 def lm_params_from_reference(cfg, params, device=D.DEFAULT):
     """The reference's decoder-LM parameter pytree (arrays numpy can
-    read) -> the port's ``Transformer`` on ``device``.  Periods are
-    unstacked into layers; every matrix keeps its ``x @ W`` orientation
-    and is stored in ``cfg.dtype``, norm parameters in
-    ``cfg.param_dtype``."""
+    read) -> the port's ``Transformer`` on ``device``.  Periods (and a
+    recurrent tail, as recurrentgemma's) are unstacked into layers;
+    every matrix keeps its ``x @ W`` orientation.  Each parameter takes
+    the dtype of the port's module: ``cfg.dtype`` where the reference
+    casts it to the activations' dtype at each use, float32 where it
+    reads it in float32 (RG-LRU's w_a, w_x, lam; RWKV's w0, u,
+    ln_scale), ``cfg.param_dtype`` for norm parameters."""
     from repro_torch.models.transformer import Transformer
     dev = D.resolve(device)
     if params.get("head_blocks"):
@@ -85,7 +88,8 @@ def lm_params_from_reference(cfg, params, device=D.DEFAULT):
 
 def lm_cache_from_reference(cfg, cache, device=D.DEFAULT):
     """The reference's decoder-LM cache -> the port's list of per-layer
-    {"k", "v"} tensors on ``device``."""
+    dicts on ``device``: {"k", "v"} for attention, {"h", "conv"} for
+    RG-LRU, {"wkv", "shift_t", "shift_c"} for RWKV."""
     dev = D.resolve(device)
     return [{n: _tensor(t).to(dev) for n, t in c.items()}
             for c in _layers(cfg, cache)]

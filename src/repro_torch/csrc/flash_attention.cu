@@ -12,8 +12,8 @@
 //
 // Layout: the model's, q/o (B, Sq, H, dh) and k/v (B, Skv, KV, dh),
 // contiguous; the kernel indexes heads by stride, so no transpose is
-// made.  Inputs are float32 or bfloat16 (o has q's type); dh is 32, 64
-// or 128.
+// made.  Inputs are float32 or bfloat16 (o has q's type); dh is 32, 64,
+// 128 or 256 (recurrentgemma's local attention: 2560 / 10 heads).
 //
 // What bounds it on the H100: at the phi4-mini prefill (b = 8, S = 512,
 // H = 24, KV = 8, dh = 128, bf16) the inputs and output are 67 MB, 0.020
@@ -35,7 +35,10 @@
 //
 //  - bfloat16: the two products run on the tensor cores, mma.sync
 //    m16n8k16 with float32 accumulation; 4 warps, each owns 16 query
-//    rows.  Q's fragments are loaded once into registers; S's fragments
+//    rows.  Q's fragments are loaded once into registers (at dh = 256
+//    they are reloaded from shared memory at each k-step, which keeps
+//    the 128 O accumulators a thread holds there clear of spills; the
+//    tile is then 104 KB of shared memory, 2 CTAs an SM); S's fragments
 //    turn into P's A-fragments in registers (P rounded to bf16, as the
 //    reference's xla path rounds p to v's type before P.V); V is stored
 //    transposed so its B-fragments are single 32-bit loads.  Rows of
@@ -45,7 +48,8 @@
 //    16 x 16 thread grid; thread (ty, tx) owns query rows ty + 16i,
 //    score columns tx + 16j and output columns tx + 16c, the q tile is
 //    pre-scaled in shared memory, and the score tile is written over the
-//    K tile as P.  P stays float32, as in the TPU kernel.
+//    K tile as P.  P stays float32, as in the TPU kernel.  At dh = 256
+//    the tiles take 197 KB of shared memory, one CTA an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,6 +114,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The A-fragment of k-step kk for rows row, row + 8 of a (rows, ld) tile
+__device__ __forceinline__ void q_frag(const __nv_bfloat16* Qs, int ld,
+                                       int row, int kk, int t,
+                                       uint32_t (&a)[4]) {
+  const __nv_bfloat16* p = Qs + row * ld + kk * 16 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
 // c += a (16 x 16, row) * b (16 x 8, col); bf16 in, float32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -163,14 +178,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
                : zero;
   }
   __syncthreads();
-  uint32_t qf[KS][4];  // A-fragments of the warp's 16 q rows
+  // A-fragments of the warp's 16 q rows: held in registers for the whole
+  // CTA up to DH = 128; at DH = 256 they would take 64 registers beside
+  // 128 O accumulators, so they are reloaded from Qs at each k-step.
+  constexpr bool QREG = DH <= 128;
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* p = Qs + (r0 + g) * S::LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * S::LD);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * S::LD + 8);
+    for (int kk = 0; kk < KS; ++kk) q_frag(Qs, S::LD, r0 + g, kk, t, qf[kk]);
   }
 
   // rows r0 + g (half 0: accumulator slots 0, 1) and r0 + g + 8 (half
@@ -214,13 +229,22 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
     float sc[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        q_frag(Qs, S::LD, r0 + g, kk, t, qa);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
         const __nv_bfloat16* p = Ks + (8 * j + g) * S::LD + kk * 16 + 2 * t;
-        mma_bf16(sc[j], qf[kk], ld32(p), ld32(p + 8));
+        mma_bf16(sc[j], qa, ld32(p), ld32(p + 8));
       }
     }
 
@@ -509,6 +533,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                            causal, window, softcap, q_offset, s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
+                            causal, window, softcap, q_offset, s);
+    case 256:
+      return launch_dh<256>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
                             causal, window, softcap, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 
 launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p

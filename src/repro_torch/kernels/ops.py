@@ -1,5 +1,5 @@
-"""The attention, vote and tree-histogram ops, dispatched on the
-tensors' device.
+"""The attention, recurrence, vote and tree-histogram ops, dispatched
+on the tensors' device.
 
 The counterpart of ``repro.kernels.ops``.  Where the reference picks a
 backend by ``jax.default_backend()``, the port dispatches on where the
@@ -9,9 +9,10 @@ data lies:
     raises: there is no fallback when a build or launch fails);
   - a CPU tensor goes to the plain PyTorch version (``ref.py``).
 
-The one plain path on the card is attention's decode (one query row,
-or per-row offsets), which the reference also computes outside its
-kernel (``repro/kernels/ops.py:78``).  To compare a kernel with its
+The plain paths on the card are the decode steps: attention's (one
+query row, or per-row offsets) and the recurrences' (S == 1), which the
+reference also computes outside its kernels (``repro/kernels/ops.py``
+``attention``, ``rglru``, ``wkv``).  To compare a kernel with its
 plain version on the card, call ``ref`` directly: nothing here runs a
 plain version in place of a kernel on a CUDA tensor.
 """
@@ -21,8 +22,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import tree_hist as _th
 from repro_torch.kernels import vote_aggregate as _va
+from repro_torch.kernels import wkv6 as _wk
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +50,43 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
                                    softcap=softcap, q_offset=int(q_offset))
     return ref.attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrence
+# ---------------------------------------------------------------------------
+def rglru(x, log_a, h0=None):
+    """h_t = exp(log_a_t) * h_{t-1} + x_t.  x, log_a: (B, S, D) of one
+    dtype; h0: (B, D) float32 or None (zeros).  Returns (h (B, S, D) in
+    x's dtype, h_last (B, D) float32).  On a CUDA tensor a prefill
+    (S > 1) launches the scan kernel; the decode step (S == 1) takes the
+    plain formula, as in the reference.  A CPU tensor takes the plain
+    path."""
+    B, S, D = x.shape
+    if h0 is None:
+        h0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+    if x.is_cuda and S > 1:
+        return _rg.rglru_scan(x, log_a, h0)
+    return ref.rglru_scan_ref(x, log_a, h0)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV  (model layout: r/k/v/w (B, S, H, dh))
+# ---------------------------------------------------------------------------
+def wkv(r, k, v, w, u, s0=None):
+    """RWKV-6 recurrence.  r, k, v, w: (B, S, H, dh) of one dtype; u:
+    (H, dh); s0: (B, H, dh, dh) float32 or None (zeros).  Returns (o (B,
+    S, H, dh) in r's dtype, s_last (B, H, dh, dh) float32).  On a CUDA
+    tensor a prefill (S > 1) launches the WKV kernel; the decode step
+    takes the plain formula, as in the reference.  A CPU tensor takes
+    the plain path."""
+    B, S, H, dh = r.shape
+    if s0 is None:
+        s0 = torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                         device=r.device)
+    if r.is_cuda and S > 1:
+        return _wk.wkv6(r, k, v, w, u, s0)
+    return ref.wkv6_ref(r, k, v, w, u, s0)
 
 
 # ---------------------------------------------------------------------------

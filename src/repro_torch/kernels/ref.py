@@ -84,6 +84,57 @@ def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     return o.reshape(B, Sq, H, dh).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+def rglru_scan_ref(x, log_a, h0=None):
+    """h_t = exp(log_a_t) * h_{t-1} + x_t, scanned over axis 1 in order
+    with a float32 carry (``repro.kernels.ref.rglru_scan_ref``).
+
+    x, log_a: (B, S, D) (x already carries the block's sqrt(1 - a^2)
+    input gate); h0: (B, D) float32 or None (zeros).  Returns (h (B, S,
+    D) in x's dtype, h_last (B, D) float32).  With S == 1 this is the
+    decode step, which the reference also computes outside its kernel.
+    """
+    B, S, D = x.shape
+    xf, af = x.float(), log_a.float()
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        h = torch.exp(af[:, t]) * h + xf[:, t]
+        hs[:, t] = h
+    return hs.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV recurrence
+# ---------------------------------------------------------------------------
+def wkv6_ref(r, k, v, w, u, s0=None):
+    """The RWKV-6 token-mixing recurrence, step by step in float32
+    (``repro.kernels.ref.wkv6_ref``).
+
+    r, k, v, w: (B, S, H, dh), the model layout; w is the per-step decay
+    in (0, 1); u: (H, dh); s0: (B, H, dh_k, dh_v) float32 or None
+    (zeros).  Per head and step:
+
+        o_t = r_t . (s + (u * k_t) v_t^T);   s <- w_t[:, None] * s + k_t v_t^T
+
+    Returns (o (B, S, H, dh) in r's dtype, s_last (B, H, dh, dh)
+    float32).  With S == 1 this is the decode step."""
+    B, S, H, dh = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[..., None]                              # (H, dh, 1)
+    s = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    o = torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, dh, dh)
+        o[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv)
+        s = wf[:, t, :, :, None] * s + kv
+    return o.to(r.dtype), s
+
+
 def vote_aggregate_ref(preds, num_classes, noise=None):
     """Teacher-ensemble max voting (``repro.kernels.ref``).
 

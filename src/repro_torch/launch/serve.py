@@ -12,7 +12,14 @@ On the CPU, at the smoke widths:
 
 Open loop: ``--arrival R`` submits the requests at seeded Poisson
 arrivals of R req/s.  ``--serial`` serves them through the fixed-batch
-``serve_batch`` instead.  Weights are random, from ``--seed``.
+``serve_batch`` instead, which is also the path of the models the
+engine refuses (recurrent blocks), as in the reference:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-2b --device cpu --smoke
+
+Weights are random, from ``--seed``.
 """
 from __future__ import annotations
 
@@ -84,6 +91,7 @@ def main(argv=None):
     from repro_torch.configs import ARCH_IDS, get_config, get_smoke
     from repro_torch.models import Model
     from repro_torch.serving import Engine, serve_batch
+    from repro_torch.serving.engine import refusal
 
     if args.arch not in ARCH_IDS:
         ap.error(f"unknown or unported arch {args.arch!r} (choose from "
@@ -99,7 +107,9 @@ def main(argv=None):
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in lens]
 
-    if args.serial:
+    why = "--serial" if args.serial else refusal(cfg)
+    if why:
+        print(f"serial fixed-batch path ({why})")
         batch = np.stack([np.resize(p, args.prompt_len) for p in prompts])
         tokens, stats = serve_batch(model, params, batch, args.max_tokens,
                                     eos_id=args.eos)

@@ -1,8 +1,7 @@
-"""Shared transformer layers: RMS norm, RoPE, GQA attention, MLPs
-(``repro.models.layers``), for the ported archs: the reference's
-layernorm, partial rotary, geglu/relu2 MLPs and cross attention wait
-for the archs that use them (``transformer._check_ported`` refuses
-their configs).
+"""Shared transformer layers: RMS and layer norms, RoPE, GQA attention,
+MLPs (``repro.models.layers``), for the ported archs: the reference's
+partial rotary, geglu/relu2 MLPs and cross attention wait for the archs
+that use them (``transformer._check_ported`` refuses their configs).
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's dict keys (``attn.wq``, ``ffn.w_up``, ``norm1.scale``...),
@@ -54,13 +53,23 @@ class Norm(nn.Module):
         super().__init__()
         pd = dtype_of(cfg.param_dtype)
         self.scale = _param(torch.ones(cfg.d_model, dtype=pd, device=device))
+        if cfg.norm == "layernorm":
+            self.bias = _param(torch.zeros(cfg.d_model, dtype=pd,
+                                           device=device))
 
 
 def apply_norm(cfg: ModelConfig, p: Norm, x):
-    """RMS norm in float32, back in x's dtype."""
+    """RMS norm, or layer norm with scale and bias (``cfg.norm``), in
+    float32, back in x's dtype."""
     xf = x.float()
-    ms = (xf ** 2).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p.scale.float() + p.bias.float()
+    else:
+        ms = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
     return y.to(x.dtype)
 
 

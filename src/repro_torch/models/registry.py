@@ -1,5 +1,5 @@
 """Uniform model interface (``repro.models.registry``) for the decoder
-LMs the port serves.  Batches are plain dicts with ``tokens`` (B, S),
+LMs the port serves (attention, RG-LRU and RWKV layers).  Batches are plain dicts with ``tokens`` (B, S),
 an integer tensor on the parameters' device.  ``loss`` and ``predict``
 (training and the teacher vote) are not ported yet."""
 from __future__ import annotations
@@ -43,7 +43,8 @@ class Model:
 
     def grow_cache(self, cache, extra_tokens: int):
         """``cache`` with every KV buffer grown by ``extra_tokens`` slots
-        (sliding-window layers become rings)."""
+        (sliding-window layers become rings; recurrent state passes
+        through)."""
         return transformer.grow_cache(self.cfg, cache, extra_tokens)
 
     def insert_cache(self, slot_cache, prefill_cache, slots, plens):

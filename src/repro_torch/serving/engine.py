@@ -63,6 +63,22 @@ class StreamResult:
         return len(self.tokens)
 
 
+def refusal(cfg) -> Optional[str]:
+    """Why ``Engine`` refuses ``cfg`` (a model that ``serve_batch`` must
+    serve instead), or None when it serves it: encoder-decoder and
+    frontend models, and recurrent blocks, whose state has no length
+    axis that a padded bucket's prefill could be corrected along."""
+    if cfg.is_encoder_decoder or cfg.frontend_embeds:
+        return ("Engine serves decoder-only token models; use "
+                "serve_batch for encoder-decoder/frontend configs")
+    bad = [k for k in cfg.pattern if k not in (ATTN, ATTN_LOCAL)]
+    if bad:
+        return (f"recurrent blocks {bad} cannot join padded-bucket "
+                "prefill (state has no length axis to correct); use "
+                "serve_batch")
+    return None
+
+
 class Engine:
     """Continuous-batching greedy-decode engine for one decoder model.
 
@@ -80,16 +96,9 @@ class Engine:
                  device=D.DEFAULT, keep_logits: bool = False):
         self.device = D.resolve(device)
         cfg = model.cfg
-        if cfg.is_encoder_decoder or cfg.frontend_embeds:
-            raise NotImplementedError(
-                "Engine serves decoder-only token models; use "
-                "serve_batch for encoder-decoder/frontend configs")
-        bad = [k for k in cfg.pattern if k not in (ATTN, ATTN_LOCAL)]
-        if bad:
-            raise NotImplementedError(
-                f"recurrent blocks {bad} cannot join padded-bucket "
-                "prefill (state has no length axis to correct); use "
-                "serve_batch")
+        why = refusal(cfg)
+        if why:
+            raise NotImplementedError(why)
         if any(k == ATTN_LOCAL for k in cfg.pattern) \
                 and cache_len < cfg.window:
             raise ValueError(

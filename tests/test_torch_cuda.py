@@ -9,7 +9,12 @@ cell by cell, within what float32 summation of that cell's own terms
 can explain: gamma(m - 1) * sum |w| of the exact sum for its m nonzero
 terms (``ref.tree_hist_f32_error``); the flash-attention kernel is
 within the reference's kernel-test tolerances of ``ref.attention_ref``
-(2e-5 float32, 2e-2 bfloat16) and identical run to run.
+(2e-5 float32, 2e-2 bfloat16) and identical run to run, at head dims
+32 to 256.  The recurrence kernels are held to their plain versions
+(``ref.rglru_scan_ref``, ``ref.wkv6_ref``) within the reference's
+kernel-test tolerances (RG-LRU 1e-4 float32, 3e-2 bfloat16; WKV 1e-4
+float32, 5e-2 bfloat16: the WKV output's 64-term sums run in another
+order) and are identical run to run.
 """
 import numpy as np
 import pytest
@@ -128,6 +133,8 @@ ATT_SHAPES = [
     (3, 77, 77, 8, 4, 32, 0),        # ragged edges on both axes
     (2, 1, 9, 4, 2, 64, 8),          # one query row
     (1, 100, 300, 4, 2, 128, 200),   # chunked prefill: q_offset
+    (2, 200, 200, 10, 1, 256, 0),    # recurrentgemma's heads: dh 256, MQA
+    (1, 70, 330, 2, 1, 256, 260),    # dh 256 with q_offset
 ]
 
 
@@ -278,3 +285,189 @@ def test_round_on_card_equals_round_on_cpu(cuda):
                     for res in (card, cpu))
     np.testing.assert_array_equal(lc, lp)
     assert card.accuracy == cpu.accuracy and card.epsilon == cpu.epsilon
+
+
+# ---------------------------------------------------------------------------
+# The recurrences (K4 rglru_scan, K5 wkv6)
+# ---------------------------------------------------------------------------
+def _randn(g, shape, cuda, scale=1.0):
+    return torch.randn(shape, generator=g, device=cuda) * scale
+
+
+@pytest.mark.parametrize("B,S,D", [(1, 256, 256), (2, 512, 256),
+                                   (2, 128, 512), (4, 1000, 2560),
+                                   (3, 7, 100), (1, 2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_against_plain(cuda, B, S, D, dtype):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    x = _randn(g, (B, S, D), cuda).to(dtype)
+    log_a = (-_randn(g, (B, S, D), cuda).abs() * 0.1).to(dtype)
+    h0 = _randn(g, (B, D), cuda)
+    before = rg.launches
+    h, hl = rg.rglru_scan(x, log_a, h0)
+    h2, hl2 = rg.rglru_scan(x, log_a, h0)
+    want_h, want_hl = ref.rglru_scan_ref(x, log_a, h0)
+    torch.cuda.synchronize()
+    assert rg.launches == before + 2
+    assert h.dtype == dtype and hl.dtype == torch.float32
+    assert torch.equal(h, h2) and _bits_equal(hl, hl2)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(h.float(), want_h.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(hl, want_hl, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H", [(1, 256, 2), (2, 128, 4), (2, 77, 3),
+                                   (1, 2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nonzero_s0", [False, True])
+def test_wkv6_kernel_against_plain(cuda, B, S, H, dtype, nonzero_s0):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    dh = 64
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    r, k, v = (_randn(g, (B, S, H, dh), cuda, 0.5).to(dtype)
+               for _ in range(3))
+    w = torch.sigmoid(_randn(g, (B, S, H, dh), cuda)).to(dtype)
+    u = _randn(g, (H, dh), cuda, 0.1)
+    s0 = (_randn(g, (B, H, dh, dh), cuda, 0.1) if nonzero_s0
+          else torch.zeros((B, H, dh, dh), device=cuda))
+    before = wk.launches
+    o, sl = wk.wkv6(r, k, v, w, u, s0)
+    o2, sl2 = wk.wkv6(r, k, v, w, u, s0)
+    want_o, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wk.launches == before + 2
+    assert o.dtype == dtype and sl.dtype == torch.float32
+    assert torch.equal(o, o2) and _bits_equal(sl, sl2)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(sl, want_s, atol=tol, rtol=tol)
+
+
+def test_recurrence_ops_launch_only_for_prefill(cuda):
+    """ops.rglru / ops.wkv: a prefill (S > 1) launches the kernel, a
+    decode step (S == 1) takes the plain formula, as the reference's
+    ops do; a prefill followed by decode steps equals one longer
+    prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, D, H = 2, 12, 96, 2
+    x = _randn(g, (B, S, D), cuda)
+    log_a = -_randn(g, (B, S, D), cuda).abs() * 0.1
+    before = rg.launches
+    h_all, hl_all = ops.rglru(x, log_a)
+    h, hl = ops.rglru(x[:, :8].contiguous(), log_a[:, :8].contiguous())
+    assert rg.launches == before + 2
+    for t in range(8, S):
+        ht, hl = ops.rglru(x[:, t:t + 1].contiguous(),
+                           log_a[:, t:t + 1].contiguous(), hl)
+        torch.testing.assert_close(ht[:, 0], h_all[:, t], atol=1e-5,
+                                   rtol=1e-5)
+    assert rg.launches == before + 2
+    torch.testing.assert_close(hl, hl_all, atol=1e-5, rtol=1e-5)
+
+    r, k, v = (_randn(g, (B, S, H, 64), cuda, 0.5) for _ in range(3))
+    w = torch.sigmoid(_randn(g, (B, S, H, 64), cuda))
+    u = _randn(g, (H, 64), cuda, 0.1)
+    before = wk.launches
+    o_all, s_all = ops.wkv(r, k, v, w, u)
+    o, s = ops.wkv(*(t[:, :8].contiguous() for t in (r, k, v, w)), u)
+    assert wk.launches == before + 2
+    for t in range(8, S):
+        ot, s = ops.wkv(*(a[:, t:t + 1].contiguous() for a in (r, k, v, w)),
+                        u, s)
+        torch.testing.assert_close(ot[:, 0], o_all[:, t], atol=1e-4,
+                                   rtol=1e-4)
+    assert wk.launches == before + 2
+    torch.testing.assert_close(s, s_all, atol=1e-4, rtol=1e-4)
+
+
+def test_recurrence_wrappers_refuse_bad_inputs(cuda):
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+    x = torch.zeros((2, 8, 16), device=cuda)
+    h0 = torch.zeros((2, 16), device=cuda)
+    with pytest.raises(TypeError):                 # dtype
+        rg.rglru_scan(x.half(), x.half(), h0)
+    with pytest.raises(TypeError):                 # mixed dtypes
+        rg.rglru_scan(x, x.bfloat16(), h0)
+    with pytest.raises(TypeError):                 # h0 must be float32
+        rg.rglru_scan(x, x, h0.bfloat16())
+    with pytest.raises(ValueError):                # device
+        rg.rglru_scan(x, x.cpu(), h0)
+    with pytest.raises(ValueError):                # shape
+        rg.rglru_scan(x, x[:, :4], h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru_scan(x, x.transpose(0, 1).contiguous().transpose(0, 1),
+                      h0)
+    r = torch.zeros((1, 4, 2, 64), device=cuda)
+    u = torch.zeros((2, 64), device=cuda)
+    s0 = torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        r32 = torch.zeros((1, 4, 2, 32), device=cuda)
+        wk.wkv6(r32, r32, r32, r32, u[:, :32].contiguous(),
+                s0[..., :32, :32].contiguous())
+    with pytest.raises(TypeError):
+        wk.wkv6(r, r, r.bfloat16(), r, u, s0)
+    with pytest.raises(TypeError):
+        wk.wkv6(r, r, r, r, u, s0.double())
+    with pytest.raises(ValueError):
+        wk.wkv6(r, r, r, r.cpu(), u, s0)
+    with pytest.raises(ValueError):
+        wk.wkv6(r, r, r, r, u, s0[:, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r, u,
+                s0)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_recurrent_serve_batch_on_card_equals_cpu(cuda, arch):
+    """The smoke config in float32: serve_batch on the card (kernels)
+    and on the CPU (plain versions) with the same weights, held to the
+    parity rule with logits within 1e-4 of the largest; each prefill
+    launches one kernel per recurrent layer (and per local-attention
+    layer); a prefill followed by decode steps equals a longer
+    prefill's last logits."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import Model
+    from repro_torch.serving import compare_stream, serve_batch
+    cfg = get_smoke(arch).replace(dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu_params = model.init(device="cpu")
+    cpu_params.load_state_dict({n: t.cpu() for n, t in
+                                params.state_dict().items()})
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    before = (rg.launches, wk.launches, fa.launches)
+    toks, stats = serve_batch(model, params, prompts, 6, verbose=False,
+                              keep_logits=True)
+    got = (rg.launches - before[0], wk.launches - before[1],
+           fa.launches - before[2])
+    kinds = cfg.layer_kinds
+    assert got == (kinds.count("rglru"), kinds.count("rwkv"),
+                   kinds.count("attn_local"))
+    ctoks, cstats = serve_batch(model, cpu_params, prompts, 6,
+                                verbose=False, keep_logits=True)
+    scale = float(cstats["logits"].abs().max())
+    for i in range(2):
+        info = compare_stream(toks[i].tolist(), stats["logits"][i],
+                              ctoks[i].tolist(), cstats["logits"][i])
+        assert info["explained"], info
+        assert info["max_diff"] <= 1e-4 * scale, info
+    # prefill(P) + decode steps == prefill(P + n)
+    longer = np.concatenate([prompts, toks[:, :5]], axis=1)
+    with torch.inference_mode():
+        lg, _ = model.logits(params, {"tokens": torch.as_tensor(
+            longer, device=cuda)}, mode="prefill")
+    torch.testing.assert_close(lg[:, -1].cpu(), stats["logits"][:, 5].cpu(),
+                               atol=1e-4 * scale, rtol=0)

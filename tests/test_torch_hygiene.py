@@ -56,7 +56,9 @@ def test_cuda_sources_say_what_they_replace():
     from repro_torch.kernels import build
     for name, tpu in (("vote_aggregate", "vote_aggregate.py"),
                       ("tree_hist", "tree_hist.py"),
-                      ("flash_attention", "flash_attention.py")):
+                      ("flash_attention", "flash_attention.py"),
+                      ("rglru_scan", "rglru_scan.py"),
+                      ("wkv6", "wkv6.py")):
         assert name in build.KERNELS
         text = (PORT / "csrc" / f"{name}.cu").read_text()
         assert f"src/repro/kernels/{tpu}" in text
@@ -107,6 +109,9 @@ def test_serving_entry_points_raise_without_a_card():
         serve.main(["--smoke", "--concurrent", "1", "--max-tokens", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--arch", "rwkv6-7b", "--concurrent", "1",
+                    "--max-tokens", "1"])
 
 
 def test_cpu_serve_builds_no_kernel():
@@ -124,6 +129,25 @@ def test_cpu_serve_builds_no_kernel():
     assert eng.dispatches["prefill"] == 2
     assert build._LIBS == {}
     assert fa.launches == before
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_cpu_recurrent_serve_builds_no_kernel(arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import Model
+    from repro_torch.serving import serve_batch
+    model = Model(get_smoke(arch))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    before = (fa.launches, rg.launches, wk.launches)
+    toks, stats = serve_batch(model, params, np.arange(140).reshape(2, 70)
+                              % 512, 3, verbose=False)
+    assert toks.shape == (2, 3) and stats["generated"] == 6
+    assert build._LIBS == {}
+    assert (fa.launches, rg.launches, wk.launches) == before
 
 
 def test_cpu_round_builds_no_kernel():

@@ -1,13 +1,15 @@
 """The port's decoder LM (configs, layers, transformer, Model, serve
 steps) against the JAX reference on the CPU.
 
-The tiny LM (``conftest.tiny_lm_config``) and the phi4-mini and gemma2
-SMOKE configs in float32 run through both packages with the reference's
-parameters carried across by ``convert.lm_params_from_reference``.
-Tolerance: logits within 1e-5 of the reference's largest logit
-(relative), caches within 1e-5 absolute — the same float32 arithmetic
-summed in another order (and RoPE's float32 ``theta ** x`` may differ
-by an ulp between the frameworks).  Greedy tokens and every integer
+The tiny LM (``conftest.tiny_lm_config``) and the phi4-mini, gemma2,
+recurrentgemma and rwkv6 SMOKE configs in float32 run through both
+packages with the reference's parameters carried across by
+``convert.lm_params_from_reference``.  Tolerance: logits within 1e-5 of
+the reference's largest logit (relative), caches (KV and recurrent
+state) within 1e-5 absolute — the same float32 arithmetic summed in
+another order (and RoPE's float32 ``theta ** x`` may differ by an ulp
+between the frameworks; the reference's RG-LRU takes an associative
+scan on the CPU, the port's plain version a sequential one).  Greedy tokens and every integer
 decision are exact.
 """
 import dataclasses
@@ -30,8 +32,10 @@ from repro_torch.convert import (lm_cache_from_reference,
 from repro_torch.core import distill
 from repro_torch.models import Model
 
-ARCHS = ["tiny", "phi4-mini-3.8b", "gemma2-27b"]
-PORTED = ["phi4-mini-3.8b", "gemma2-27b"]
+ARCHS = ["tiny", "phi4-mini-3.8b", "gemma2-27b", "recurrentgemma-2b",
+         "rwkv6-7b"]
+PORTED = ["phi4-mini-3.8b", "gemma2-27b", "recurrentgemma-2b", "rwkv6-7b"]
+RECURRENT = ("rglru", "rwkv")
 RTOL = 1e-5
 
 
@@ -67,7 +71,8 @@ def _close_cache(cfg, got, want):
                                    device="cpu")
     assert len(got) == len(want) == cfg.num_layers
     for g, w in zip(got, want):
-        for n in ("k", "v"):
+        assert set(g) == set(w)
+        for n in w:
             assert g[n].shape == w[n].shape and g[n].dtype == w[n].dtype
             torch.testing.assert_close(g[n], w[n], atol=1e-5, rtol=0)
 
@@ -93,10 +98,11 @@ def test_unported_archs_raise():
     with pytest.raises(KeyError, match="not ported yet"):
         get_config("mixtral-8x7b")
     with pytest.raises(KeyError, match="not ported yet"):
-        get_smoke("rwkv6-7b")
+        get_smoke("whisper-tiny")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
-    cfg = port_config(jget_smoke("recurrentgemma-2b"))
+    # layernorm is ported; the parallel block and partial rotary are not
+    cfg = port_config(jget_smoke("stablelm-3b"))
     with pytest.raises(NotImplementedError, match="not ported"):
         Model(cfg).init(device="cpu")
 
@@ -132,6 +138,21 @@ def test_full_width_parameters_match_the_reference(arch):
         # KV cache: 131 KB per token (32 layers x k,v x 8 heads x 128)
         per_tok = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim_ * 2
         assert per_tok == 131_072
+    # parameters the reference reads in float32 are stored in float32
+    f32 = {"rglru.w_a", "rglru.w_x", "rglru.lam", "tm.w0", "tm.u",
+           "tm.ln_scale"}
+    for block in mod.blocks:
+        for n, p in block.named_parameters():
+            if n in f32:
+                assert p.dtype == torch.float32, n
+            elif p.dim() == 2 and not n.startswith("norm"):
+                assert p.dtype == torch.bfloat16, n
+    if arch == "recurrentgemma-2b":
+        assert mod.blocks[0].rglru.w_a.dtype == torch.float32
+        assert [hasattr(b, "attn") for b in mod.blocks].count(True) == 8
+    if arch == "rwkv6-7b":
+        assert mod.blocks[0].tm.u.dtype == torch.float32
+        assert mod.blocks[0].norm1.bias.shape == (4096,)
 
 
 def test_init_is_seeded_and_typed():
@@ -185,16 +206,19 @@ def test_grow_cache_and_decode_match(pair):
     pc = model.grow_cache(pc, 6)
     _close_logits(pl, jl)
     _close_cache(cfg, pc, jc)
-    if any(k == "attn_local" for k in cfg.pattern):
-        assert pc[0]["k"].shape[1] == cfg.window      # the ring
+    if "attn_local" in cfg.pattern:
+        local = cfg.layer_kinds.index("attn_local")
+        assert pc[local]["k"].shape[1] == cfg.window  # the ring
     decode = distill.make_decode_step(model)
     jtok = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
     ptok = torch.argmax(pl[:, -1], dim=-1)[:, None]
     for i in range(6):
         np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
-        jlog, jc = jm.logits(jp, {"tokens": jtok}, mode="decode", cache=jc,
-                             pos=jnp.int32(P + i))
+        # both from the same cache: a recurrent state advances per call
+        jlog, jc_next = jm.logits(jp, {"tokens": jtok}, mode="decode",
+                                  cache=jc, pos=jnp.int32(P + i))
         jtok, _ = jdecode(jp, jtok, jc, jnp.int32(P + i))
+        jc = jc_next
         ptok, pc, plog = decode(params, ptok, pc, P + i)
         _close_logits(plog, jlog[:, -1])
     _close_cache(cfg, pc, jc)
@@ -207,6 +231,20 @@ def test_bucket_prefill_insert_and_per_row_decode_match(pair):
     per-row positions."""
     cfg, model, params, jm, jp = pair
     num_slots, cache_len, Pb = 3, 128, 128
+    if any(k in RECURRENT for k in cfg.pattern):
+        # recurrent state has no length axis to insert along: both
+        # packages refuse (their engines never get this far)
+        toks = jnp.zeros((1, 8), jnp.int32)
+        _, jpc = jm.logits(jp, {"tokens": toks}, mode="prefill")
+        with pytest.raises(ValueError, match="insertable"):
+            jm.insert_cache(jm.init_cache(num_slots, cache_len), jpc,
+                            jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32))
+        _, ppc = model.logits(params, {"tokens": torch.zeros(
+            (1, 8), dtype=torch.int32)}, mode="prefill")
+        with pytest.raises(ValueError, match="insertable"):
+            model.insert_cache(model.init_cache(num_slots, cache_len,
+                                                device="cpu"), ppc, [0], [1])
+        return
     plens = np.array([100, 30, 70, 1], np.int32)
     slots = np.array([2, 0, 1, num_slots], np.int32)    # last row dropped
     toks = _tokens(cfg, (4, Pb), 2)

@@ -371,3 +371,33 @@ def test_chip_smoke_serving_phases_on_cpu():
         len(v) for v in m["prefill_ms_by_bucket"].values())
     w, _ = chip_smoke.phase_window(device="cpu")
     assert w["streams"] == 6 and w["tokens"] == 48
+
+
+def test_launch_serve_recurrent_takes_the_serial_path(capsys):
+    """The engine refuses recurrent blocks, so the CLI serves the
+    recurrent archs through serve_batch, as the reference's CLI does,
+    and says so."""
+    from repro_torch.launch import serve
+    for arch, plen in (("rwkv6-7b", 16), ("recurrentgemma-2b", 100)):
+        stats = serve.main(["--device", "cpu", "--smoke", "--arch", arch,
+                            "--concurrent", "3", "--max-tokens", "4",
+                            "--prompt-len", str(plen)])
+        assert stats["generated"] == 12 and stats["prompt_len"] == plen
+        out = capsys.readouterr().out
+        assert "serial fixed-batch path (recurrent blocks" in out
+
+
+def test_chip_smoke_recurrent_phases_on_cpu():
+    """chip_smoke.py's recurrent serving and parity phases, rehearsed on
+    the CPU at the smoke widths (their launch-count check applies on the
+    card)."""
+    import chip_smoke
+    from repro_torch.configs import get_smoke
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        m, launches = chip_smoke.phase_recurrent_serving(
+            get_smoke(arch), device="cpu", batch=2, prompt_len=70, gen=3)
+        assert m["generated"] == 6 and m["logits_finite"]
+        assert launches == {"rglru_scan": 0, "wkv6": 0,
+                            "flash_attention": 0}
+        row = chip_smoke.phase_recurrent_parity(arch, device="cpu")
+        assert row["matched_whole"] == 3 and row["max_diff"] == 0.0
