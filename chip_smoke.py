@@ -16,7 +16,10 @@ non-zero before printing a result):
                 integer weights, and on float weights run-to-run
                 identical and within float32 summation's own limit cell
                 by cell (a bfloat16-accumulated stand-in is read beside
-                it); flash attention at (a) the phi4-mini prefill, (b)
+                it), timed at the RF level-5 shapes and at every shape a
+                GBDT round launches (teacher grid G 10, students G 2,
+                final model G 1; levels 0 and 5 and the leaf build);
+                flash attention at (a) the phi4-mini prefill, (b)
                 gemma2's widths at 6144 positions with window and
                 soft-cap, (c) float32 MQA, (d) recurrentgemma's local
                 attention at head dim 256, (e) float32 at head dim 256;
@@ -26,7 +29,8 @@ non-zero before printing a result):
                 float32; each within the reference's kernel-test
                 tolerances and identical run to run.  Times with CUDA
                 events beside each kernel's bound, the plain version's
-                time and one library call's where there is one.
+                time and one library call's where there is one (and
+                the kernel's time over the library's).
   3. round    : the one-shot FedKT round at full width (Adult's size:
                 48,842 rows x 14 features; 10 parties, s=2, t=5) for RF
                 and GBDT at L0 and RF at L2, through FedKTSession on
@@ -293,26 +297,38 @@ def phase_hist(N_teacher, N_student):
             raise AssertionError(f"tree_hist float weights: max |err| "
                                  f"{err} is {ratio} x the float32 limit")
         worst = max(worst, err)
-    # the student level-5 shape: 2 students x 20 trees over 8192 rows
+    # the RF level-5 shapes (2 students x 20 trees over 8192 rows; the
+    # teacher grid's 10 forests x 20 trees), then every shape a GBDT
+    # round launches: the teacher grid (G 10), the students (G 2) and
+    # the final model (G 1), at levels 0 and 5 and at the leaf build
     rows = []
-    for label, G, Gf, N, n in (("student_level5", 40, 2, N_student, 32),
-                               ("teacher_level5", 200, 10, N_teacher, 32)):
-        xb, node, w = _hist_inputs(G, Gf, N, F, B, K, n, True, g)
-        got = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
-        assert torch.equal(got, ref.tree_hist_ref(xb, node, w, n, B))
+    shapes = [("student_level5", 40, 2, N_student, F, 32, B),
+              ("teacher_level5", 200, 10, N_teacher, F, 32, B)]
+    for who, G, N in (("gbdt_teachers", 10, N_teacher),
+                      ("gbdt_students", 2, N_student),
+                      ("gbdt_final", 1, N_student)):
+        shapes += [(f"{who}_level0", G, G, N, F, 1, B),
+                   (f"{who}_level5", G, G, N, F, 32, B),
+                   (f"{who}_leaves", G, G, N, 1, 1, 64)]
+    for label, G, Gf, N, Fs, n, Bs in shapes:
+        xb, node, w = _hist_inputs(G, Gf, N, Fs, Bs, K, n, True, g)
+        got = th.tree_hist(xb, node, w, num_nodes=n, num_bins=Bs)
+        assert torch.equal(got, ref.tree_hist_ref(xb, node, w, n, Bs))
         ms = cuda_ms(lambda: th.tree_hist(xb, node, w, num_nodes=n,
-                                          num_bins=B))
-        plain = cuda_ms(lambda: ref.tree_hist_ref(xb, node, w, n, B),
+                                          num_bins=Bs))
+        plain = cuda_ms(lambda: ref.tree_hist_ref(xb, node, w, n, Bs),
                         reps=5)
-        lib = _scatter_yardstick(xb, node, w, n, B)
+        lib = _scatter_yardstick(xb, node, w, n, Bs)
         assert torch.equal(lib().reshape(got.shape), got)
         lib_ms = cuda_ms(lib)
-        nbytes = 4 * (Gf * N * F + G * N + G * K * N + G * K * n * F * B)
-        b_ms, b_by = bound(nbytes, G * K * N * F)
+        nbytes = 4 * (Gf * N * Fs + G * N + G * K * N
+                      + G * K * n * Fs * Bs)
+        b_ms, b_by = bound(nbytes, G * K * N * Fs)
         row = {"kernel": "tree_hist", "shape": label, "G": G, "Gf": Gf,
-               "N": N, "F": F, "K": K, "n": n, "B": B, "kernel_ms": ms,
+               "N": N, "F": Fs, "K": K, "n": n, "B": Bs, "kernel_ms": ms,
                "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": nbytes}
+               "bound_by": b_by, "kernel_over_library": ms / lib_ms,
+               "bytes": nbytes, "plan": list(th.plan(N, Fs, K, n, Bs))}
         log("[kernel] " + json.dumps(row))
         rows.append(row)
     torch.cuda.synchronize()
@@ -393,6 +409,8 @@ def phase_attention():
                "window": window, "softcap": cap, "max_abs_err": err,
                "tol": tol, "kernel_ms": ms, "plain_ms": plain,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "kernel_over_library": None if lib_ms is None
+               else ms / lib_ms, "bound_share": b_ms / ms,
                "bytes": nbytes, "flop": nops}
         log("[kernel] " + json.dumps(row))
         rows.append(row)

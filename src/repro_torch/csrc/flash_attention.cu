@@ -11,45 +11,68 @@
 // output of 0.
 //
 // Layout: the model's, q/o (B, Sq, H, dh) and k/v (B, Skv, KV, dh),
-// contiguous; the kernel indexes heads by stride, so no transpose is
-// made.  Inputs are float32 or bfloat16 (o has q's type); dh is 32, 64,
-// 128 or 256 (recurrentgemma's local attention: 2560 / 10 heads).
+// contiguous; the kernel indexes heads by stride (or by a tensor map's
+// head coordinate), so no transpose is made.  Inputs are float32 or
+// bfloat16 (o has q's type); dh is 32, 64, 128 or 256 (recurrentgemma's
+// local attention: 2560 / 10 heads).
 //
 // What bounds it on the H100: at the phi4-mini prefill (b = 8, S = 512,
 // H = 24, KV = 8, dh = 128, bf16) the inputs and output are 67 MB, 0.020
 // ms at 3.35 TB/s, and the causal products 12.9 GFLOP, 0.013 ms at the
 // 989 TFLOP/s of the bf16 tensor cores: bytes, barely.  At long
 // sequences (gemma2's 6144 positions, window 4096) the products bound
-// it.
+// it.  Reaching either needs the tensor cores at Hopper's own rate
+// (wgmma, operands from shared memory) and tile loads that never leave
+// the cores waiting on device memory.
 //
 // Design.  One CTA per (64-row q tile, head, batch row); it loops over
 // the 64-key tiles IN ORDER, which replaces the TPU grid's sequential kv
-// axis that carried the scratch.  K and V tiles are staged in shared
-// memory; every accumulator stays in registers.  Ragged edges are
-// masked, not padded: query rows past Sq are loaded as zeros and never
-// stored, keys past Skv are masked.  Key tiles wholly past the tile's
-// causal horizon or wholly before its window are skipped: in the TPU
-// kernel they add exactly nothing (alpha = 1, p = 0).  There are no
-// atomics: every sum has one fixed order, so the output is identical
-// run to run.  Two paths, by input type:
+// axis that carried the scratch.  Every accumulator stays in registers.
+// Ragged edges are masked, not padded: query rows past Sq are loaded as
+// zeros and never stored, keys past Skv are masked.  Key tiles wholly
+// past the tile's causal horizon or wholly before its window are
+// skipped: in the TPU kernel they add exactly nothing (alpha = 1, p =
+// 0).  There are no atomics: every sum has one fixed order, so the
+// output is identical run to run.  Three paths, chosen by the launcher:
 //
-//  - bfloat16: the two products run on the tensor cores, mma.sync
+//  - bfloat16 at dh <= 128 (phi4, gemma2): one consumer warpgroup (the
+//    tile's 64 rows) and one producer warp a CTA.  The producer's one
+//    thread brings Q, K and V tiles by TMA through 4-d tensor maps over
+//    the (B, S, heads, dh) layout (box {<= 64 columns, 1 head, 64 rows,
+//    1}: rows past S are zero-filled and a box never crosses into the
+//    next batch row), swizzled by 128 bytes (64 at dh 32), into a ring
+//    of 2 K/V stages; each copy completes on a "full" mbarrier, and a
+//    stage's K (V) is refilled as soon as all 128 consumer threads have
+//    arrived on its "read" mbarrier, so the next tiles' copies are in
+//    flight while the current tile is consumed.  S = Q K^T is wgmma
+//    m64n64k16 with both operands read from shared memory through
+//    descriptors whose swizzle matches the TMA's; O += P V is wgmma
+//    m64n{dh}k16 with P, S's accumulator rounded to bf16 in registers
+//    (as the reference's xla path rounds p to v's type), as the A
+//    operand, and V read in its natural (keys, dh) layout through
+//    wgmma's transpose bit.  Two CTAs share an SM (83 KB of shared
+//    memory each at dh 128).  The softmax is what the CUDA cores spend
+//    their time on, so it is held to one FMA and one ex2 a score: the
+//    max runs on raw scores, the scale folds into the exponent's FMA,
+//    the mask is evaluated only on tiles that cross Skv, the causal
+//    diagonal or the window's edge, and the soft-cap's tanh takes one
+//    ex2 and one reciprocal.  The last q tiles, which see the most keys
+//    under a causal mask, are started first.
+//  - bfloat16 at dh 256 (recurrentgemma; not redesigned): mma.sync
 //    m16n8k16 with float32 accumulation; 4 warps, each owns 16 query
-//    rows.  Q's fragments are loaded once into registers (at dh = 256
-//    they are reloaded from shared memory at each k-step, which keeps
-//    the 128 O accumulators a thread holds there clear of spills; the
-//    tile is then 104 KB of shared memory, 2 CTAs an SM); S's fragments
-//    turn into P's A-fragments in registers (P rounded to bf16, as the
-//    reference's xla path rounds p to v's type before P.V); V is stored
-//    transposed so its B-fragments are single 32-bit loads.  Rows of
-//    the staged tiles are padded by 8 elements, which makes every
-//    fragment load free of bank conflicts.  wgmma and TMA come later.
+//    rows; Q's A-fragments are reloaded from shared memory at each
+//    k-step, which keeps the 128 O accumulators a thread holds clear of
+//    spills (the tile is 104 KB of shared memory, 2 CTAs an SM); S's
+//    fragments turn into P's A-fragments in registers; V is stored
+//    transposed so its B-fragments are single 32-bit loads; rows of the
+//    staged tiles are padded by 8 elements against bank conflicts.
 //  - float32: FMAs on the CUDA cores (no tensor cores, no TF32), a
 //    16 x 16 thread grid; thread (ty, tx) owns query rows ty + 16i,
 //    score columns tx + 16j and output columns tx + 16c, the q tile is
 //    pre-scaled in shared memory, and the score tile is written over the
 //    K tile as P.  P stays float32, as in the TPU kernel.  At dh = 256
 //    the tiles take 197 KB of shared memory, one CTA an SM.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,12 +83,12 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;  // query rows per CTA
 constexpr int BK = 64;  // keys per tile
 
-// The key tiles [start, end) a q tile can see.
-__device__ __forceinline__ void key_tiles(int q0, int Sq, int Skv,
+// The key tiles [start, end) that query rows [q0, q0 + rows) can see.
+__device__ __forceinline__ void key_tiles(int q0, int rows, int Sq, int Skv,
                                           int q_offset, int causal,
                                           int window, int* start, int* end) {
   const int qlo = q_offset + q0;
-  const int qhi = q_offset + min(q0 + BQ, Sq) - 1;
+  const int qhi = q_offset + min(q0 + rows, Sq) - 1;
   *end = (Skv + BK - 1) / BK;
   if (causal) *end = min(*end, qhi < 0 ? 0 : qhi / BK + 1);
   *start = 0;
@@ -93,7 +116,7 @@ __device__ __forceinline__ float lanes_sum(float x, int width) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync on the tensor cores
+// bfloat16 at dh 256: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
 
@@ -178,16 +201,6 @@ __global__ void __launch_bounds__(MMA_THREADS)
                : zero;
   }
   __syncthreads();
-  // A-fragments of the warp's 16 q rows: held in registers for the whole
-  // CTA up to DH = 128; at DH = 256 they would take 64 registers beside
-  // 128 O accumulators, so they are reloaded from Qs at each k-step.
-  constexpr bool QREG = DH <= 128;
-  uint32_t qf[QREG ? KS : 1][4];
-  if constexpr (QREG) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) q_frag(Qs, S::LD, r0 + g, kk, t, qf[kk]);
-  }
-
   // rows r0 + g (half 0: accumulator slots 0, 1) and r0 + g + 8 (half
   // 1: slots 2, 3)
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -198,7 +211,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
 
   int kt_start, kt_end;
-  key_tiles(q0, Sq, Skv, q_offset, causal, window, &kt_start, &kt_end);
+  key_tiles(q0, BQ, Sq, Skv, q_offset, causal, window, &kt_start,
+            &kt_end);
   for (int kt = kt_start; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the last tile's K and V
@@ -234,13 +248,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      // Q's A-fragments are reloaded at each k-step: held for the CTA
+      // they would take 64 registers beside the 128 O accumulators
       uint32_t qa[4];
-      if constexpr (QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-      } else {
-        q_frag(Qs, S::LD, r0 + g, kk, t, qa);
-      }
+      q_frag(Qs, S::LD, r0 + g, kk, t, qa);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const __nv_bfloat16* p = Ks + (8 * j + g) * S::LD + kk * 16 + 2 * t;
@@ -319,6 +330,436 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at dh <= 128: TMA loads, wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 128 + 32;  // a consumer warpgroup + a producer warp
+constexpr int STAGES = 2;             // the K / V ring
+
+template <int DH>
+struct Wg {
+  // the swizzle: 128 bytes, or a dh-32 row's 64; a 64-row tile is stored
+  // as DH / COLS column blocks of 64 rows x SW bytes (one TMA box each)
+  static constexpr int SW = DH * 2 >= 128 ? 128 : DH * 2;
+  static constexpr int COLS = SW / 2;
+  static constexpr int NBOX = DH / COLS;
+  static constexpr int BOX = 64 * SW;    // bytes of one box
+  static constexpr int TILE = 64 * DH * 2;
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor code
+  // Q, STAGES x (K, V), the barriers (Q; K and V full, K and V free, a
+  // stage each), and slack to align the tiles to 1024 bytes
+  static constexpr size_t bytes =
+      1024 + (size_t)TILE * (1 + 2 * STAGES) + 8 * (1 + 4 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the barrier's phase of `parity` to complete.  A copy that
+// never lands (a tensor map at fault) traps after 2^24 polls (a second
+// or more), so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map, {c0, c1, c2, c3} innermost first
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The wgmma matrix descriptor of a swizzled tile at shared address
+// `addr`: start, leading and stride byte offsets in 16-byte units, and
+// the swizzle code in bits 62-63
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | (layout << 62);
+}
+
+// 2^x on the special-function unit (relative error about 2^-22; 0 for
+// x below -126, as for every masked key)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(x) for y = 2 x log2(e): 1 - 2 / (1 + 2^y), |y| held to 43 (tanh
+// of 15, which rounds to 1 in float32), so 2^y stays finite
+__device__ __forceinline__ float tanh_ex2(float y) {
+  y = fminf(fmaxf(y, -43.f), 43.f);
+  return 1.f - __fdividef(2.f, 1.f + ex2(y));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins accumulator registers at this point of the program: ordinary
+// code may not touch them between an mma_async and its wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, float32) += A (64 x 16) B^T, A and B K-major in shared
+// memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 32, float32) += A (64 x 16, bf16 pairs in registers) B, B
+// in shared memory with N contiguous (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bf16 pairs in registers) B, B
+// in shared memory with N contiguous (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 pairs in registers) B, B
+// in shared memory with N contiguous (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (DH == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (DH == 128) wgmma_rs_n128(d, a, db);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                          int H, int KV, float scale, int causal, int window,
+                          float softcap, int q_offset) {
+  using W = Wg<DH>;
+  constexpr int KS = DH / 16;  // k-steps of Q K^T
+  constexpr int NT = BK / 8;   // 8-key n-tiles of S
+  constexpr int DT = DH / 8;   // 8-wide n-tiles of O
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  // the swizzle pattern repeats every 1024 bytes: align every tile to it
+  const uint32_t raw = smem_u32(smem_wg);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sK = sQ + W::TILE;               // STAGES K tiles
+  const uint32_t sV = sK + STAGES * W::TILE;      // STAGES V tiles
+  const uint32_t bQ = sV + STAGES * W::TILE;      // the Q barrier
+  const uint32_t bK = bQ + 8;                     // K landed, a stage
+  const uint32_t bV = bK + 8 * STAGES;            // V landed, a stage
+  const uint32_t bEK = bV + 8 * STAGES;           // K read, a stage
+  const uint32_t bEV = bEK + 8 * STAGES;          // V read, a stage
+
+  // the last q tiles see the most keys under a causal mask: start them
+  // first, so the short ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  int kt_start, kt_end;
+  key_tiles(q0, BQ, Sq, Skv, q_offset, causal, window, &kt_start, &kt_end);
+  const int n_tiles = kt_end - kt_start;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bQ, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bK + 8 * s, 1);
+      mbar_init(bV + 8 * s, 1);
+      mbar_init(bEK + 8 * s, 128);
+      mbar_init(bEV + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the roles part here and never meet again
+
+  if (threadIdx.x >= 128) {
+    // The producer: one thread keeps the ring full.  Key tile j's K (V)
+    // lands in stage j % STAGES once every consumer thread has released
+    // the K (V) that stage held; rows past S are zero-filled by TMA.
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bQ, W::TILE);
+#pragma unroll
+      for (int c = 0; c < W::NBOX; ++c)
+        tma_load(sQ + c * W::BOX, &tq, bQ, c * W::COLS, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int stage = j % STAGES;
+        const uint32_t reuse = (j / STAGES - 1) & 1;
+        const int kpos = (kt_start + j) * BK;
+        if (j >= STAGES) mbar_wait(bEK + 8 * stage, reuse);
+        mbar_expect_tx(bK + 8 * stage, W::TILE);
+#pragma unroll
+        for (int c = 0; c < W::NBOX; ++c)
+          tma_load(sK + stage * W::TILE + c * W::BOX, &tk, bK + 8 * stage,
+                   c * W::COLS, kvh, kpos, b);
+        if (j >= STAGES) mbar_wait(bEV + 8 * stage, reuse);
+        mbar_expect_tx(bV + 8 * stage, W::TILE);
+#pragma unroll
+        for (int c = 0; c < W::NBOX; ++c)
+          tma_load(sV + stage * W::TILE + c * W::BOX, &tv, bV + 8 * stage,
+                   c * W::COLS, kvh, kpos, b);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: the tile's 64 query rows
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
+  const int r0 = (tid >> 5) * 16;         // the warp's first row
+
+  // rows r0 + g (half 0: accumulator slots 4j, 4j + 1) and r0 + g + 8
+  // (half 1: slots 4j + 2, 4j + 3)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  // p = 2^(v c - m c): v the score (soft-capped when asked), c its
+  // factor into base 2, m the running max of v
+  const bool capped = softcap > 0.f;
+  const float c2 = capped ? LOG2E : scale * LOG2E;
+  const float cap_in = capped ? 2.f * LOG2E * scale / softcap : 0.f;
+  const int qlo = q_offset + q0;           // first and last query
+  const int qhi = qlo + BQ - 1;            // positions of the tile
+
+  mbar_wait(bQ, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (kt_start + i) * BK;
+    const int stage = i % STAGES;
+    const uint32_t parity = (i / STAGES) & 1;
+
+    // S = Q K_i^T: both K-major; k-step kk is 32 bytes into its box row
+    float sc[NT * 4];
+#pragma unroll
+    for (int e = 0; e < NT * 4; ++e) sc[e] = 0.f;
+    const uint32_t tK = sK + stage * W::TILE;
+    mbar_wait(bK + 8 * stage, parity);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk * 16 / W::COLS) * W::BOX +
+                           (kk * 16 % W::COLS) * 2;
+      wgmma_ss_n64(sc, sdesc(sQ + off, 16, 8 * W::SW, W::LAYOUT),
+                   sdesc(tK + off, 16, 8 * W::SW, W::LAYOUT));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    mbar_arrive(bEK + 8 * stage);  // this thread is done with K_i
+
+    // the mask binds only on tiles that cross Skv, the causal diagonal
+    // or the window's edge
+    const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > qlo) ||
+                        (window > 0 && k0 <= qhi - window);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = qlo + r0 + g + 8 * half;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = sc[4 * j + 2 * half + e];
+          if (capped)  // softcap tanh(v scale / softcap), tanh(y) as
+            v = softcap * tanh_ex2(v * cap_in);  // 1 - 2 / (1 + 2^y')
+          if (masked && !visible(qpos, k0 + 8 * j + 2 * t + e, Skv, causal,
+                                 window))
+            v = NEG_INF;
+          sc[4 * j + 2 * half + e] = v;
+          mx = fmaxf(mx, v);
+        }
+      mx = lanes_max(mx, 4);  // the quad that shares the row
+      const float m_new = fmaxf(m[half], mx);
+      // a row that has seen no visible key yet keeps m == NEG_INF and
+      // exponent base 0, so its masked keys give exactly 0
+      const float mc = (m_new == NEG_INF ? 0.f : m_new) * c2;
+      const float alpha = ex2(fmaf(m[half], c2, -mc));
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT * 2; ++j) {
+        const int e = 4 * (j / 2) + 2 * half + j % 2;
+        sc[e] = ex2(fmaf(sc[e], c2, -mc));
+        rs += sc[e];
+      }
+      rs = lanes_sum(rs, 4);
+      l[half] = l[half] * alpha + rs;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[4 * d + 2 * half] *= alpha;
+        acc[4 * d + 2 * half + 1] *= alpha;
+      }
+      m[half] = m_new;
+    }
+
+    // O += P V: S's accumulators of n-tiles 2kk, 2kk + 1 are P's
+    // A-fragment (P rounded to bf16, as the reference rounds p to v's
+    // type); V is read in its (keys, dh) layout, N-major, 16 keys a step
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    const uint32_t tV = sV + stage * W::TILE;
+    mbar_wait(bV + 8 * stage, parity);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<DH>(acc, pa[kk],
+                   sdesc(tV + kk * 16 * W::SW, W::BOX, 8 * W::SW, W::LAYOUT));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bEV + 8 * stage);  // this thread is done with V_i
+  }
+
+  const size_t q_step = (size_t)H * DH;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * q_step + (size_t)h * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = q0 + r0 + g + 8 * half;
+    if (s < Sq) {
+      const float li = l[half] == 0.f ? 1.f : l[half];
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)s * q_step + 8 * d +
+                                           2 * t) =
+            __floats2bfloat162_rn(acc[4 * d + 2 * half] / li,
+                                  acc[4 * d + 2 * half + 1] / li);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMAs on the CUDA cores
 // ---------------------------------------------------------------------------
 constexpr int FMA_THREADS = 256;  // a 16 x 16 thread grid
@@ -379,7 +820,8 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 
   int kt_start, kt_end;
-  key_tiles(q0, Sq, Skv, q_offset, causal, window, &kt_start, &kt_end);
+  key_tiles(q0, BQ, Sq, Skv, q_offset, causal, window, &kt_start,
+            &kt_end);
   for (int kt = kt_start; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q is staged; the last tile's P and V reads are done
@@ -475,6 +917,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -495,16 +938,96 @@ int launch(Kernel kern, int threads, size_t smem, const void* q,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, a driver-API call, found through the runtime
+// so that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// The 4-d map {dh, heads, S, B} of a contiguous (B, S, heads, dh) bf16
+// tensor, boxes of {cols, 1, 64, 1}: one 64-row tile of one head, `cols`
+// columns of it, swizzled as the wgmma descriptors read it.  Rows past S
+// are zero-filled; a box never crosses into the next batch row.
+bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int dh, int cols, int swizzle_bytes) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * dh, 2ull * dh * heads,
+                                 2ull * dh * heads * S};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)BQ, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int Sq, int Skv, int H, int KV, float scale, int causal,
+                 int window, float softcap, int q_offset,
+                 cudaStream_t stream) {
+  using W = Wg<DH>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
+      !tensor_map(&tk, k, B, Skv, KV, DH, W::COLS, W::SW) ||
+      !tensor_map(&tv, v, B, Skv, KV, DH, W::COLS, W::SW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)W::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_attention_wgmma<DH><<<grid, WG_THREADS, W::bytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, Sq, Skv, H, KV, scale, causal, window,
+      softcap, q_offset);
+  return (int)cudaGetLastError();
+}
+
+// The three paths: bfloat16 at dh <= 128 on wgmma, bfloat16 at dh 256
+// on mma.sync, float32 on FMAs.  A refused launch returns its error; no
+// path stands in for another.
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
               void* o, int B, int Sq, int Skv, int H, int KV, float scale,
               int causal, int window, float softcap, int q_offset,
               cudaStream_t s) {
-  if (bf16)
-    return launch<__nv_bfloat16>(flash_attention_bf16<DH>, MMA_THREADS,
-                                 SmemBF16<DH>::bytes, q, k, v, o, B, Sq, Skv,
-                                 H, KV, scale, causal, window, softcap,
-                                 q_offset, s);
+  if (bf16) {
+    if constexpr (DH <= 128)
+      return launch_wgmma<DH>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                              window, softcap, q_offset, s);
+    else
+      return launch<__nv_bfloat16>(flash_attention_bf16<DH>, MMA_THREADS,
+                                   SmemBF16<DH>::bytes, q, k, v, o, B, Sq,
+                                   Skv, H, KV, scale, causal, window,
+                                   softcap, q_offset, s);
+  }
   return launch<float>(flash_attention_f32<DH>, FMA_THREADS,
                        SmemF32<DH>::bytes, q, k, v, o, B, Sq, Skv, H, KV,
                        scale, causal, window, softcap, q_offset, s);
@@ -513,9 +1036,10 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o (B, Sq, H, dh); k, v (B, Skv, KV, dh); contiguous, all float32
-// (bf16 = 0) or all bfloat16 (bf16 = 1, 16-byte aligned).  scale is
+// (bf16 = 0) or all bfloat16 (bf16 = 1), 16-byte aligned.  scale is
 // dh^-0.5 rounded to float32.  Launches on `stream`; returns
-// cudaGetLastError() (or the error of the shared-memory opt-in).
+// cudaGetLastError() (or the error of the shared-memory opt-in, or
+// cudaErrorInvalidValue where a tensor map cannot be made).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KV, int dh,
@@ -524,6 +1048,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int q_offset, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (Skv == 0)  // no key at all: every row is 0
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * H * dh *
+                                          (bf16 ? 2 : 4), s);
   switch (dh) {
     case 32:
       return launch_dh<32>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,

@@ -3,13 +3,15 @@
 The counterpart of ``repro.kernels.flash_attention.flash_attention``:
 blocked online-softmax attention with GQA, a causal mask, a sliding
 window, a tanh logit soft-cap and a scalar ``q_offset``; bfloat16
-inputs run on the tensor cores (mma.sync, P rounded to bf16 before
-P·V), float32 inputs on FMAs in full float32.  It takes the
+inputs run on the tensor cores (P rounded to bf16 before P·V): at head
+dims up to 128 on wgmma with TMA tile loads, at 256 on mma.sync;
+float32 inputs on FMAs in full float32.  It takes the
 model layout, q (B, Sq, H, dh) and k/v (B, Skv, KV, dh), where the
 reference's kernel takes (B, H, S, dh) after a transpose and padding
-in ``ops.attention``: the CUDA kernel reads heads by stride and masks
-its ragged edges.  CUDA tensors only; ``ops.attention`` runs the plain
-version (``ref.attention_plain``) for CPU tensors.
+in ``ops.attention``: the CUDA kernel reads heads by stride (or
+through TMA tensor maps over the same layout, made by its launcher)
+and masks its ragged edges.  CUDA tensors only; ``ops.attention`` runs
+the plain version (``ref.attention_plain``) for CPU tensors.
 
 ``launches`` counts the kernel launches this process made, so a run
 can show that its prefills went through the kernel.
@@ -54,7 +56,7 @@ def _check(t, name, shape, dtype, device):
                          f"(B, S, heads, dh) layout")
     if t.data_ptr() % 16:
         raise ValueError(f"flash_attention: {name} must start on a 16-byte "
-                         f"boundary (the bf16 path loads 16 bytes a thread)")
+                         f"boundary (TMA and 16-byte loads need it)")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -7,7 +7,11 @@ only; ``ops.tree_hist`` runs the plain version (``ref.tree_hist_ref``)
 for CPU tensors.
 
 ``launches`` counts the kernel launches this process made, so a run
-can show that its fits went through the kernel.
+can show that its fits went through the kernel; one call is one launch,
+though the CUDA launcher runs two kernels (the per-chunk partial
+histograms, then their combine) when a tree's rows span several chunks.
+``plan`` is the launch's plan, computed here so that the scratch for
+the partials is allocated by the wrapper.
 """
 from __future__ import annotations
 
@@ -19,7 +23,12 @@ from repro_torch.kernels import build
 
 launches = 0
 
-MAX_GRID_Y = 65535
+CHUNK_MIN, CHUNK_MAX = 256, 2048  # rows a chunk: 2 n B, a power of 2
+WARP_HIST = 12288    # floats of one warp's histogram window: 48 KB
+CTA_HIST = 24576     # floats of a CTA's histograms: 96 KB, two CTAs an SM
+MAX_WARPS = 8        # features (warps) a CTA
+MAX_GRID_X = 2 ** 31 - 1   # trees x chunks
+MAX_GRID_Y = 65535         # feature groups
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -28,7 +37,7 @@ _I = ctypes.c_int
 def _lib():
     lib = build.load("tree_hist")
     fn = lib.tree_hist_launch
-    fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 11 + [_P]
     fn.restype = _I
     lib.tree_hist_max_channels.restype = _I
     return fn, int(lib.tree_hist_max_channels())
@@ -45,6 +54,30 @@ def _check(t, name, dtype, ndim, device):
                          f"shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"tree_hist: {name} must be contiguous")
+
+
+def _pow2(x):
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def plan(N, F, K, num_nodes, num_bins):
+    """The launch plan: (chunk, chunks, window, warps, groups).
+
+    A tree's N rows are cut into ``chunks`` chunks of ``chunk`` rows at
+    fixed row indices from 0; the chunk size depends on the key space
+    n * B only (never on N or the number of trees), so a serial fit and
+    a stacked fit sum each cell in the same order.  Each warp keeps a
+    histogram of ``window`` fused keys (node * B + bin) for all K
+    channels in shared memory; ``warps`` features share a CTA, and
+    ``groups`` CTAs cover the F features."""
+    keys = num_nodes * num_bins
+    chunk = min(CHUNK_MAX, max(CHUNK_MIN, 2 * _pow2(keys)))
+    chunks = -(-N // chunk)
+    window = max(1, min(keys, WARP_HIST // max(K, 1)))
+    most = max(1, min(MAX_WARPS, CTA_HIST // (max(K, 1) * window)))
+    groups = -(-F // most) if F else 0
+    warps = -(-F // groups) if F else 1
+    return chunk, chunks, window, warps, groups
 
 
 def tree_hist(xb, node, w, *, num_nodes, num_bins):
@@ -64,20 +97,25 @@ def tree_hist(xb, node, w, *, num_nodes, num_bins):
     if Gf == 0 or G % Gf:
         raise ValueError(f"tree_hist: {G} trees do not split evenly over "
                          f"{Gf} feature sets")
-    if G > MAX_GRID_Y:
-        raise ValueError(f"tree_hist: {G} trees exceed one launch's "
-                         f"{MAX_GRID_Y}")
+    n, B = int(num_nodes), int(num_bins)
     fn, max_k = _lib()
     if K > max_k:
         raise ValueError(f"tree_hist: {K} weight channels exceed the "
                          f"kernel's {max_k}")
-    out = torch.empty((G, K, num_nodes, F, num_bins), dtype=torch.float32,
-                      device=dev)
+    chunk, chunks, window, warps, groups = plan(N, F, K, n, B)
+    if G * chunks > MAX_GRID_X or groups > MAX_GRID_Y:
+        raise ValueError(f"tree_hist: {G} trees x {chunks} chunks of "
+                         f"{chunk} rows exceed one launch's {MAX_GRID_X}, "
+                         f"or {groups} feature groups its {MAX_GRID_Y}")
+    out = torch.empty((G, K, n, F, B), dtype=torch.float32, device=dev)
+    part = (torch.empty((G, chunks, K, n, F, B), dtype=torch.float32,
+                        device=dev) if chunks > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xb.data_ptr(), node.data_ptr(), w.data_ptr(),
-                 out.data_ptr(), Gf, G, N, F, K, int(num_nodes),
-                 int(num_bins), stream)
+                 out.data_ptr(), 0 if part is None else part.data_ptr(),
+                 Gf, G, N, F, K, n, B, chunk, chunks, window, warps,
+                 stream)
     build.check(err, "tree_hist")
     launches += 1
     return out

@@ -124,6 +124,87 @@ def test_wrappers_refuse_bad_inputs(cuda):
                      num_nodes=1, num_bins=4)
 
 
+
+# The sample-parallel histogram: rows cut into chunks at fixed indices,
+# partials combined in chunk order.  N off the chunk grid, the worst
+# key collisions, the widest channel count, the leaf build's bins, and
+# a tree alone against the same tree inside a padded stack.
+@pytest.mark.parametrize("N", [1, 255, 257, 8193])
+def test_tree_hist_rows_off_the_chunk_grid(cuda, N):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_hist as th
+    G, Gf, F, n, K, B = 3, 1, 5, 4, 2, 32
+    xb, node, w = _hist_inputs(cuda, G, Gf, N, F, B, K, n, True, N)
+    got = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
+    assert torch.equal(got, ref.tree_hist_ref(xb, node, w, n, B))
+    xb, node, w = _hist_inputs(cuda, G, Gf, N, F, B, K, n, False, N + 1)
+    a = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
+    b = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
+    torch.cuda.synchronize()
+    assert _bits_equal(a, b)
+    assert ref.tree_hist_f32_error(a, xb, node, w, n, B)[1] <= 1.0
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_tree_hist_every_sample_in_one_cell(cuda, integer):
+    """n = 1 and one bin: all 32 rows of every warp step collide."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_hist as th
+    G, N, F, K, B = 2, 8193, 3, 2, 32
+    xb, node, w = _hist_inputs(cuda, G, G, N, F, B, K, 1, integer, 5)
+    xb = torch.full_like(xb, 7)
+    got = th.tree_hist(xb, node, w, num_nodes=1, num_bins=B)
+    if integer:
+        assert torch.equal(got, ref.tree_hist_ref(xb, node, w, 1, B))
+    else:
+        again = th.tree_hist(xb, node, w, num_nodes=1, num_bins=B)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, again)
+        assert ref.tree_hist_f32_error(got, xb, node, w, 1, B)[1] <= 1.0
+    assert bool((got[..., :7] == 0).all() and (got[..., 8:] == 0).all())
+
+
+@pytest.mark.parametrize("K,n,B,F", [(16, 8, 32, 6), (16, 32, 32, 2),
+                                     (2, 1, 64, 1), (3, 64, 64, 1),
+                                     (2, 128, 64, 1)])
+def test_tree_hist_wide_channels_and_bins(cuda, K, n, B, F):
+    """K = 16 channels; the leaf build's 64 bins at n = 1; key spaces
+    wider than one warp's window (n * B * K past 12,288 floats)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_hist as th
+    G, N = 4, 3000
+    xb, node, w = _hist_inputs(cuda, G, 2, N, F, B, K, n, True, K + n)
+    got = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
+    assert torch.equal(got, ref.tree_hist_ref(xb, node, w, n, B))
+    xb, node, w = _hist_inputs(cuda, G, 2, N, F, B, K, n, False, K * n)
+    got = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
+    assert ref.tree_hist_f32_error(got, xb, node, w, n, B)[1] <= 1.0
+
+
+@pytest.mark.parametrize("n,F,B", [(32, 14, 32), (1, 14, 32), (1, 1, 64)])
+def test_tree_hist_alone_equals_in_padded_stack_as_bits(cuda, n, F, B):
+    """One tree of 3000 rows alone (G = 1, N = 3000) and as tree 17 of
+    a G = 40 stack over 8192 rows whose tail is zero-weight padding
+    with arbitrary keys: the same float32 bits, as a serial and a
+    stacked fit need; float weights of both signs stay within the f32
+    limit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_hist as th
+    G, N, N1, K = 40, 8192, 3000, 2
+    xb, node, w = _hist_inputs(cuda, G, G, N, F, B, K, n, False, n + F)
+    w[:, :, N1:] = 0.0
+    w[17, :, N1::3] = -0.0
+    stack = th.tree_hist(xb, node, w, num_nodes=n, num_bins=B)
+    alone = th.tree_hist(xb[17:18, :N1].contiguous(),
+                         node[17:18, :N1].contiguous(),
+                         w[17:18, :, :N1].contiguous(), num_nodes=n,
+                         num_bins=B)
+    torch.cuda.synchronize()
+    assert _bits_equal(stack[17:18], alone)
+    assert not bool((alone.view(torch.int32) == -2 ** 31).any())  # no -0.0
+    assert ref.tree_hist_f32_error(stack, xb, node, w, n, B)[1] <= 1.0
+
+
 ATT_SHAPES = [
     # B, Sq, Skv, H, KV, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),
@@ -172,6 +253,44 @@ def test_flash_attention_kernel_against_plain(cuda, shape, dtype, window,
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+
+WG_CASES = [
+    # B, Sq, Skv, H, KV, q_offset, window, softcap
+    (2, 2, 2, 8, 8, 0, 0, 0.0),          # GQA ratio 1, two rows
+    (1, 63, 63, 24, 8, 0, 0, 0.0),       # ratio 3 (phi4's heads)
+    (2, 65, 65, 8, 1, 0, 0, 50.0),       # ratio 8, soft-cap
+    (1, 300, 300, 6, 2, 0, 96, 0.0),     # window
+    (1, 63, 300, 3, 1, 237, 0, 0.0),     # q_offset: the last 63 rows
+    (2, 65, 300, 8, 1, 235, 64, 50.0),   # offset, window and soft-cap
+    (1, 70, 65, 4, 4, 100, 64, 0.0),     # rows 28.. see no key at all
+]
+
+
+@pytest.mark.parametrize("case", WG_CASES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_attention_wgmma_path(cuda, case, dh):
+    """The bfloat16 path at dh <= 128 (TMA + wgmma) at ragged Sq and Skv,
+    q_offset, window, soft-cap and GQA ratios 1, 3, 8: within 2e-2 of
+    ``ref.attention_ref``, identical run to run, and exactly 0 on rows
+    that see no key (where the naive oracle averages every value)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, Sq, Skv, H, KV, off, window, cap = case
+    q, k, v = _att_inputs(cuda, B, Sq, Skv, H, KV, dh, torch.bfloat16,
+                          Sq * Skv + dh)
+    kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    qpos = torch.arange(Sq, device=cuda) + off
+    seen = ref._mask(qpos, Skv, True, window, cuda).any(-1)     # (Sq,)
+    assert bool((got[:, ~seen] == 0).all())
+    torch.testing.assert_close(got[:, seen].float(), want[:, seen].float(),
+                               atol=2e-2, rtol=2e-2)
 
 
 def test_attention_op_launches_only_for_prefill(cuda):

@@ -214,3 +214,38 @@ def test_float_hist_limit_holds_float32_and_rejects_bfloat16(N, n, B):
     bf16 = plain.to(torch.bfloat16).to(torch.float32)
     for got in (half, bf16):
         assert ref.tree_hist_f32_error(got, *args)[1] > 100.0
+
+
+@pytest.mark.parametrize("N,F,K,n,B", [(8192, 14, 2, 32, 32),
+                                       (8192, 14, 2, 1, 32),
+                                       (8192, 1, 2, 1, 64),
+                                       (1, 3, 16, 64, 64), (0, 5, 2, 4, 8),
+                                       (100_000, 40, 16, 32, 32),
+                                       (257, 33, 10, 16, 32),
+                                       (3000, 1, 3, 64, 64)])
+def test_tree_hist_launch_plan(N, F, K, n, B):
+    """The histogram kernel's launch plan (``tree_hist.plan``): chunks
+    of a power-of-two row count set by the key space n * B alone (a
+    serial and a stacked fit cut a tree's rows alike, whatever N); warps
+    a CTA and feature groups covering F; a warp's key window and a CTA's
+    histograms within their shared-memory budgets."""
+    from repro_torch.kernels import tree_hist as th
+    chunk, chunks, window, warps, groups = th.plan(N, F, K, n, B)
+    assert th.CHUNK_MIN <= chunk <= th.CHUNK_MAX
+    assert chunk & (chunk - 1) == 0 and (chunk >= 2 * n * B or
+                                         chunk == th.CHUNK_MAX)
+    more = th.plan(10 * N + 7, F, K, n, B)
+    assert more[0] == chunk and more[2:] == (window, warps, groups)
+    assert (chunks - 1) * chunk < N <= chunks * chunk or N == chunks == 0
+    assert 1 <= window <= n * B and K * window <= th.WARP_HIST
+    assert window == n * B or K * (window + 1) > th.WARP_HIST
+    assert 1 <= warps <= th.MAX_WARPS
+    assert warps == 1 or warps * K * window <= th.CTA_HIST
+    assert (groups - 1) * warps < F <= groups * warps
+    # level 5 of the round: 2048-row chunks, 7 features a CTA; level 0
+    # and the leaf build: 256-row chunks
+    if (N, F, K, n, B) == (8192, 14, 2, 32, 32):
+        assert (chunk, chunks, window, warps, groups) == (2048, 4, 1024, 7,
+                                                          2)
+    if n == 1:
+        assert chunk == 256
