@@ -9,7 +9,8 @@ non-zero before printing a result):
   1. device   : the card's name, count, power limit; the five CUDA
                 kernels built from ``src/repro_torch/csrc``, one nvcc
                 each, all started together (-Xptxas -v report printed
-                per kernel).
+                per kernel, and a summary line of the registers and
+                spills of the wgmma attention and WKV kernels).
   2. kernels  : each kernel against its plain PyTorch version on the
                 card, at the main paths' shapes: the vote kernel bit for
                 bit on all five outputs; the histogram kernel exact on
@@ -29,8 +30,10 @@ non-zero before printing a result):
                 float32; each within the reference's kernel-test
                 tolerances and identical run to run.  Times with CUDA
                 events beside each kernel's bound, the plain version's
-                time and one library call's where there is one (and
-                the kernel's time over the library's).
+                time and one library call's where there is one (SDPA's
+                fastest pinned backend, named, under the explicit mask
+                and, where the window covers S, under ``is_causal``; and
+                the kernel's time over the faster).
   3. round    : the one-shot FedKT round at full width (Adult's size:
                 48,842 rows x 14 features; 10 parties, s=2, t=5) for RF
                 and GBDT at L0 and RF at L2, through FedKTSession on
@@ -56,15 +59,16 @@ non-zero before printing a result):
                 launch one RG-LRU scan per RG-LRU layer, one attention
                 kernel per local-attention layer and one WKV kernel per
                 RWKV layer (18 + 8 + 0 and 0 + 0 + 32); every logit
-                finite.  Prefill ms, decode tok/s, peak memory.
+                finite.  Prefill ms (and of 5 more prefills, their
+                median), decode tok/s, peak memory.
   8. rec-parity: the recurrentgemma and rwkv6 smokes in float32 through
                 ``serve_batch`` on the card (kernels) and on the CPU
                 (plain versions) with the same weights, held to the
                 parity rule with logits within 1e-4 of the largest; and
                 prefill(P) + decode steps against prefill(P + n).
   --profile    : device time by kernel and the device's busy share of
-                each full-width round and of the serving runs
-                (torch.profiler).
+                each full-width round, of the serving runs and of one
+                recurrent prefill (torch.profiler).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -74,6 +78,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +137,48 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
+# kernels whose registers and spills get a summary line of their own
+PTXAS_KERNELS = ("flash_attention_wgmma", "wkv6_kernel")
+
+
+def _kernel_label(mangled):
+    """``name<args>`` of a mangled template kernel in PTXAS_KERNELS (bf16
+    for __nv_bfloat16, f32 for float), else None."""
+    for name in PTXAS_KERNELS:
+        i = mangled.find(name + "I")
+        if i < 0:
+            continue
+        args = mangled[i + len(name) + 1:]
+        args = args[:args.find("EE") + 1]
+        kind = ["bf16"] if "__nv_bfloat16" in args else (
+            ["f32"] if args.startswith("f") else [])
+        ints = re.findall(r"Li(\d+)E", args)
+        return f"{name}<{','.join(kind + ints)}>"
+    return None
+
+
+def ptxas_summary(report):
+    """{kernel<args>: {registers, spill_stores, spill_loads}} from an
+    ``nvcc -Xptxas -v`` report."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _kernel_label(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 1
 # ---------------------------------------------------------------------------
@@ -151,6 +198,10 @@ def phase_device():
     for kname, rep in reports.items():
         for line in rep.splitlines():
             log(f"[ptxas:{kname}] {line.strip()}")
+    summary = {}
+    for rep in reports.values():
+        summary.update(ptxas_summary(rep))
+    log("[ptxas-summary] " + json.dumps(summary, sort_keys=True))
     return name, smi
 
 
@@ -344,10 +395,51 @@ def valid_keys(Sq, Skv, causal, window, q_offset=0):
     return int(np.maximum(hi - lo, 0).sum())
 
 
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_best(qt, kt, vt, **kw):
+    """The fastest of SDPA's backends that take the call, each pinned
+    with ``sdpa_kernel``: (ms, backend, output).  K/V are expanded to
+    q's heads outside the timed call where a backend refuses
+    ``enable_gqa`` (the backend is then named ``...+expanded_kv``)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = qt.shape[1] // kt.shape[1]
+    expanded = (kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1))
+    best = None
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        for args, extra, label in (
+                ((qt, kt, vt), {"enable_gqa": True}, name.lower()),
+                ((qt,) + expanded, {}, name.lower() + "+expanded_kv")):
+            def call(args=args, extra=extra):
+                return F.scaled_dot_product_attention(*args, **kw, **extra)
+            with sdpa_kernel([backend]):
+                try:
+                    out = call()
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    continue
+                ms = cuda_ms(call, reps=10)
+            if best is None or ms < best[0]:
+                best = (ms, label, out)
+            break
+    if best is None:
+        raise AssertionError("no SDPA backend takes the call")
+    return best
+
+
 def phase_attention():
     """Flash attention against ``ref.attention_ref`` at (a) the phi4-mini
-    prefill, (b) gemma2-27b's widths, (c) float32 MQA."""
-    import torch.nn.functional as F
+    prefill, (b) gemma2-27b's widths, (c) float32 MQA, (d) recurrentgemma's
+    local attention (dh 256), (e) float32 at dh 256.  The library
+    yardstick is SDPA's fastest backend under the explicit causal+window
+    mask where there is a window, and under ``is_causal`` where the
+    window is absent or covers S (then the mask IS the causal mask);
+    ``library_ms`` is the faster of the two."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -382,24 +474,27 @@ def phase_attention():
                                  f"max |err| {err}")
         worst = max(worst, err)
         del want
+        p = fa.plan(dh, dt)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
         plain = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3,
                         warmup=1)
-        lib_ms = None
+        yardsticks = {}
         if lib:   # SDPA computes the same function only without soft-cap
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             if window:   # the causal window as an explicit mask
                 mask = ref._mask(torch.arange(S, device="cuda"), S, True,
                                  window, "cuda")
-                sdpa_kw = dict(attn_mask=mask, enable_gqa=True)
-            else:
-                sdpa_kw = dict(is_causal=True, enable_gqa=True)
-            sdpa = F.scaled_dot_product_attention(
-                qt, kt, vt, **sdpa_kw).transpose(1, 2)
-            torch.testing.assert_close(sdpa.float(), got.float(), atol=tol,
-                                       rtol=tol)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, **sdpa_kw), reps=10)
+                yardsticks["explicit_mask"] = sdpa_best(qt, kt, vt,
+                                                        attn_mask=mask)
+            if not window or window >= S:
+                yardsticks["is_causal"] = sdpa_best(qt, kt, vt,
+                                                    is_causal=True)
+            for _, _, out in yardsticks.values():
+                torch.testing.assert_close(out.transpose(1, 2).float(),
+                                           got.float(), atol=tol, rtol=tol)
+        fastest = min(yardsticks.values(), key=lambda y: y[0],
+                      default=None)
+        lib_ms = None if fastest is None else fastest[0]
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         nops = 4 * B * H * valid_keys(S, S, True, window) * dh
         b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
@@ -407,14 +502,19 @@ def phase_attention():
         row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
                "H": H, "KV": KV, "dh": dh, "dtype": str(dt),
                "window": window, "softcap": cap, "max_abs_err": err,
-               "tol": tol, "kernel_ms": ms, "plain_ms": plain,
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "tol": tol, "plan": p._asdict(), "kernel_ms": ms,
+               "plain_ms": plain,
+               "library_ms": lib_ms,
+               "library_backend": None if fastest is None else fastest[1],
+               "library_variants": {n: {"ms": y[0], "backend": y[1]}
+                                    for n, y in yardsticks.items()},
+               "bound_ms": b_ms, "bound_by": b_by,
                "kernel_over_library": None if lib_ms is None
                else ms / lib_ms, "bound_share": b_ms / ms,
                "bytes": nbytes, "flop": nops}
         log("[kernel] " + json.dumps(row))
         rows.append(row)
-        del q, k, v, got, again
+        del q, k, v, got, again, yardsticks
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -509,15 +609,18 @@ def phase_wkv():
             raise AssertionError(f"wkv6 != plain at {label}: max |err| "
                                  f"{err}")
         worst = max(worst, err)
-        del want_o, want_s
         ms = cuda_ms(lambda: wk.wkv6(r, k, v, w, u, s0))
+        p = wk.plan(S)
+        del want_o, want_s
         plain = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), reps=2,
                         warmup=1)
         nbytes = (r.element_size() * 5 * r.numel() + 4 * u.numel()
                   + 4 * 2 * s0.numel())
-        rows.append(_rec_row("wkv6", label, {"B": B, "S": S, "H": H,
-                                             "dh": dh}, dt, err, tol, ms,
-                             plain, nbytes, 6 * B * S * H * dh * dh))
+        row = _rec_row("wkv6", label, {"B": B, "S": S, "H": H, "dh": dh,
+                                       "plan": p._asdict()},
+                       dt, err, tol, ms, plain, nbytes,
+                       6 * B * S * H * dh * dh)
+        rows.append(row)
         del r, k, v, w, o, o2
         torch.cuda.empty_cache()
     return rows, worst
@@ -810,12 +913,15 @@ def _kernel_modules():
 
 
 def phase_recurrent_serving(cfg, device="cuda", batch=4, prompt_len=1024,
-                            gen=32, profile=False):
+                            gen=32, reps=5, profile=False):
     """``serve_batch`` at ``cfg``'s widths: a short warm-up, then one
     timed run over ``batch`` prompts of ``prompt_len`` tokens with the
     launch counts zeroed just before it.  Its one prefill must launch
-    one kernel per layer of the kernel's kinds (on the card).  Returns
-    (metrics, launches by kernel)."""
+    one kernel per layer of the kernel's kinds (on the card).  Then
+    ``reps`` runs of the same prompts with one sampled token each, whose
+    prefill walls (host clock, so they spread with the host's load) are
+    kept with their median; with ``profile``, one such run's device busy
+    time.  Returns (metrics, launches by kernel)."""
     from repro_torch.models import Model
     from repro_torch.serving import serve_batch
     mods = _kernel_modules()
@@ -837,9 +943,13 @@ def phase_recurrent_serving(cfg, device="cuda", batch=4, prompt_len=1024,
     launches = {n: m.launches for n, m in mods.items()}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     finite = bool(torch.isfinite(stats["logits"]).all())
+    runs = [serve_batch(model, params, prompts, 1, verbose=False)[1]
+            ["prefill_s"] * 1e3 for _ in range(reps)]
     metrics = {"arch": cfg.name, "dtype": cfg.dtype, "batch": batch,
                "prompt_len": prompt_len, "gen": gen,
                "prefill_ms": stats["prefill_s"] * 1e3,
+               "prefill_ms_runs": runs,
+               "prefill_ms_median": float(np.median(runs)),
                "decode_s": stats["decode_s"],
                "decode_tok_per_s": stats["tok_per_s"],
                "generated": stats["generated"], "peak_mem_bytes": peak,
@@ -859,6 +969,8 @@ def phase_recurrent_serving(cfg, device="cuda", batch=4, prompt_len=1024,
     if profile:
         _profiled(f"serve_batch_{cfg.name}", lambda: serve_batch(
             model, params, prompts, gen, verbose=False))
+        _profiled(f"prefill_{cfg.name}", lambda: serve_batch(
+            model, params, prompts, 1, verbose=False))
     return metrics, launches
 
 

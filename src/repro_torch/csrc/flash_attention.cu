@@ -19,11 +19,12 @@
 // What bounds it on the H100: at the phi4-mini prefill (b = 8, S = 512,
 // H = 24, KV = 8, dh = 128, bf16) the inputs and output are 67 MB, 0.020
 // ms at 3.35 TB/s, and the causal products 12.9 GFLOP, 0.013 ms at the
-// 989 TFLOP/s of the bf16 tensor cores: bytes, barely.  At long
-// sequences (gemma2's 6144 positions, window 4096) the products bound
-// it.  Reaching either needs the tensor cores at Hopper's own rate
-// (wgmma, operands from shared memory) and tile loads that never leave
-// the cores waiting on device memory.
+// 989 TFLOP/s of the bf16 tensor cores: bytes, barely.  At recurrentgemma's
+// prefill (b = 4, S = 1024, H = 10, KV = 1, dh = 256) the products, 21.5
+// GFLOP, bound it (0.022 ms), as they do at long sequences (gemma2's 6144
+// positions, window 4096).  Reaching either needs the tensor cores at
+// Hopper's own rate (wgmma, operands from shared memory) and tile loads
+// that never leave the cores waiting on device memory.
 //
 // Design.  One CTA per (64-row q tile, head, batch row); it loops over
 // the 64-key tiles IN ORDER, which replaces the TPU grid's sequential kv
@@ -33,39 +34,37 @@
 // past the tile's causal horizon or wholly before its window are
 // skipped: in the TPU kernel they add exactly nothing (alpha = 1, p =
 // 0).  There are no atomics: every sum has one fixed order, so the
-// output is identical run to run.  Three paths, chosen by the launcher:
+// output is identical run to run.  Two paths, chosen by the launcher
+// (kernels/flash_attention.py: plan):
 //
-//  - bfloat16 at dh <= 128 (phi4, gemma2): one consumer warpgroup (the
-//    tile's 64 rows) and one producer warp a CTA.  The producer's one
-//    thread brings Q, K and V tiles by TMA through 4-d tensor maps over
-//    the (B, S, heads, dh) layout (box {<= 64 columns, 1 head, 64 rows,
-//    1}: rows past S are zero-filled and a box never crosses into the
-//    next batch row), swizzled by 128 bytes (64 at dh 32), into a ring
-//    of 2 K/V stages; each copy completes on a "full" mbarrier, and a
-//    stage's K (V) is refilled as soon as all 128 consumer threads have
-//    arrived on its "read" mbarrier, so the next tiles' copies are in
-//    flight while the current tile is consumed.  S = Q K^T is wgmma
-//    m64n64k16 with both operands read from shared memory through
+//  - bfloat16, every dh: a consumer warpgroup of 64 query rows and one
+//    producer warp a CTA.  The producer's one thread brings Q, K and V
+//    tiles by TMA through 4-d tensor maps over the (B, S, heads, dh)
+//    layout (box {<= 64 columns, 1 head, 64 rows, 1}: rows past S are
+//    zero-filled and a box never crosses into the next batch row),
+//    swizzled by 128 bytes (64 at dh 32; a 256-wide row is four boxes),
+//    into a ring of 2 K/V stages; each copy completes on a "full"
+//    mbarrier, and a stage's K (V) is refilled as soon as every consumer
+//    thread has arrived on its "read" mbarrier, so the next tiles' copies
+//    are in flight while the current tile is consumed.  S = Q K^T is
+//    wgmma m64n64k16 with both operands read from shared memory through
 //    descriptors whose swizzle matches the TMA's; O += P V is wgmma
 //    m64n{dh}k16 with P, S's accumulator rounded to bf16 in registers
 //    (as the reference's xla path rounds p to v's type), as the A
 //    operand, and V read in its natural (keys, dh) layout through
-//    wgmma's transpose bit.  Two CTAs share an SM (83 KB of shared
-//    memory each at dh 128).  The softmax is what the CUDA cores spend
-//    their time on, so it is held to one FMA and one ex2 a score: the
-//    max runs on raw scores, the scale folds into the exponent's FMA,
-//    the mask is evaluated only on tiles that cross Skv, the causal
-//    diagonal or the window's edge, and the soft-cap's tanh takes one
-//    ex2 and one reciprocal.  The last q tiles, which see the most keys
-//    under a causal mask, are started first.
-//  - bfloat16 at dh 256 (recurrentgemma; not redesigned): mma.sync
-//    m16n8k16 with float32 accumulation; 4 warps, each owns 16 query
-//    rows; Q's A-fragments are reloaded from shared memory at each
-//    k-step, which keeps the 128 O accumulators a thread holds clear of
-//    spills (the tile is 104 KB of shared memory, 2 CTAs an SM); S's
-//    fragments turn into P's A-fragments in registers; V is stored
-//    transposed so its B-fragments are single 32-bit loads; rows of the
-//    staged tiles are padded by 8 elements against bank conflicts.
+//    wgmma's transpose bit.  At dh <= 128 two CTAs share an SM (83 KB of
+//    shared memory each at dh 128).  At dh 256 a consumer thread holds
+//    128 O accumulators beside S's 32 and P's 16 (about 206 registers),
+//    and the CTA (Q 32 KB + 2 x (K 32 KB + V 32 KB)) has an SM to
+//    itself; two consumer warpgroups sharing each K/V tile (FA3's
+//    layout) get too few registers a thread and spill.  The softmax is
+//    what the CUDA cores spend their time on, so it is held to one FMA
+//    and one ex2 a score: the max runs on raw scores, the scale folds
+//    into the exponent's FMA, the mask is evaluated only on tiles that
+//    cross Skv, the causal diagonal or the window's edge, and the
+//    soft-cap's tanh takes one ex2 and one reciprocal.  The last q
+//    tiles, which see the most keys under a causal mask, are started
+//    first.
 //  - float32: FMAs on the CUDA cores (no tensor cores, no TF32), a
 //    16 x 16 thread grid; thread (ty, tx) owns query rows ty + 16i,
 //    score columns tx + 16j and output columns tx + 16c, the q tile is
@@ -115,222 +114,13 @@ __device__ __forceinline__ float lanes_sum(float x, int width) {
   return x;
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16 at dh 256: mma.sync on the tensor cores
-// ---------------------------------------------------------------------------
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
-
-template <int DH>
-struct SmemBF16 {
-  static constexpr int LD = DH + 8;   // a Q or K row, padded
-  static constexpr int VLD = BK + 8;  // a row of the transposed V tile
-  static constexpr size_t bytes =
-      sizeof(__nv_bfloat16) * (BQ * LD + BK * LD + DH * VLD);
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A-fragment of k-step kk for rows row, row + 8 of a (rows, ld) tile
-__device__ __forceinline__ void q_frag(const __nv_bfloat16* Qs, int ld,
-                                       int row, int kk, int t,
-                                       uint32_t (&a)[4]) {
-  const __nv_bfloat16* p = Qs + row * ld + kk * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int DH>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, int Sq, int Skv,
-                         int H, int KV, float scale, int causal, int window,
-                         float softcap, int q_offset) {
-  using S = SmemBF16<DH>;
-  constexpr int KS = DH / 16;  // k-steps of Q K^T
-  constexpr int NT = BK / 8;   // 8-key n-tiles of S
-  constexpr int DT = DH / 8;   // 8-wide n-tiles of O
-  constexpr int CH = DH / 8;   // 16-byte chunks in a row
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* Ks = Qs + BQ * S::LD;
-  __nv_bfloat16* Vt = Ks + BK * S::LD;  // (DH, BK): V transposed
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
-  const int r0 = (tid >> 5) * 16;         // the warp's first row in the tile
-
-  const size_t q_step = (size_t)H * DH;
-  const size_t kv_step = (size_t)KV * DH;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_step + (size_t)h * DH;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
-  __nv_bfloat16* ob = o + (size_t)b * Sq * q_step + (size_t)h * DH;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < BQ * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int s = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * S::LD + c) =
-        s < Sq ? *reinterpret_cast<const uint4*>(qb + (size_t)s * q_step + c)
-               : zero;
-  }
-  __syncthreads();
-  // rows r0 + g (half 0: accumulator slots 0, 1) and r0 + g + 8 (half
-  // 1: slots 2, 3)
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-
-  int kt_start, kt_end;
-  key_tiles(q0, BQ, Sq, Skv, q_offset, causal, window, &kt_start,
-            &kt_end);
-  for (int kt = kt_start; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the last tile's K and V
-    for (int i = tid; i < BK * CH; i += MMA_THREADS) {
-      const int r = i / CH, c = (i % CH) * 8;  // consecutive threads: a row
-      const int s = k0 + r;
-      *reinterpret_cast<uint4*>(Ks + r * S::LD + c) =
-          s < Skv
-              ? *reinterpret_cast<const uint4*>(kb + (size_t)s * kv_step + c)
-              : zero;
-    }
-    for (int i = tid; i < BK * CH; i += MMA_THREADS) {
-      const int r = i % BK, c = (i / BK) * 8;  // consecutive threads: keys
-      const int s = k0 + r;
-      const uint4 x = s < Skv ? *reinterpret_cast<const uint4*>(
-                                    vb + (size_t)s * kv_step + c)
-                              : zero;
-      const uint32_t w[4] = {x.x, x.y, x.z, x.w};  // dims c .. c + 7
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        Vt[(c + 2 * e) * S::VLD + r] =
-            __ushort_as_bfloat16((unsigned short)(w[e] & 0xffffu));
-        Vt[(c + 2 * e + 1) * S::VLD + r] =
-            __ushort_as_bfloat16((unsigned short)(w[e] >> 16));
-      }
-    }
-    __syncthreads();
-
-    float sc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      // Q's A-fragments are reloaded at each k-step: held for the CTA
-      // they would take 64 registers beside the 128 O accumulators
-      uint32_t qa[4];
-      q_frag(Qs, S::LD, r0 + g, kk, t, qa);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* p = Ks + (8 * j + g) * S::LD + kk * 16 + 2 * t;
-        mma_bf16(sc[j], qa, ld32(p), ld32(p + 8));
-      }
-    }
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qpos = q_offset + q0 + r0 + g + 8 * half;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float s = sc[j][2 * half + e] * scale;
-          if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-          const int kpos = k0 + 8 * j + 2 * t + e;
-          s = visible(qpos, kpos, Skv, causal, window) ? s : NEG_INF;
-          sc[j][2 * half + e] = s;
-          mx = fmaxf(mx, s);
-        }
-      mx = lanes_max(mx, 4);  // the quad that shares the row
-      const float m_new = fmaxf(m[half], mx);
-      const float alpha = expf(m[half] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + 8 * j + 2 * t + e;
-          const float p = visible(qpos, kpos, Skv, causal, window)
-                              ? expf(sc[j][2 * half + e] - m_new)
-                              : 0.f;
-          sc[j][2 * half + e] = p;
-          rs += p;
-        }
-      rs = lanes_sum(rs, 4);
-      l[half] = l[half] * alpha + rs;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        acc[d][2 * half] *= alpha;
-        acc[d][2 * half + 1] *= alpha;
-      }
-      m[half] = m_new;
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // S's accumulators of n-tiles 2kk and 2kk+1 are P's A-fragment
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const __nv_bfloat16* p = Vt + (8 * d + g) * S::VLD + kk * 16 + 2 * t;
-        mma_bf16(acc[d], pa, ld32(p), ld32(p + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = q0 + r0 + g + 8 * half;
-    if (s < Sq) {
-      const float li = l[half] == 0.f ? 1.f : l[half];
-#pragma unroll
-      for (int d = 0; d < DT; ++d)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)s * q_step + 8 * d +
-                                           2 * t) =
-            __floats2bfloat162_rn(acc[d][2 * half] / li,
-                                  acc[d][2 * half + 1] / li);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bfloat16 at dh <= 128: TMA loads, wgmma on the tensor cores
+// bfloat16: TMA loads, wgmma on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int WG_THREADS = 128 + 32;  // a consumer warpgroup + a producer warp
 constexpr int STAGES = 2;             // the K / V ring
@@ -541,6 +331,60 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 256, float32) += A (64 x 16, bf16 pairs in registers) B, B
+// in shared memory with N contiguous (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
                                          const uint32_t (&a)[4],
@@ -548,6 +392,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
   if constexpr (DH == 32) wgmma_rs_n32(d, a, db);
   if constexpr (DH == 64) wgmma_rs_n64(d, a, db);
   if constexpr (DH == 128) wgmma_rs_n128(d, a, db);
+  if constexpr (DH == 256) wgmma_rs_n256(d, a, db);
 }
 
 template <int DH>
@@ -917,24 +762,28 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 }
 
-
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
-template <typename T, typename Kernel>
-int launch(Kernel kern, int threads, size_t smem, const void* q,
-           const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int H, int KV, float scale, int causal, int window, float softcap,
-           int q_offset, cudaStream_t stream) {
+// Each launcher takes the plan's threads and shared-memory bytes
+// (kernels/flash_attention.py: plan) and refuses a plan that is not its
+// own, so the wrapper's scratch-free plan and the kernel never disagree.
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Skv, int H, int KV, float scale, int causal,
+               int window, float softcap, int q_offset, int threads,
+               size_t smem, cudaStream_t stream) {
+  if (threads != FMA_THREADS || smem != SmemF32<DH>::bytes)
+    return (int)cudaErrorInvalidValue;
   // above 48 KB of shared memory only after opting in (per device)
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, threads, smem, stream>>>((const T*)q, (const T*)k,
-                                        (const T*)v, (T*)o, Sq, Skv, H, KV,
-                                        scale, causal, window, softcap,
-                                        q_offset);
+  flash_attention_f32<DH><<<grid, FMA_THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
+      H, KV, scale, causal, window, softcap, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -991,9 +840,11 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Sq, int Skv, int H, int KV, float scale, int causal,
-                 int window, float softcap, int q_offset,
-                 cudaStream_t stream) {
+                 int window, float softcap, int q_offset, int threads,
+                 size_t smem, cudaStream_t stream) {
   using W = Wg<DH>;
+  if (threads != WG_THREADS || smem != W::bytes)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
       !tensor_map(&tk, k, B, Skv, KV, DH, W::COLS, W::SW) ||
@@ -1010,60 +861,59 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-// The three paths: bfloat16 at dh <= 128 on wgmma, bfloat16 at dh 256
-// on mma.sync, float32 on FMAs.  A refused launch returns its error; no
-// path stands in for another.
+// The two paths: bfloat16 on wgmma, float32 on FMAs.  A refused launch
+// returns its error; no path stands in for another.
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
               void* o, int B, int Sq, int Skv, int H, int KV, float scale,
               int causal, int window, float softcap, int q_offset,
-              cudaStream_t s) {
-  if (bf16) {
-    if constexpr (DH <= 128)
-      return launch_wgmma<DH>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                              window, softcap, q_offset, s);
-    else
-      return launch<__nv_bfloat16>(flash_attention_bf16<DH>, MMA_THREADS,
-                                   SmemBF16<DH>::bytes, q, k, v, o, B, Sq,
-                                   Skv, H, KV, scale, causal, window,
-                                   softcap, q_offset, s);
-  }
-  return launch<float>(flash_attention_f32<DH>, FMA_THREADS,
-                       SmemF32<DH>::bytes, q, k, v, o, B, Sq, Skv, H, KV,
-                       scale, causal, window, softcap, q_offset, s);
+              int threads, size_t smem, cudaStream_t s) {
+  if (bf16)
+    return launch_wgmma<DH>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                            window, softcap, q_offset, threads, smem, s);
+  return launch_f32<DH>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                        window, softcap, q_offset, threads, smem, s);
 }
 
 }  // namespace
 
 // q, o (B, Sq, H, dh); k, v (B, Skv, KV, dh); contiguous, all float32
 // (bf16 = 0) or all bfloat16 (bf16 = 1), 16-byte aligned.  scale is
-// dh^-0.5 rounded to float32.  Launches on `stream`; returns
+// dh^-0.5 rounded to float32.  threads and smem are the launch plan's
+// (kernels/flash_attention.py: plan).  Launches on `stream`; returns
 // cudaGetLastError() (or the error of the shared-memory opt-in, or
-// cudaErrorInvalidValue where a tensor map cannot be made).
+// cudaErrorInvalidValue where the plan is not the kernel's or a tensor
+// map cannot be made).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KV, int dh,
                                       int bf16, int causal, int window,
                                       float softcap, float scale,
-                                      int q_offset, void* stream) {
+                                      int q_offset, int threads, int smem,
+                                      void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (Skv == 0)  // no key at all: every row is 0
     return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * H * dh *
                                           (bf16 ? 2 : 4), s);
+  const size_t bytes = (size_t)smem;
   switch (dh) {
     case 32:
       return launch_dh<32>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                           causal, window, softcap, q_offset, s);
+                           causal, window, softcap, q_offset, threads,
+                           bytes, s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                           causal, window, softcap, q_offset, s);
+                           causal, window, softcap, q_offset, threads,
+                           bytes, s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                            causal, window, softcap, q_offset, s);
+                            causal, window, softcap, q_offset, threads,
+                            bytes, s);
     case 256:
       return launch_dh<256>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                            causal, window, softcap, q_offset, s);
+                            causal, window, softcap, q_offset, threads,
+                            bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -249,3 +249,57 @@ def test_tree_hist_launch_plan(N, F, K, n, B):
                                                           2)
     if n == 1:
         assert chunk == 256
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_launch_plan(dh, dtype):
+    """The attention kernel's launch plan (``flash_attention.plan``):
+    every bfloat16 head dim takes the wgmma path (a warpgroup of 64 query
+    rows and a producer warp, a 2-stage K/V ring; two CTAs an SM at dh
+    <= 128), float32 the FMA path; the shared memory the launcher asks
+    for stays within what one CTA may opt into on the H100 (232,448
+    bytes), and the threads are whole warps."""
+    from repro_torch.kernels import flash_attention as fa
+    p = fa.plan(dh, dtype)
+    assert p.keys == 64 and p.threads % 32 == 0
+    assert 0 < p.smem <= fa.SMEM_MAX == 232_448
+    if dtype == torch.bfloat16:
+        assert (p.path, p.rows, p.threads) == ("wgmma", 64, 160)
+        # a Q tile and a 2-stage K/V ring of 64 x dh bf16 tiles, 9
+        # barriers, and the 1 KB alignment slack
+        tile = 64 * dh * 2
+        assert p.smem == 1024 + tile * 5 + 72
+        if dh <= 128:   # two CTAs an SM
+            assert 2 * p.smem <= 228 * 1024
+    else:
+        assert (p.path, p.rows, p.threads) == ("fma", 64, 256)
+        # Q, the K tile or the P tile over it, V; rows padded by 1
+        assert p.smem == 4 * (64 * (dh + 1) + 64 * max(dh + 1, 65)
+                              + 64 * dh)
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 15, 16, 17, 77, 1000, 1024,
+                               100_001])
+def test_wkv6_launch_plan(S):
+    """The WKV kernel's launch plan (``wkv6.plan``): a thread holds a
+    rows x cols block of the state, the lanes of a column block adjacent
+    in one warp, so a (batch, head)'s threads are whole warps and cover
+    the 64 x 64 state once; chunks of steps that cover any S, the last
+    one partial; the staged chunk and its partial sums within one CTA's
+    shared memory, two CTAs an SM."""
+    from repro_torch.kernels import wkv6 as wk
+    p = wk.plan(S)
+    assert (p.rows, p.cols, p.chunk) == (wk.ROWS, wk.COLS, wk.CHUNK)
+    assert p.threads % 32 == 0 and 32 % p.lanes == 0
+    assert p.lanes * p.rows == 64 and p.threads * p.rows * p.cols == 64 * 64
+    assert p.rows % 4 == 0 and p.cols % 4 == 0
+    assert (p.chunks - 1) * p.chunk < S <= p.chunks * p.chunk or \
+        S == p.chunks == 0
+    # r, k, w, v double-buffered, rows padded by 8; o's partials, rows
+    # padded by 4; u; the betas, double-buffered
+    assert p.smem == 4 * (p.chunk * (8 * 72 + p.lanes * 68) + 64
+                          + 2 * p.chunk)
+    assert 2 * p.smem <= 228 * 1024
+    # a chunk's 16-byte loads of r, k, w, v split evenly over threads
+    assert (4 * p.chunk * 64 // 8) % p.threads == 0
