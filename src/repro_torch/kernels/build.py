@@ -40,10 +40,11 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def _command(name: str, out: Path):
+def command(src: Path, out: Path):
+    """The nvcc command that builds the kernel source ``src`` into the
+    shared library ``out``."""
     return [nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-            "-fPIC", "-Xptxas", "-v", "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
@@ -61,7 +62,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
         procs[name] = (tmp, final, subprocess.Popen(
-            _command(name, Path(tmp)), stdout=subprocess.PIPE,
+            command(CSRC / f"{name}.cu", Path(tmp)), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     reports, failed = {name: "" for name in names}, []
     for name, (tmp, final, proc) in procs.items():

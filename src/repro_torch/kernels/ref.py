@@ -178,6 +178,59 @@ def vote_aggregate_plain(preds, num_classes, noise=None):
     return labels, top1, top2, c1, c2
 
 
+NO_CLASS = 2 ** 31 - 1
+
+
+def fold_top2(a, b):
+    """The top-2 of the union of two disjoint sets of classes, from each
+    set's (best (T,), its class (T,), the best of the rest (T,)): the
+    larger best wins, an equal best goes to the smaller class, and the
+    loser's best joins the seconds, so an exact tie gives second ==
+    best.  The rule is order-free (any partition of the classes, folded
+    in any order, gives the same bits); the CUDA kernel merges its
+    partial results by it.  (NEG_INF, NO_CLASS, NEG_INF) is the empty
+    set."""
+    (b1, a1, s1), (b2, a2, s2) = a, b
+    take = (b2 > b1) | ((b2 == b1) & (a2 < a1))
+    best = torch.where(take, b2, b1)
+    arg = torch.where(take, a2, a1)
+    loser = torch.where(take, b1, b2)
+    # the winner's second and the loser's are s1 and s2 in some order
+    return best, arg, torch.maximum(loser, torch.maximum(s1, s2))
+
+
+def block_top2(scores, ids):
+    """(best, its class, second) of the classes ``ids`` (a 1-d tensor)
+    from their (T, len(ids)) scores: the first maximum, and the largest
+    score at any other position."""
+    pos = torch.argmax(scores, dim=-1)
+    best, second = top2_of(scores, pos)
+    return best, ids[pos].to(torch.int32), second
+
+
+def vote_aggregate_blocked(preds, num_classes, noise=None, *, block_u):
+    """``vote_aggregate_plain``'s five outputs over class blocks of
+    ``block_u`` classes (the last may be narrower): each block's counts
+    and scores, its top-2, folded in with ``fold_top2`` — the TPU
+    kernel's class-blocked walk, and on the CPU the merge rule of the
+    CUDA kernel."""
+    M, T = preds.shape
+    dev = preds.device
+    empty = (torch.full((T,), NEG_INF, device=dev),
+             torch.full((T,), NO_CLASS, dtype=torch.int32, device=dev),
+             torch.full((T,), NEG_INF, device=dev))
+    noisy = clean = empty
+    for u0 in range(0, num_classes, block_u):
+        ids = torch.arange(u0, min(num_classes, u0 + block_u), device=dev)
+        counts = (preds.long()[:, :, None] == ids).sum(0).to(torch.float32)
+        clean = fold_top2(clean, block_top2(counts, ids))
+        scores = counts if noise is None else \
+            counts + noise[:, ids].to(torch.float32)
+        noisy = fold_top2(noisy, block_top2(scores, ids))
+    (top1, labels, top2), (c1, _, c2) = noisy, clean
+    return labels, top1, top2, c1, c2
+
+
 def _hist64(xb, node, w, num_nodes, num_bins):
     """The one-hot contraction of ``tree_hist_ref`` in float64."""
     Gf, N, Fn = xb.shape

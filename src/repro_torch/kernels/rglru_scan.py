@@ -2,7 +2,11 @@
 
 The counterpart of ``repro.kernels.rglru_scan.rglru_scan``: the linear
 recurrence h_t = exp(log_a_t) * h_{t-1} + x_t along the sequence axis
-with a float32 carry, one thread per (batch, channel).  Any S and D.
+with a float32 carry, each (batch, channel) walked in order, so h and
+h_last equal the plain version bit for bit.  Any S and D: the C
+launcher stages time through TMA where the layout allows (rows of D
+elements a multiple of 16 bytes) and loads element by element where it
+does not; the plan (tile, ring, shared memory) lives in the .cu alone.
 h_last is float32, as the reference's off-TPU paths (its xla scan, its
 decode step and ``ref.rglru_scan_ref``) return it and its model state
 carries it; the TPU kernel rounds it to x's dtype (ROADMAP §3).  CUDA

@@ -3,7 +3,10 @@
 The counterpart of ``repro.kernels.vote_aggregate.vote_aggregate``:
 per query, the noisy max-vote label with its top-2 scores and the clean
 top-2 of the same counts, from one pass that never materialises the
-(T, U) histogram.  CUDA tensors only; ``ops.votes`` runs the plain
+(T, U) histogram, bit for bit the plain version's.  The C launcher
+picks the layout: a thread per query for a few classes (the round's
+U = 2), a CTA per query streaming the noise row for a vocabulary-sized
+U (the token vote).  CUDA tensors only; ``ops.votes`` runs the plain
 version (``ref.vote_aggregate_plain``) for CPU tensors.
 
 ``launches`` counts the kernel launches this process made, so a run

@@ -11,10 +11,11 @@ terms (``ref.tree_hist_f32_error``); the flash-attention kernel is
 within the reference's kernel-test tolerances of ``ref.attention_ref``
 (2e-5 float32, 2e-2 bfloat16) and identical run to run, at head dims
 32 to 256.  The recurrence kernels are held to their plain versions
-(``ref.rglru_scan_ref``, ``ref.wkv6_ref``) within the reference's
-kernel-test tolerances (RG-LRU 1e-4 float32, 3e-2 bfloat16; WKV 1e-4
-float32, 5e-2 bfloat16: the WKV output's 64-term sums run in another
-order) and are identical run to run.
+and are identical run to run: the RG-LRU scan bit for bit (each
+channel's steps run in order, rounded as ``ref.rglru_scan_ref`` rounds
+them), the WKV recurrence within the reference's kernel-test
+tolerances against ``ref.wkv6_ref`` (1e-4 float32, 5e-2 bfloat16: the
+WKV output's 64-term sums run in another order).
 """
 import numpy as np
 import pytest
@@ -37,18 +38,27 @@ def _bits_equal(a, b):
     return torch.equal(a, b)
 
 
+# both layouts: a thread per query (U <= 32) and a CTA per query (U
+# above, up to a vocabulary); T under the card's 132 SMs, ragged T, M =
+# 1, 16 and 70
 @pytest.mark.parametrize("M,T,U", [(5, 6105, 2), (3, 64, 10),
-                                   (16, 257, 1024), (1, 9, 1)])
-@pytest.mark.parametrize("noisy", [False, True])
-def test_vote_kernel_bit_identical_to_plain(cuda, M, T, U, noisy):
+                                   (16, 257, 1024), (1, 9, 1),
+                                   (70, 50, 40), (1, 100, 2049),
+                                   (16, 131, 4096), (5, 300, 200_064)])
+@pytest.mark.parametrize("noise_kind", ["none", "gauss", "integer"])
+def test_vote_kernel_bit_identical_to_plain(cuda, M, T, U, noise_kind):
     from repro_torch.kernels import ref
     from repro_torch.kernels import vote_aggregate as va
     g = torch.Generator(device=cuda).manual_seed(M + T + U)
-    # few classes per query: many exact ties
+    # few classes per query, and integer noise: many exact ties
     preds = torch.randint(0, min(U, 3), (M, T), device=cuda, generator=g,
                           dtype=torch.int32)
-    noise = (torch.randn((T, U), device=cuda, generator=g)
-             if noisy else None)
+    noise = None
+    if noise_kind == "gauss":
+        noise = torch.randn((T, U), device=cuda, generator=g)
+    elif noise_kind == "integer":
+        noise = torch.randint(-2, 3, (T, U), device=cuda,
+                              generator=g).float()
     before = va.launches
     got = va.vote_aggregate(preds, noise, num_classes=U)
     want = ref.vote_aggregate_plain(preds, U, noise)
@@ -386,7 +396,8 @@ def test_stacked_fit_equals_serial_fit_on_card(cuda, kind):
             assert _bits_equal(a, b)
 
 
-def test_round_on_card_equals_round_on_cpu(cuda):
+@pytest.mark.parametrize("level", ["L0", "L1", "L2"])
+def test_round_on_card_equals_round_on_cpu(cuda, level):
     from repro_torch.configs.base import FedKTConfig
     from repro_torch.core.learners import RFLearner
     from repro_torch.data.synthetic import tabular_binary
@@ -394,8 +405,9 @@ def test_round_on_card_equals_round_on_cpu(cuda):
     from repro_torch.kernels import tree_hist as th
     from repro_torch.kernels import vote_aggregate as va
     data = tabular_binary(n=1200, seed=0)
+    noise = {} if level == "L0" else dict(gamma=0.1, query_fraction=0.2)
     cfg = FedKTConfig(num_parties=3, num_subsets=2, num_classes=2,
-                      privacy_level="L2", gamma=0.1, query_fraction=0.2)
+                      privacy_level=level, **noise)
     learner = RFLearner(num_classes=2, num_trees=4, depth=3)
     th.launches = va.launches = 0
     card = FedKTSession(learner, data, cfg, engine="vmap").run()
@@ -415,29 +427,55 @@ def _randn(g, shape, cuda, scale=1.0):
     return torch.randn(shape, generator=g, device=cuda) * scale
 
 
-@pytest.mark.parametrize("B,S,D", [(1, 256, 256), (2, 512, 256),
-                                   (2, 128, 512), (4, 1000, 2560),
-                                   (3, 7, 100), (1, 2, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rglru_kernel_against_plain(cuda, B, S, D, dtype):
+def _rglru_exact(x, log_a, h0):
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
-    g = torch.Generator(device=cuda).manual_seed(S + D)
-    x = _randn(g, (B, S, D), cuda).to(dtype)
-    log_a = (-_randn(g, (B, S, D), cuda).abs() * 0.1).to(dtype)
-    h0 = _randn(g, (B, D), cuda)
     before = rg.launches
     h, hl = rg.rglru_scan(x, log_a, h0)
     h2, hl2 = rg.rglru_scan(x, log_a, h0)
     want_h, want_hl = ref.rglru_scan_ref(x, log_a, h0)
     torch.cuda.synchronize()
     assert rg.launches == before + 2
-    assert h.dtype == dtype and hl.dtype == torch.float32
+    assert h.dtype == x.dtype and hl.dtype == torch.float32
     assert torch.equal(h, h2) and _bits_equal(hl, hl2)
-    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(h.float(), want_h.float(), atol=tol,
-                               rtol=tol)
-    torch.testing.assert_close(hl, want_hl, atol=tol, rtol=tol)
+    assert _bits_equal(h.float(), want_h.float())
+    assert _bits_equal(hl, want_hl)
+
+
+# D x element size a multiple of 16 bytes takes the TMA path, else the
+# per-element path: bf16 D 2560, 512, 256, 40 and float32 also 100, 36
+# are TMA; bf16 100, 36, 6, 1 and float32 6, 1 are not.  S = 1, S past
+# a chunk (64 bf16 / 32 float32 steps), D past a 32-channel tile.
+@pytest.mark.parametrize("B,S,D", [(1, 256, 256), (2, 512, 256),
+                                   (2, 128, 512), (4, 1000, 2560),
+                                   (3, 7, 100), (1, 2, 1), (2, 65, 40),
+                                   (2, 70, 36), (2, 33, 6), (3, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_against_plain(cuda, B, S, D, dtype):
+    """Bit for bit against the plain version, from a nonzero h0."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    x = _randn(g, (B, S, D), cuda).to(dtype)
+    log_a = (-_randn(g, (B, S, D), cuda).abs() * 0.1).to(dtype)
+    h0 = _randn(g, (B, D), cuda)
+    _rglru_exact(x, log_a, h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_misaligned_base(cuda, dtype):
+    """Contiguous tensors whose data starts off a 16-byte boundary take
+    the per-element path, bit for bit as well."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, S, D = 2, 70, 64
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    x = offset(_randn(g, (B, S, D), cuda).to(dtype))
+    log_a = offset((-_randn(g, (B, S, D), cuda).abs() * 0.1).to(dtype))
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _rglru_exact(x, log_a, _randn(g, (B, D), cuda))
 
 
 @pytest.mark.parametrize("B,S,H", [(1, 256, 2), (2, 128, 4), (2, 77, 3),
