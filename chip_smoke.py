@@ -13,15 +13,18 @@ non-zero before printing a result):
                 spills of the wgmma attention and WKV kernels).
   2. kernels  : each kernel against its plain PyTorch version on the
                 card, at the main paths' shapes: the vote kernel bit for
-                bit on all five outputs at the round's shapes and at the
-                token vote's (1024 queries over phi4-mini's vocabulary,
-                with noise); the histogram kernel exact on
-                integer weights, and on float weights run-to-run
-                identical and within float32 summation's own limit cell
-                by cell (a bfloat16-accumulated stand-in is read beside
-                it), timed at the RF level-5 shapes and at every shape a
-                GBDT round launches (teacher grid G 10, students G 2,
-                final model G 1; levels 0 and 5 and the leaf build);
+                bit on all five outputs at every shape the rounds give
+                it (U 2 over all queries and, under L2, over the noisy
+                query subset; cnn_L0's U 10), with noise at U 2 and 512
+                over all queries, and at the token vote's (1024 queries
+                over phi4-mini's vocabulary, with noise); the histogram
+                kernel exact on integer weights, and on float weights
+                run-to-run identical and within float32 summation's own
+                limit cell by cell (a bfloat16-accumulated stand-in is
+                read beside it), timed at the RF level-5 shapes and at
+                every shape a GBDT round launches (teacher grid G 10,
+                students G 2, final model G 1; levels 0 and 5 and the
+                leaf build);
                 flash attention at (a) the phi4-mini prefill, (b)
                 gemma2's widths at 6144 positions with window and
                 soft-cap, (c) float32 MQA, (d) recurrentgemma's local
@@ -46,6 +49,21 @@ non-zero before printing a result):
                 config implies.
   4. parity   : a smaller RF round on the card and on the CPU (plain
                 versions): identical server labels, accuracy, epsilon.
+  4b. nn      : the neural learners at full size on the card, engine
+                ``vmap``: nn_L0 (the Adult-size round with the MLP,
+                hidden 64, 300 steps of batch 64), cnn_L0 (PaperCNN on
+                ``digits(12,000, 16 px)``, 10 classes, 400 steps; 10
+                parties, s=2, t=3) and mixed_L2 (parties cycling nn,
+                rf, gbdt; an MLP final model; L2 noise): K1 and K2
+                launches exactly as the roster implies, accuracy over a
+                sanity floor (0.6; 0.2 for 10 classes), finite epsilon.
+                nn_parity: phase 4's round with the reference's MLP
+                (hidden 64, 300 steps) on the card and the CPU,
+                >= 99 % equal server labels; the card's labels hold
+                both classes and accuracy is above 0.75.  strategies: SOLO,
+                central PATE, FedAvg, FedProx and SCAFFOLD (5 rounds)
+                on ``tabular_binary(6000)`` with the MLP, each accuracy
+                above 0.5.
   5. serving  : phi4-mini-3.8b at full width (random weights from a
                 seeded generator, bf16) behind ``Engine(num_slots=8,
                 cache_len=1024)``: 16 requests of 1-512 prompt tokens,
@@ -72,9 +90,10 @@ non-zero before printing a result):
                 parity rule with logits within 1e-4 of the largest; and
                 prefill(P) + decode steps against prefill(P + n).
   --profile    : device time by kernel and the device's busy share of
-                each full-width round, of the serving runs and of one
-                recurrent prefill (torch.profiler; the host-bound
-                phases after it read slower than without the flag).
+                each full-width round (RF, GBDT, nn_L0, cnn_L0), of the
+                serving runs and of one recurrent prefill
+                (torch.profiler; the host-bound phases after it read
+                slower than without the flag).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -256,20 +275,40 @@ def teacher_bucket(data, cfg):
 TOKEN_VOTE = (5, 1024, 200_064)
 
 
-def phase_votes(T):
+def round_vote_shapes(rounds):
+    """The (M, T, U, noise) shapes of the party votes the rounds give
+    K1, in order, each once: t teachers over the queries a party answers
+    (``query_budget``: under L2 a ``query_fraction`` of the public set,
+    with noise), U the classes.  ``rounds``: (cfg, public-set size)."""
+    from repro_torch.federation.party import query_budget
+    shapes = []
+    for cfg, num_public in rounds:
+        shape = (cfg.num_subsets, query_budget(cfg, num_public)[0],
+                 cfg.num_classes, cfg.privacy_level == "L2")
+        if shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
+def phase_votes(T, round_shapes):
     """The vote kernel bit for bit against ``ref.vote_aggregate_plain``
-    on all five outputs at the round's shapes (M 5 teachers, the T
-    public queries, U 2, with and without noise; U 512) and at the token
-    vote's (``TOKEN_VOTE``).  Event time (20 back-to-back wrapper calls:
-    at the round's size the host's enqueue) beside the device time (20
-    launches in a CUDA graph).  Its operations: an add a (query, class)
-    and a compare a (teacher, query)."""
+    on all five outputs at every shape the rounds give it
+    (``round_shapes``: the tree and nn rounds' party votes, among them
+    cnn_L0's 10 classes and the L2 rounds' noisy query subset), at the
+    Adult round's (M 5 teachers, the T public queries) with noise at
+    U 2 and U 512, and at the token vote's (``TOKEN_VOTE``).  Event
+    time (20 back-to-back wrapper calls: at the round's size the host's
+    enqueue) beside the device time (20 launches in a CUDA graph).  Its
+    operations: an add a (query, class) and a compare a (teacher,
+    query)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import vote_aggregate as va
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, worst = [], 0.0
-    for M, T, U, noisy in ((5, T, 2, False), (5, T, 2, True),
-                           (5, T, 512, True), (*TOKEN_VOTE, True)):
+    shapes = [(5, T, 2, False), (5, T, 2, True), (5, T, 512, True),
+              (*TOKEN_VOTE, True)]
+    for M, T, U, noisy in shapes + [s for s in round_shapes
+                                    if s not in shapes]:
         preds = torch.randint(0, U, (M, T), device="cuda", generator=g,
                               dtype=torch.int32)
         noise = (torch.randn((T, U), device="cuda", generator=g) * 3.0
@@ -298,7 +337,8 @@ def phase_votes(T):
         nbytes = 4 * (M * T + (T * U if noisy else 0) + 5 * T)
         b_ms, b_by = bound(nbytes, M * T + T * U)
         row = {"kernel": "vote_aggregate", "M": M, "T": T, "U": U,
-               "noise": noisy, "kernel_ms": ms, "graph_ms": dev,
+               "noise": noisy, "main_path": (M, T, U, noisy) in
+               round_shapes, "kernel_ms": ms, "graph_ms": dev,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None, "bit_identical": True}
         log("[kernel] " + json.dumps(row))
@@ -679,14 +719,19 @@ def phase_wkv():
 # ---------------------------------------------------------------------------
 # Phase 3
 # ---------------------------------------------------------------------------
-def expected_launches(cfg, kind, depth, rounds):
-    """Launch counts the config implies for one vmap round: every
-    stacked fit runs one histogram launch per level and one per leaf
-    build (per boosting round for GBDT), for each party's teacher grid
-    and its s students, plus the final model; one vote launch per
-    partition per party."""
-    per_fit = (depth + 1) * (rounds if kind == "gbdt" else 1)
-    hist = cfg.num_parties * 2 * per_fit + per_fit
+def expected_launches(cfg, kinds, final, depth=6, rounds=30):
+    """Launch counts the config implies for one vmap round whose parties
+    bind the learner ``kinds`` ("rf" | "gbdt" | "nn", one a party) and
+    whose final model is a ``final``: every stacked tree fit runs one
+    histogram launch per level and one per leaf build (per boosting
+    round for GBDT), for each party's teacher grid and its s students,
+    plus the final model; an nn fit launches none.  One vote launch per
+    partition per party, whatever its learner."""
+    def per_fit(kind):
+        if kind == "nn":
+            return 0
+        return (depth + 1) * (rounds if kind == "gbdt" else 1)
+    hist = sum(2 * per_fit(k) for k in kinds) + per_fit(final)
     votes = cfg.num_parties * cfg.num_partitions
     return hist, votes
 
@@ -703,18 +748,24 @@ def run_round(learner, data, cfg, device, engine="vmap"):
     return res, time.time() - t0
 
 
-def phase_round(data):
+def tree_rounds():
+    """The full-width tree rounds, each (name, learner, cfg, learner
+    kind, depth, boosting rounds)."""
     from repro_torch.configs.base import FedKTConfig
     from repro_torch.core.learners import GBDTLearner, RFLearner
-    from repro_torch.kernels import tree_hist as th
-    from repro_torch.kernels import vote_aggregate as va
-    runs = [("rf_L0", RFLearner(num_classes=2), FedKTConfig(num_classes=2),
+    return [("rf_L0", RFLearner(num_classes=2), FedKTConfig(num_classes=2),
              "rf", 6, 1),
             ("gbdt_L0", GBDTLearner(), FedKTConfig(num_classes=2),
              "gbdt", 6, 30),
             ("rf_L2", RFLearner(num_classes=2),
              FedKTConfig(num_classes=2, privacy_level="L2", gamma=0.1,
                          query_fraction=0.2), "rf", 6, 1)]
+
+
+def phase_round(data):
+    from repro_torch.kernels import tree_hist as th
+    from repro_torch.kernels import vote_aggregate as va
+    runs = tree_rounds()
     totals = {"tree_hist": 0, "vote_aggregate": 0}
     rows = []
     for name, learner, cfg, kind, depth, rounds in runs:
@@ -723,7 +774,8 @@ def phase_round(data):
         va.launches = 0
         res, secs = run_round(learner, data, cfg, "cuda")
         got = (th.launches, va.launches)
-        want = expected_launches(cfg, kind, depth, rounds)
+        want = expected_launches(cfg, [kind] * cfg.num_parties, kind,
+                                 depth, rounds)
         labels = next(iter(res.by_domain.values()))["labels"]
         row = {"round": name, "accuracy": res.accuracy,
                "epsilon": res.epsilon, "wall_s": secs,
@@ -769,6 +821,155 @@ def phase_parity():
         raise AssertionError("card and CPU rounds disagree")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4b: the neural learners and the paper's baselines
+# ---------------------------------------------------------------------------
+def nn_rounds(data):
+    """The full-size nn rounds, each {name, learner (or a roster of
+    bindings), final learner, data, cfg, each party's learner kind}:
+    the Adult-size MLP round, the paper's digits CNN round
+    (``benchmarks/common.py``'s ``--full`` task) and a mixed nn/rf/gbdt
+    roster under L2 with an MLP final model."""
+    from repro_torch.configs.base import FedKTConfig
+    from repro_torch.core.learners import GBDTLearner, NNLearner, RFLearner
+    from repro_torch.data.synthetic import digits
+    from repro_torch.federation import PartyBinding
+    from repro_torch.models.smallnets import MLP, PaperCNN
+    mlp = NNLearner(MLP(ADULT_FEATURES, 2), num_classes=2)
+    cnn = NNLearner(PaperCNN(16, 1, 10), num_classes=10, steps=400)
+    by_kind = {"nn": mlp, "rf": RFLearner(num_classes=2),
+               "gbdt": GBDTLearner()}
+    kinds = (["nn", "rf", "gbdt"] * 4)[:10]
+    return [
+        dict(name="nn_L0", learner=mlp, final=mlp, data=data,
+             cfg=FedKTConfig(num_classes=2), kinds=["nn"] * 10),
+        dict(name="cnn_L0", learner=cnn, final=cnn,
+             data=digits(n=12_000, image_size=16, seed=0),
+             cfg=FedKTConfig(num_parties=10, num_partitions=2,
+                             num_subsets=3, num_classes=10, beta=0.5,
+                             seed=0), kinds=["nn"] * 10),
+        dict(name="mixed_L2", learner=[PartyBinding(by_kind[k])
+                                       for k in kinds],
+             final=mlp, data=data,
+             cfg=FedKTConfig(num_classes=2, privacy_level="L2", gamma=0.1,
+                             query_fraction=0.2), kinds=kinds),
+    ]
+
+
+def phase_nn_rounds(rounds):
+    """The full-size nn rounds (``nn_rounds``) through FedKTSession on
+    the card (engine ``vmap``): host wall after a synchronise, peak
+    memory, accuracy, epsilon; the launch counts must be those the
+    roster implies (K1 a (party, partition), K2 only for tree fits)."""
+    from repro_torch.federation import FedKTSession
+    from repro_torch.kernels import tree_hist as th
+    from repro_torch.kernels import vote_aggregate as va
+    totals = {"tree_hist": 0, "vote_aggregate": 0}
+    for r in rounds:
+        name, d, cfg = r["name"], r["data"], r["cfg"]
+        sess = FedKTSession(r["learner"], d, cfg, engine="vmap",
+                            final_learner=r["final"], device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        th.launches = 0
+        va.launches = 0
+        t0 = time.time()
+        res = sess.run()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = (th.launches, va.launches)
+        want = expected_launches(cfg, r["kinds"], "nn")
+        labels = next(iter(res.by_domain.values()))["labels"]
+        row = {"round": name, "accuracy": res.accuracy,
+               "epsilon": res.epsilon, "wall_s": secs,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "tree_hist_launches": got[0], "vote_launches": got[1],
+               "expected": list(want), "party_s": res.meta["seconds"],
+               "wire_bytes": res.meta["wire_bytes"]["updates"],
+               "bindings": sorted({b["learner"] for b in
+                                   res.meta["party_bindings"]})}
+        log("[nn-round] " + json.dumps(row))
+        if got != want:
+            raise AssertionError(f"{name}: launches {got} != {want}")
+        if labels.shape != (len(d["X_public"]),) or \
+                not set(np.unique(labels)) <= set(range(cfg.num_classes)):
+            raise AssertionError(f"{name}: bad server labels")
+        floor = 0.2 if cfg.num_classes == 10 else 0.6
+        if not (floor < res.accuracy <= 1.0):
+            raise AssertionError(f"{name}: accuracy {res.accuracy}")
+        if cfg.privacy_level == "L2" and not np.isfinite(res.epsilon):
+            raise AssertionError(f"{name}: epsilon {res.epsilon}")
+        totals["tree_hist"] += got[0]
+        totals["vote_aggregate"] += got[1]
+    return totals
+
+
+def phase_nn_parity():
+    """The reference's nn learner (MLP hidden 64, 300 steps) in phase
+    4's round, on the card and on the CPU: not bit for bit (cuBLAS and
+    the CPU round otherwise and Adam amplifies it), so >= 99 % equal
+    server labels and accuracy within 0.01.  The model must learn (both
+    classes among the card's labels, accuracy above 0.75; the CPU
+    reaches 0.832), or equal labels would say little."""
+    from repro_torch.configs.base import FedKTConfig
+    from repro_torch.core.learners import NNLearner
+    from repro_torch.data.synthetic import tabular_binary
+    from repro_torch.models.smallnets import MLP
+    data = tabular_binary(n=6000, seed=0)
+    cfg = FedKTConfig(num_parties=5, num_partitions=2, num_subsets=4,
+                      num_classes=2, beta=0.5)
+    learner = NNLearner(MLP(ADULT_FEATURES, 2), num_classes=2)
+    card, t_card = run_round(learner, data, cfg, "cuda")
+    cpu, t_cpu = run_round(learner, data, cfg, "cpu")
+    lc = next(iter(card.by_domain.values()))["labels"]
+    lp = next(iter(cpu.by_domain.values()))["labels"]
+    share = float((lc == lp).mean())
+    row = {"parity": "nn_mlp_h64", "labels_equal_share": share,
+           "card_accuracy": card.accuracy, "cpu_accuracy": cpu.accuracy,
+           "card_label_counts": np.bincount(lc, minlength=2).tolist(),
+           "card_s": t_card, "cpu_s": t_cpu}
+    log("[nn-parity] " + json.dumps(row))
+    if len(np.unique(lc)) < 2 or not card.accuracy > 0.75:
+        raise AssertionError(f"the card's nn round did not learn: {row}")
+    if share < 0.99 or abs(card.accuracy - cpu.accuracy) > 0.01:
+        raise AssertionError(f"card and CPU nn rounds disagree: {row}")
+    return row
+
+
+def phase_strategies():
+    """The paper's baselines on ``tabular_binary(n=6000)`` with the MLP
+    on the card: SOLO, central PATE, and FedAvg / FedProx / SCAFFOLD
+    for 5 rounds.  Accuracy and host wall of each."""
+    from repro_torch.configs.base import FedKTConfig
+    from repro_torch.core.baselines import IterConfig
+    from repro_torch.core.learners import NNLearner
+    from repro_torch.data.synthetic import tabular_binary
+    from repro_torch.federation import (CentralPATEStrategy,
+                                        IterativeStrategy, SoloStrategy)
+    from repro_torch.models.smallnets import MLP
+    data = tabular_binary(n=6000, seed=0)
+    cfg = FedKTConfig(num_classes=2)
+    learner = NNLearner(MLP(ADULT_FEATURES, 2), num_classes=2)
+    runs = [SoloStrategy(learner), CentralPATEStrategy(learner)] + [
+        IterativeStrategy(MLP(ADULT_FEATURES, 2),
+                          IterConfig(algo=algo, rounds=5))
+        for algo in ("fedavg", "fedprox", "scaffold")]
+    rows = []
+    for strategy in runs:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = strategy.run(data, cfg)
+        torch.cuda.synchronize()
+        row = {"strategy": res.name, "accuracy": res.accuracy,
+               "wall_s": time.time() - t0,
+               "acc_per_round": res.meta.get("acc_per_round")}
+        log("[strategy] " + json.dumps(row))
+        if not (np.isfinite(res.accuracy) and res.accuracy > 0.5):
+            raise AssertionError(f"{res.name}: accuracy {res.accuracy}")
+        rows.append(row)
+    return rows
+
+
 def _profiled(name, fn):
     """Runs ``fn`` under torch.profiler and logs device time by kernel
     and the device's busy share of the wall time (profiler overhead
@@ -799,14 +1000,27 @@ def _profiled(name, fn):
 
 
 def phase_profile(data):
-    """``--profile``: where the time of each full-width round goes."""
+    """``--profile``: where the time of each full-width round goes (the
+    RF and GBDT rounds, and the nn_L0 and cnn_L0 rounds).  The nn
+    rounds are profiled at a tenth of their steps a fit: every step of
+    a fit is the same work, and the profiler's record of the whole
+    round's million launches takes longer to read than the script's
+    time limit."""
+    import dataclasses
+
     from repro_torch.configs.base import FedKTConfig
     from repro_torch.core.learners import GBDTLearner, RFLearner
-    for name, learner in (("rf_L0", RFLearner(num_classes=2)),
-                          ("gbdt_L0", GBDTLearner())):
-        cfg = FedKTConfig(num_classes=2)
-        run_round(learner, data, cfg, "cuda")          # warm
-        _profiled(name, lambda: run_round(learner, data, cfg, "cuda"))
+    cfg = FedKTConfig(num_classes=2)
+    runs = [("rf_L0", RFLearner(num_classes=2), data, cfg),
+            ("gbdt_L0", GBDTLearner(), data, cfg)]
+    for r in nn_rounds(data):
+        if r["name"] in ("nn_L0", "cnn_L0"):
+            lrn = r["learner"]
+            runs.append((r["name"] + "_steps_div10", dataclasses.replace(
+                lrn, steps=lrn.steps // 10), r["data"], r["cfg"]))
+    for name, learner, d, cfg in runs:
+        run_round(learner, d, cfg, "cuda")          # warm
+        _profiled(name, lambda: run_round(learner, d, cfg, "cuda"))
 
 
 # ---------------------------------------------------------------------------
@@ -1095,7 +1309,10 @@ def main():
     T = len(data["X_public"])
     n_teacher = teacher_bucket(data, FedKTConfig(num_classes=2))
     n_student = _pow2_bucket(T)
-    vote_rows, vote_err = phase_votes(T)
+    rounds = nn_rounds(data)
+    vote_rows, vote_err = phase_votes(T, round_vote_shapes(
+        [(r[2], T) for r in tree_rounds()]
+        + [(r["cfg"], len(r["data"]["X_public"])) for r in rounds]))
     hist_rows, hist_err = phase_hist(n_teacher, n_student)
     att_rows, att_err = phase_attention()
     rg_rows, rg_err = phase_rglru()
@@ -1108,6 +1325,16 @@ def main():
     phase_parity()
     torch.cuda.synchronize()
     log(f"[phase] parity ok at {time.time() - t_start:.1f} s")
+    for kname, n in phase_nn_rounds(rounds).items():
+        launches[kname] += n
+    torch.cuda.synchronize()
+    log(f"[phase] nn rounds ok at {time.time() - t_start:.1f} s")
+    phase_nn_parity()
+    torch.cuda.synchronize()
+    log(f"[phase] nn parity ok at {time.time() - t_start:.1f} s")
+    phase_strategies()
+    torch.cuda.synchronize()
+    log(f"[phase] strategies ok at {time.time() - t_start:.1f} s")
     if profile_rounds:
         phase_profile(data)
         torch.cuda.synchronize()

@@ -1,15 +1,20 @@
-"""The tree learners behind the Learner contract (``repro.core.learners``).
+"""The learners behind the Learner contract (``repro.core.learners``).
 
-RFLearner / GBDTLearner : the histogram tree learners (trees.py), with
-the same ``fit``/``predict`` and ``fit_stacked``/``predict_stacked``
-hooks the engines call.  A learner carries its ``device`` ("cuda"
-unless the caller asks for the CPU); states are nested tuples of
-tensors on that device, and states handed back as numpy arrays (a
-decoded wire update) are moved there first.
+NNLearner : an Adam training loop over a smallnet (MLP / CNN / VGG).
+            Data is padded to power-of-two buckets, as in the reference,
+            so a stacked fit of k models shares one bucket.
+RFLearner / GBDTLearner : the histogram tree learners (trees.py).
+
+Each has the same ``fit``/``predict`` and ``fit_stacked``/
+``predict_stacked`` hooks the engines call.  A learner carries its
+``device`` ("cuda" unless the caller asks for the CPU); states are
+nested tuples or dicts of tensors on that device, and states handed back
+as numpy arrays (a decoded wire update) are moved there first.
 
 Keys are threefry keys from ``repro_torch.prng`` (numpy (2,) uint32),
 consumed split for split as the reference consumes ``jax.random``
-keys, so a fit at a given key draws the reference's bootstrap.
+keys, so a fit at a given key draws the reference's bootstrap, and an
+nn fit the reference's batches, row for row.
 """
 from __future__ import annotations
 
@@ -18,9 +23,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as D
+from repro_torch import prng
 from repro_torch.core import trees as T
+from repro_torch.optim import adamw
 from repro_torch.tree_util import tree_map
 
 
@@ -49,17 +57,103 @@ def _pad_pow2(X, y, min_size=32, bucket=None):
     return Xp, yp, mask
 
 
-def _on(device, tree):
-    """Every leaf of a state as a tensor on ``device``."""
-    return tree_map(lambda a: torch.as_tensor(a).to(device), tree)
-
-
 def _first(tree):
     return tree_map(lambda a: a[0], tree)
 
 
 def _batch(tree):
     return tree_map(lambda a: a[None], tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def _ce(net, p, xb, yb):
+    """Mean cross-entropy: the mean of -log_softmax(logits)[y]."""
+    return F.cross_entropy(net.apply(p, xb), yb)
+
+
+def _draw_batches(step_keys, mask, batch_size):
+    """(steps, batch_size) row indices, one ``choice`` a step key over
+    the rows ``mask`` marks, as the reference's fit draws them."""
+    p = mask / mask.sum()
+    return prng.choice(step_keys, len(mask), (batch_size,), p)
+
+
+@dataclass(frozen=True)
+class NNLearner:
+    net: Any                      # smallnets module object (init/apply)
+    num_classes: int
+    steps: int = 300
+    batch_size: int = 64
+    lr: float = 1e-3
+    l2: float = 1e-6
+    # vertical federation: this party trains and predicts on only these
+    # feature columns of any X it is handed; the net must be sized to
+    # len(feature_mask)
+    feature_mask: Any = None      # Optional[Tuple[int, ...]]
+    device: str = D.DEFAULT
+
+    def fit(self, key, X, y):
+        """One model: the stacked fit of one, in its own pow2 bucket."""
+        return _first(self.fit_stacked(np.asarray(key)[None], [X], [y]))
+
+    def fit_stacked(self, keys, Xs, ys):
+        """Trains len(Xs) models as ONE batched fit (the vmap engine),
+        the counterpart of the reference's ``jax.vmap`` of the fit:
+        ``torch.func.vmap`` of the gradient over a leading model axis on
+        every parameter, then one Adam update of the stacked trees (it
+        is elementwise).  vmap keeps the net's single-model ``apply``
+        the only definition of the model; it batches the products into
+        ``bmm`` and the convolutions into grouped ones.  All datasets
+        share the largest member's pow2 bucket; per-row masks keep each
+        model's batches on its own rows, so a model trained here draws
+        its serial ``fit``'s batches whenever the buckets match.
+
+        Every step's indices are drawn on the host before the loop and
+        copied to the device once; the loop itself never waits for the
+        device."""
+        dev = D.resolve(self.device)
+        keys = np.asarray(keys, np.uint32)
+        bucket = max(_pow2_bucket(len(X)) for X in Xs)
+        padded = [_pad_pow2(_mask_cols(X, self.feature_mask)
+                            .astype(np.float32), np.asarray(y),
+                            bucket=bucket) for X, y in zip(Xs, ys)]
+        X, Y, masks = (np.stack([p[i] for p in padded]) for i in range(3))
+        idx = np.stack([_draw_batches(
+            prng.split(prng.fold_in(k, 2), self.steps), m,
+            self.batch_size) for k, m in zip(keys, masks)], axis=1)
+        params = D.put(_stack([self.net.init(prng.fold_in(k, 1), "cpu")
+                               for k in keys]), dev)
+        X = torch.from_numpy(X).to(dev)
+        Y = torch.from_numpy(Y).long().to(dev)
+        idx = torch.from_numpy(idx).to(dev)             # (steps, k, B)
+        rows = torch.arange(len(keys), device=dev)[:, None]
+        grad = torch.func.vmap(torch.func.grad(
+            lambda p, xb, yb: _ce(self.net, p, xb, yb)))
+        opt = adamw(weight_decay=self.l2)
+        with D.full_float32(dev):
+            state = opt.init(params)
+            for s in range(self.steps):
+                g = grad(params, X[rows, idx[s]], Y[rows, idx[s]])
+                params, state = opt.update(g, state, params, self.lr)
+        return params
+
+    def predict(self, state, X):
+        return self.predict_stacked(_batch(state), X)[0]
+
+    def predict_stacked(self, states, X):
+        """(k, T) int32 predictions of k stacked models on one shared X;
+        ties go to the first class, as ``jnp.argmax``'s."""
+        dev = D.resolve(self.device)
+        params = D.put(states, dev)
+        X = torch.as_tensor(_mask_cols(X, self.feature_mask)
+                            .astype(np.float32)).to(dev)
+        with D.full_float32(dev), torch.no_grad():
+            logits = torch.func.vmap(self.net.apply,
+                                     in_dims=(0, None))(params, X)
+        return torch.argmax(logits, -1).to(torch.int32)
 
 
 @dataclass(frozen=True)
@@ -101,8 +195,8 @@ class RFLearner:
             w_pad[:, :len(X)] = w_i
             Xi, yi, _ = _pad_pow2(X, np.asarray(y), bucket=bucket)
             Xp.append(Xi), yp.append(yi), wp.append(w_pad), fm.append(fm_i)
-        edges, Xp, yp, wp, fm = _on(dev, tuple(
-            np.stack(a) for a in (edges, Xp, yp, wp, fm)))
+        edges, Xp, yp, wp, fm = D.put(tuple(
+            np.stack(a) for a in (edges, Xp, yp, wp, fm)), dev)
         forest = T.fit_forest_stacked(Xp, edges, yp, wp, fm,
                                       depth=self.depth,
                                       num_classes=self.num_classes)
@@ -114,7 +208,7 @@ class RFLearner:
     def predict_stacked(self, states, X):
         """(k, T) predictions of k stacked forests on one shared X."""
         dev = D.resolve(self.device)
-        forest, edges = _on(dev, states)
+        forest, edges = D.put(states, dev)
         X = torch.as_tensor(_mask_cols(X, self.feature_mask)
                             .astype(np.float32)).to(dev)
         return T.predict_forest_stacked(forest, X, edges)
@@ -152,8 +246,8 @@ class GBDTLearner:
             edges.append(T.make_bins(X))
             Xi, yi, mi = _pad_pow2(X, np.asarray(y), bucket=bucket)
             Xp.append(Xi), yp.append(yi), wp.append(mi)
-        edges, Xp, yp, wp = _on(dev, tuple(
-            np.stack(a) for a in (edges, Xp, yp, wp)))
+        edges, Xp, yp, wp = D.put(tuple(
+            np.stack(a) for a in (edges, Xp, yp, wp)), dev)
         trees = T.fit_gbdt_stacked(Xp, edges, yp, wp, gb.learning_rate,
                                    num_rounds=self.num_rounds,
                                    depth=self.depth)
@@ -165,7 +259,7 @@ class GBDTLearner:
     def predict_stacked(self, states, X):
         """(k, T) predictions of k stacked GBDTs on one shared X."""
         dev = D.resolve(self.device)
-        trees, edges = _on(dev, states)
+        trees, edges = D.put(states, dev)
         X = torch.as_tensor(_mask_cols(X, self.feature_mask)
                             .astype(np.float32)).to(dev)
         return T.predict_gbdt_stacked(trees, X, edges,

@@ -6,7 +6,11 @@ never reports numbers) on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from repro_torch.tree_util import tree_map
 
 DEFAULT = "cuda"
 
@@ -26,3 +30,35 @@ def resolve(device=DEFAULT) -> torch.device:
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
                          f"'cpu'")
     return dev
+
+
+def put(tree, device):
+    """Every leaf of ``tree`` (an array or tensor, or dicts, lists and
+    tuples of them) as a tensor on ``resolve(device)``."""
+    dev = resolve(device)
+    return tree_map(lambda a: torch.as_tensor(a).to(dev), tree)
+
+
+@contextlib.contextmanager
+def full_float32(dev: torch.device):
+    """Within the block, products and convolutions on the card run in
+    full float32 (no TF32, whatever the caller set) and cuDNN picks only
+    deterministic algorithms (some backward-weight convolutions
+    accumulate with atomics otherwise), so a float32 fit gives the same
+    bits every run.  The caller's flags come back on exit.  Nothing
+    changes on the CPU."""
+    if dev.type != "cuda":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    flags = ((torch.backends.cuda.matmul, "allow_tf32", False),
+             (cudnn, "allow_tf32", False), (cudnn, "deterministic", True),
+             (cudnn, "benchmark", False))
+    saved = [getattr(obj, name) for obj, name, _ in flags]
+    for obj, name, value in flags:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for (obj, name, _), value in zip(flags, saved):
+            setattr(obj, name, value)

@@ -9,6 +9,7 @@
                                       through the codec
     aggregate.StreamingVoteAggregate— the server's running vote fold
     domain.VoteDomain               — the typed vote layout
+    strategies.*                    — every compared algorithm, one shape
 """
 from repro_torch.federation import codec  # noqa: F401
 from repro_torch.federation.aggregate import (  # noqa: F401
@@ -30,6 +31,9 @@ from repro_torch.federation.party import Party, query_budget  # noqa: F401
 from repro_torch.federation.server import Server  # noqa: F401
 from repro_torch.federation.session import (FedKTSession,  # noqa: F401
                                             party_starting_keys)
+from repro_torch.federation.strategies import (  # noqa: F401
+    CentralPATEStrategy, FedKTStrategy, IterativeStrategy, SoloStrategy,
+    Strategy, StrategyResult)
 from repro_torch.federation.transport import (InProcessTransport,  # noqa: F401
                                               Transport, TransportBase,
                                               get_transport)

@@ -168,3 +168,48 @@ def test_cpu_round_builds_no_kernel():
     assert res.meta["device"] == "cpu"
     assert build._LIBS == {}
     assert (th.launches, va.launches) == before
+
+
+def test_nn_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the no-card path "
+                    "is checked on CPU-only hosts")
+    from repro_torch import prng
+    from repro_torch.configs.base import FedKTConfig
+    from repro_torch.core.baselines import IterConfig
+    from repro_torch.core.learners import NNLearner
+    from repro_torch.data.synthetic import tabular_binary
+    from repro_torch.federation import IterativeStrategy
+    from repro_torch.models.smallnets import MLP
+    X = np.zeros((8, 3), np.float32)
+    y = np.zeros((8,), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NNLearner(MLP(3, 2), num_classes=2).fit(prng.PRNGKey(0), X, y)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MLP(3, 2).init(prng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IterativeStrategy(MLP(14, 2), IterConfig(rounds=1)).run(
+            tabular_binary(n=200), FedKTConfig(num_parties=2))
+
+
+def test_cpu_nn_round_builds_no_kernel():
+    from repro_torch.configs.base import FedKTConfig
+    from repro_torch.core.learners import NNLearner
+    from repro_torch.data.synthetic import tabular_binary
+    from repro_torch.federation import FedKTSession
+    from repro_torch.kernels import build
+    from repro_torch.kernels import tree_hist as th
+    from repro_torch.kernels import vote_aggregate as va
+    from repro_torch.models.smallnets import MLP
+    before = (th.launches, va.launches)
+    res = FedKTSession(NNLearner(MLP(14, 2, hidden=8), num_classes=2,
+                                 steps=5),
+                       tabular_binary(n=400), FedKTConfig(
+                           num_parties=2, num_subsets=2, num_classes=2,
+                           privacy_level="L2", gamma=0.1,
+                           query_fraction=0.2),
+                       engine="vmap", device="cpu").run()
+    assert 0.0 <= res.accuracy <= 1.0
+    assert res.meta["device"] == "cpu"
+    assert build._LIBS == {}
+    assert (th.launches, va.launches) == before

@@ -1,6 +1,9 @@
-"""The threefry port against ``jax.random``: keys, splits and draws are
-bit-exact; Laplace noise agrees within rtol=1e-6 (the same uniform
-bits, but ``log1p`` may differ between XLA and torch by an ulp)."""
+"""The threefry port against ``jax.random``: keys, splits, ``fold_in``,
+draws and ``choice(p=...)`` are bit-exact; ``normal`` is within
+atol=2.5e-7, rtol=1.2e-7 (XLA's ``erf_inv`` and log1p round otherwise
+in about 1 % of draws);
+Laplace noise agrees within rtol=1e-6 (the same uniform bits, but
+``log1p`` may differ between XLA and torch by an ulp)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,3 +71,61 @@ def test_laplace_matches_reference(seed):
     got = voting.laplace(prng.PRNGKey(seed), (64, 10), 10.0)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_bit_exact(seed):
+    key = jax.random.PRNGKey(seed)
+    for data in (0, 1, 2, 17, 2 ** 31 - 1, 2 ** 32 - 1):
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.fold_in(key, data)),
+            prng.fold_in(prng.PRNGKey(seed), data))
+
+
+# (bucket, real rows): the fit's row masks, from a full bucket to the
+# 6000-of-8192 fill of an Adult-size party, and one under a block of 16
+@pytest.mark.parametrize("bucket,n", [(32, 5), (32, 32), (64, 33),
+                                      (1024, 1000), (4096, 4096),
+                                      (8192, 6000), (65536, 40000)])
+def test_choice_with_p_bit_exact(bucket, n):
+    """The fit's batch draw: ``choice(k, bucket, (64,), p=mask/sum)``
+    under ``split(fold_in(key, 2), steps)``, one step at a time in the
+    reference and as one stack of keys in the port."""
+    mask = np.zeros((bucket,), np.float32)
+    mask[:n] = 1.0
+    p = mask / mask.sum()
+    key = jax.random.PRNGKey(bucket + n)
+    keys = jax.random.split(jax.random.fold_in(key, 2), 12)
+    want = np.stack([np.asarray(jax.random.choice(k, bucket, (64,),
+                                                  p=jnp.asarray(p)))
+                     for k in keys])
+    pkeys = prng.split(prng.fold_in(prng.PRNGKey(bucket + n), 2), 12)
+    got = prng.choice(pkeys, bucket, (64,), p)
+    np.testing.assert_array_equal(got, want)
+    assert got.max() < n
+    # one key at a time, and a non-uniform p
+    np.testing.assert_array_equal(prng.choice(pkeys[3], bucket, (64,), p),
+                                  want[3])
+    q = np.random.default_rng(n).random(bucket).astype(np.float32)
+    q /= q.sum()
+    np.testing.assert_array_equal(
+        prng.choice(pkeys[0], bucket, (5, 7), q),
+        np.asarray(jax.random.choice(keys[0], bucket, (5, 7),
+                                     p=jnp.asarray(q))))
+
+
+@pytest.mark.parametrize("n", [7, 16, 17, 100, 5000, 65536])
+def test_blocked_cumsum_is_xlas(n):
+    x = np.random.default_rng(n).random(n).astype(np.float32)
+    np.testing.assert_array_equal(prng._cumsum16(x),
+                                  np.asarray(jnp.cumsum(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_within_erf_inv_rounding(seed):
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.normal(key, (200, 50)))
+    got = prng.normal(prng.PRNGKey(seed), (200, 50))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=2.5e-7)
+    assert (got != want).mean() < 0.05
