@@ -47,6 +47,21 @@ non-zero before printing a result):
                 and GBDT at L0 and RF at L2, through FedKTSession on
                 the card; the launch counters must equal the counts the
                 config implies.
+  3b. fleet   : rf_L0 again through the thread (10 workers), subprocess
+                (5 spawned workers, each its own CUDA context) and
+                socket (journaled) transports, each bit for bit phase
+                3's in-process round (server labels, vote counts,
+                accuracy, epsilon, every party's frame digest, wire
+                bytes); the thread and socket rounds launch K1 and K2
+                from several host threads and must count exactly the
+                config's launches; the subprocess round's parent only
+                the server's fit.  Then the parity cell's round (n
+                6000, 5 parties) as OS processes: one
+                ``repro_torch.launch.federate coordinator`` and five
+                ``party`` processes over TCP, whose report must equal
+                the ``local`` role's; a coordinator killed between
+                journaling a frame and its ACK, resumed bit for bit;
+                one seeded ``--chaos`` round, bit for bit.
   4. parity   : a smaller RF round on the card and on the CPU (plain
                 versions): identical server labels, accuracy, epsilon.
   4b. nn      : the neural learners at full size on the card, engine
@@ -736,9 +751,11 @@ def expected_launches(cfg, kinds, final, depth=6, rounds=30):
     return hist, votes
 
 
-def run_round(learner, data, cfg, device, engine="vmap"):
+def run_round(learner, data, cfg, device, engine="vmap",
+              transport="inprocess", parallelism=None):
     from repro_torch.federation import FedKTSession
-    sess = FedKTSession(learner, data, cfg, engine=engine, device=device)
+    sess = FedKTSession(learner, data, cfg, engine=engine, device=device,
+                        transport=transport, parallelism=parallelism)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
@@ -767,7 +784,7 @@ def phase_round(data):
     from repro_torch.kernels import vote_aggregate as va
     runs = tree_rounds()
     totals = {"tree_hist": 0, "vote_aggregate": 0}
-    rows = []
+    rows, results = [], {}
     for name, learner, cfg, kind, depth, rounds in runs:
         torch.cuda.reset_peak_memory_stats()
         th.launches = 0
@@ -796,7 +813,206 @@ def phase_round(data):
         totals["tree_hist"] += got[0]
         totals["vote_aggregate"] += got[1]
         rows.append(row)
-    return rows, totals
+        results[name] = res
+    return rows, totals, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the fleet
+# ---------------------------------------------------------------------------
+# the parity cell's round through the launcher's flags (n 6000, 5
+# parties, s 2, t 4, RF 16 trees of depth 5)
+FLEET_FLAGS = ["--parties", "5", "--partitions", "2", "--subsets", "4",
+               "--n-train", "6000", "--learner", "rf", "--trees", "16",
+               "--depth", "5", "--engine", "vmap", "--seed", "0"]
+
+
+def same_round(name, got, want):
+    """Raises unless two rounds agree bit for bit: server labels, vote
+    counts, accuracy, epsilon, every party's frame digest and the wire
+    bytes."""
+    (g,), (w,) = ([row["vote"] for row in res.by_domain.values()]
+                  for res in (got, want))
+    checks = {
+        "labels": torch.equal(g.labels.cpu(), w.labels.cpu()),
+        "counts": torch.equal(g.counts.cpu(), w.counts.cpu()),
+        "accuracy": got.accuracy == want.accuracy,
+        "epsilon": got.epsilon == want.epsilon,
+        "frames": got.meta["frame_sha256"] == want.meta["frame_sha256"],
+        "wire_bytes": got.meta["wire_bytes"] == want.meta["wire_bytes"]}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{name}: differs from the in-process round "
+                             f"in {bad}")
+
+
+def phase_fleet(data, base, smi):
+    """rf_L0 through the thread, subprocess and socket transports on the
+    card, each against phase 3's in-process card round (``base``).  The
+    thread and socket rounds launch K1 and K2 from several host threads
+    of this process, so their counters must equal the config's counts
+    exactly; a subprocess round's parties launch in their own processes
+    (and the parent only the server's final fit).  Returns the launches
+    of the rounds this process counted."""
+    from repro_torch.federation import SocketTransport
+    from repro_torch.kernels import tree_hist as th
+    from repro_torch.kernels import vote_aggregate as va
+    name, learner, cfg, kind, depth, rounds = tree_rounds()[0]
+    want = expected_launches(cfg, [kind] * cfg.num_parties, kind, depth,
+                             rounds)
+    journal = os.path.join(ROOT, "build", "fleet_rf_L0.jrnl")
+    if os.path.exists(journal):
+        os.unlink(journal)
+    totals = {"tree_hist": 0, "vote_aggregate": 0}
+    for tname, transport, par in (
+            ("thread", "thread", 10), ("subprocess", "subprocess", 5),
+            ("socket", SocketTransport(parallelism=10,
+                                       journal_path=journal), None)):
+        th.launches = va.launches = 0
+        res, secs = run_round(learner, data, cfg, "cuda",
+                              transport=transport, parallelism=par)
+        got = (th.launches, va.launches)
+        row = {"fleet": f"{name}_{tname}", "wall_s": secs,
+               "seconds": res.meta["seconds"], "launches": list(got),
+               "expected": list(want), "accuracy": res.accuracy,
+               "wire_bytes": res.meta["wire_bytes"]["updates"],
+               "card": smi}
+        if tname == "socket":
+            sock = res.meta["socket"]
+            row["arrived"] = len(sock["arrived"])
+            row["dropped"] = sock["dropped"]
+        log("[fleet] " + json.dumps(row))
+        same_round(f"{name} {tname}", res, base)
+        if tname == "subprocess":
+            # the parties ran in the workers, on the card (a worker
+            # without a card raises; nothing falls back)
+            want_here = (expected_launches(cfg, [], kind, depth,
+                                           rounds)[0], 0)
+        else:
+            want_here = want
+            totals["tree_hist"] += got[0]
+            totals["vote_aggregate"] += got[1]
+        if got != want_here:
+            raise AssertionError(f"{name} {tname}: launches {got} != "
+                                 f"{want_here}")
+        if tname == "socket" and (row["arrived"] != cfg.num_parties
+                                  or row["dropped"]):
+            raise AssertionError(f"{name} socket: {row}")
+    return totals
+
+
+def _report_json(text):
+    """The launcher's JSON report: everything from its first brace."""
+    out = json.loads(text[text.index("{"):])
+    out.pop("seconds")
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_fleet_processes(smi):
+    """The parity cell's round as separate OS processes on the card:
+    one ``repro_torch.launch.federate coordinator`` and five ``party``
+    processes over TCP, against the ``local`` role in this process; a
+    coordinator killed between journaling party 0's frame and its ACK,
+    then resumed, against the uninterrupted round; one seeded chaos
+    round (``--chaos``)."""
+    import contextlib
+    import io
+    from repro_torch.federation import (FaultPlan, QuorumError,
+                                        SocketTransport)
+    from repro_torch.launch import federate
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        federate.main(["local", "--port", "0", *FLEET_FLAGS])
+    local_s = time.time() - t0
+    local = _report_json(buf.getvalue())
+
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.federate"]
+    common = ["--port", port, *FLEET_FLAGS]
+    t0 = time.time()
+    procs = [subprocess.Popen(cmd + ["coordinator", *common,
+                                     "--deadline-s", "300"],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=ROOT)]
+    procs += [subprocess.Popen(cmd + ["party", "--party-id", str(i),
+                                      "--retries", "12", *common],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True, env=env,
+                               cwd=ROOT) for i in range(5)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    fleet_s = time.time() - t0
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"fleet process {p.args[3:5]} exited "
+                                 f"{p.returncode}:\n{out}\n{err}")
+    coord = _report_json(outs[0][0])
+    log("[fleet] " + json.dumps({
+        "fleet": "parity_processes", "local_wall_s": local_s,
+        "processes_wall_s": fleet_s, "arrived": coord["arrived"],
+        "dropped": coord["dropped_parties"],
+        "accuracy": coord["accuracy"], "epsilon": coord["epsilon"],
+        "wire_bytes": coord["wire_bytes"]["updates"], "card": smi}))
+    if coord != local or coord["arrived"] != 5 or coord["dropped_parties"]:
+        raise AssertionError(f"coordinator + 5 parties {coord} != the "
+                             f"local role {local}")
+
+    # kill and resume, then a seeded chaos round: sessions built from
+    # the same flags, against the uninterrupted in-process round
+    args = federate.parse_args(["local", *FLEET_FLAGS])
+    base = federate.build_session(args, "inprocess").run()
+    journal = os.path.join(ROOT, "build", "fleet_crash.jrnl")
+    if os.path.exists(journal):
+        os.unlink(journal)
+    plan = FaultPlan(kill_coordinator_on_party=0)
+    t0 = time.time()
+    try:
+        federate.build_session(args, SocketTransport(
+            parallelism=1, journal_path=journal, chaos_plan=plan,
+            connect_retries=2, backoff_s=0.01)).run()
+        raise AssertionError("the killed coordinator's round finished")
+    except QuorumError:
+        pass
+    crash_s = time.time() - t0
+    t0 = time.time()
+    res = federate.build_session(args, SocketTransport(
+        parallelism=5, journal_path=journal, resume=True)).run()
+    resume_s = time.time() - t0
+    sock = res.meta["socket"]
+    log("[fleet] " + json.dumps({
+        "fleet": "parity_kill_resume", "crash_wall_s": crash_s,
+        "resume_wall_s": resume_s, "replayed": sock["replayed_parties"],
+        "killed_log": plan.log, "card": smi}))
+    same_round("parity kill/resume", res, base)
+    if sock["replayed_parties"] != [0] or not sock["resumed"]:
+        raise AssertionError(f"resume replayed {sock['replayed_parties']}")
+
+    args.chaos, args.chaos_seed = True, 4
+    chaos = federate._chaos_plan(args)
+    t0 = time.time()
+    res = federate.build_session(args, SocketTransport(
+        chaos_plan=chaos)).run()
+    log("[fleet] " + json.dumps({
+        "fleet": "parity_chaos", "wall_s": time.time() - t0,
+        "chaos": res.meta["socket"]["chaos"], "card": smi}))
+    same_round("parity chaos", res, base)
+    if not res.meta["socket"]["chaos"]:
+        raise AssertionError("the chaos plan fired no fault")
 
 
 def phase_parity():
@@ -1319,9 +1535,16 @@ def main():
     wk_rows, wk_err = phase_wkv()
     log(f"[phase] kernels ok at {time.time() - t_start:.1f} s")
 
-    _, launches = phase_round(data)
+    _, launches, tree_results = phase_round(data)
     torch.cuda.synchronize()
     log(f"[phase] round ok at {time.time() - t_start:.1f} s")
+    for kname, n in phase_fleet(data, tree_results["rf_L0"], smi).items():
+        launches[kname] += n
+    torch.cuda.synchronize()
+    log(f"[phase] fleet transports ok at {time.time() - t_start:.1f} s")
+    phase_fleet_processes(smi)
+    torch.cuda.synchronize()
+    log(f"[phase] fleet processes ok at {time.time() - t_start:.1f} s")
     phase_parity()
     torch.cuda.synchronize()
     log(f"[phase] parity ok at {time.time() - t_start:.1f} s")

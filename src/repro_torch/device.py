@@ -7,6 +7,7 @@ never reports numbers) on the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -39,26 +40,46 @@ def put(tree, device):
     return tree_map(lambda a: torch.as_tensor(a).to(dev), tree)
 
 
+# the flags are process-wide: parties fitting in several threads at once
+# (the thread and socket transports) share one setting, made by the
+# first block to enter and undone by the last to leave
+_F32_LOCK = threading.Lock()
+_f32_depth = 0
+_f32_saved: list = []
+
+
+def _f32_flags():
+    cudnn = torch.backends.cudnn
+    return ((torch.backends.cuda.matmul, "allow_tf32", False),
+            (cudnn, "allow_tf32", False), (cudnn, "deterministic", True),
+            (cudnn, "benchmark", False))
+
+
 @contextlib.contextmanager
 def full_float32(dev: torch.device):
     """Within the block, products and convolutions on the card run in
     full float32 (no TF32, whatever the caller set) and cuDNN picks only
     deterministic algorithms (some backward-weight convolutions
     accumulate with atomics otherwise), so a float32 fit gives the same
-    bits every run.  The caller's flags come back on exit.  Nothing
-    changes on the CPU."""
+    bits every run.  The caller's flags come back when the last block
+    open in the process exits, so blocks may overlap across threads.
+    Nothing changes on the CPU."""
+    global _f32_depth
     if dev.type != "cuda":
         yield
         return
-    cudnn = torch.backends.cudnn
-    flags = ((torch.backends.cuda.matmul, "allow_tf32", False),
-             (cudnn, "allow_tf32", False), (cudnn, "deterministic", True),
-             (cudnn, "benchmark", False))
-    saved = [getattr(obj, name) for obj, name, _ in flags]
-    for obj, name, value in flags:
-        setattr(obj, name, value)
+    flags = _f32_flags()
+    with _F32_LOCK:
+        if _f32_depth == 0:
+            _f32_saved[:] = [getattr(obj, name) for obj, name, _ in flags]
+            for obj, name, value in flags:
+                setattr(obj, name, value)
+        _f32_depth += 1
     try:
         yield
     finally:
-        for (obj, name, _), value in zip(flags, saved):
-            setattr(obj, name, value)
+        with _F32_LOCK:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                for (obj, name, _), value in zip(flags, _f32_saved):
+                    setattr(obj, name, value)

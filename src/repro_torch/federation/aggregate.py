@@ -135,6 +135,7 @@ class StreamingVoteAggregate:
             "num_examples": int(update.num_examples),
             "encoded_bytes": int(update.meta["encoded_bytes"]),
             "payload_bytes": int(update.wire_bytes()),
+            "frame_sha256": update.meta.get("frame_sha256"),
             "num_query_labels": nlabels,
             "labels_framed": codec.labels_encoded_nbytes(TokenLabels(
                 party_id=pid, labels=ShapeDtype((nlabels,), np.int32))),
@@ -155,12 +156,31 @@ class StreamingVoteAggregate:
                 sorted(self._folds, key=lambda k: self._folds[k]
                        .domain.ident)]
 
+    def _sole_fold(self) -> _DomainFold:
+        if not self._folds:
+            raise ValueError("no party updates were aggregated")
+        if len(self._folds) > 1:
+            raise ValueError(
+                f"round holds {len(self._folds)} vote domains "
+                f"({[f.domain.ident for f in self._folds.values()]}); "
+                f"use the per-domain API (finalize_domain/counts_for)")
+        return next(iter(self._folds.values()))
+
     def _fold_of(self, domain: VoteDomain) -> _DomainFold:
         fold = self._folds.get(domain.key)
         if fold is None:
             raise ValueError(f"no updates arrived in the "
                              f"{domain.describe()}")
         return fold
+
+    @property
+    def counts(self):
+        """The single-domain round's running (T, U) int32 histogram."""
+        return self._sole_fold().counts
+
+    def counts_for(self, domain: VoteDomain):
+        """One domain's running (T, U) int32 histogram."""
+        return self._fold_of(domain).counts
 
     def domain_parties(self, domain: VoteDomain) -> List[int]:
         return sorted(self._fold_of(domain).parties)
@@ -189,10 +209,16 @@ class StreamingVoteAggregate:
         return finalize_vote(fold.counts, fold.domain, gamma=gamma,
                              key=key)
 
+    def finalize(self, key) -> VoteResult:
+        """The single-domain round's finalize."""
+        return self.finalize_domain(self._sole_fold().domain, key)
+
     def epsilon(self, vote: VoteResult) -> Optional[float]:
         """Data-dependent (eps, delta=1e-5) bound for the configured
-        privacy level; None under L0."""
-        fold = self._fold_of(vote.domain)
+        privacy level; None under L0.  An anonymous vote resolves
+        against the sole fold."""
+        fold = (self._fold_of(vote.domain) if vote.domain is not None
+                else self._sole_fold())
         cfg = self.cfg
         if cfg.privacy_level == "L1":
             return P.fedkt_l1_epsilon(vote.counts.cpu().numpy(), cfg.gamma,
@@ -235,3 +261,7 @@ class StreamingVoteAggregate:
             "by_learner_kind": by_kind,
             "by_domain": by_domain,
         }
+
+    def party_meta(self) -> Dict[int, Dict[str, Any]]:
+        """Per-party accounting scalars, keyed by party id."""
+        return {pid: dict(row) for pid, row in self._meta.items()}

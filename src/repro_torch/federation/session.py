@@ -12,10 +12,15 @@ CUDA where there is none raises; nothing falls back to the CPU.  On the
 card every teacher vote runs the CUDA vote kernel and every tree level
 the CUDA histogram kernel; on the CPU their plain versions run.
 
+Every transport's updates fold through the SAME
+``StreamingVoteAggregate``: a transport with ``streams = True`` (socket)
+folds per arrival, the others fold the finished list.
+
 Seed contract: party keys are precomputed from the serial schedule
 (``party_starting_keys``), and every draw of the round uses the
 threefry port, so a round at a given ``cfg.seed`` consumes the same
-random bits as the reference's round.
+random bits as the reference's round, through any transport: the vote
+histogram is an integer sum, so arrival order cannot change it.
 """
 from __future__ import annotations
 
@@ -70,7 +75,14 @@ class FedKTSession:
     engine: "loop" | "vmap" | an engines.Engine instance.
     final_learner: trains on the server's voted labels; defaults to the
         (first binding's) teacher learner.
-    transport: "inprocess" or a transport instance.
+    transport: "inprocess" | "thread" | "subprocess" | "socket" | a
+        transport instance — where the party rounds run and how their
+        updates cross the party/server boundary.  Pass a
+        ``net.SocketTransport(...)`` instance to set the fleet knobs
+        (deadline_s, min_parties, journal, chaos plan).
+    parallelism: worker count for the fan-out transports.
+    retain_students: False drops each update after it is folded
+        (constant server memory in the party count).
     device: where the round runs: "cuda" (default) or "cpu".
     """
 
@@ -125,17 +137,33 @@ class FedKTSession:
             Xpub, self.tq_server, self.engine,
             retain_students=self.retain_students)
 
-        t0 = self._clock()
-        updates = self.transport.run_round(
-            self.parties, party_keys, Xpub, self.tq_party, None)
-        t_parties = self._clock() - t0
-        t0 = self._clock()
-        for upd in updates:
+        streaming = getattr(self.transport, "streams", False)
+
+        def fold(upd):
             agg.add(upd)
             if verbose:
                 print(f"party {upd.party_id}: {upd.num_examples} "
                       f"examples, {upd.meta['num_teachers']} teachers "
                       f"trained, {upd.meta['encoded_bytes']} wire bytes")
+
+        t0 = self._clock()
+        # engine=None: every party runs under its OWN bound engine
+        if streaming:
+            # the server folds each update the moment it arrives; party
+            # training and aggregation overlap, so "parties" time IS the
+            # whole collect-and-fold phase
+            for upd in self.transport.stream_round(
+                    self.parties, party_keys, Xpub, self.tq_party, None):
+                fold(upd)
+            t_parties = self._clock() - t0
+            t0 = self._clock()
+        else:
+            updates = self.transport.run_round(
+                self.parties, party_keys, Xpub, self.tq_party, None)
+            t_parties = self._clock() - t0
+            t0 = self._clock()
+            for upd in updates:
+                fold(upd)
         final_state, vote, votes, key = self.server.finalize_all(key, agg)
         t_server = self._clock() - t0
 
@@ -172,8 +200,18 @@ class FedKTSession:
             "seconds": {"parties": round(t_parties, 3),
                         "server": round(t_server, 3)},
             "wire_bytes": agg.wire_meta(),
+            # the digest of each arrived party's frame as the server
+            # received it: equal digests across transports are equal
+            # bytes on the wire
+            "frame_sha256": {pid: row["frame_sha256"] for pid, row in
+                             sorted(agg.party_meta().items())},
             "num_updates": agg.num_parties,
         }
+        if streaming:
+            report = dict(self.transport.round_report)
+            meta["socket"] = report
+            # dropout accounting: stragglers excluded from the vote
+            meta["dropped_parties"] = report.get("dropped", [])
         return RoundResult(final_state=final_state, accuracy=acc,
                            student_states=agg.student_states(),
                            epsilon=eps, meta=meta, by_domain=by_domain)

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -25,6 +26,12 @@ KERNELS = ("vote_aggregate", "tree_hist", "flash_attention", "rglru_scan",
            "wkv6")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# several host threads launch kernels in one process (the thread and
+# socket transports run a party a thread): one lock makes the first
+# load (and build) of a library happen once, another makes each
+# wrapper's ``launches += 1`` lose no increment
+_LOAD_LOCK = threading.Lock()
+COUNT_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -80,13 +87,17 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
+    """The kernel's shared library, built first if needed; safe to call
+    from several threads at once."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = lib_path(name)
+                if not path.exists():
+                    build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
 
 

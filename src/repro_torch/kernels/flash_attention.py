@@ -127,5 +127,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                  int(bool(causal)), int(window), float(softcap),
                  dh ** -0.5, q_offset, p.threads, p.smem, stream)
     build.check(err, "flash_attention")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return out

@@ -77,5 +77,6 @@ def rglru_scan(x, log_a, h0):
                  h.data_ptr(), h_last.data_ptr(), B, S, D,
                  int(x.dtype == torch.bfloat16), stream)
     build.check(err, "rglru_scan")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return h, h_last

@@ -117,5 +117,6 @@ def tree_hist(xb, node, w, *, num_nodes, num_bins):
                  Gf, G, N, F, K, n, B, chunk, chunks, window, warps,
                  stream)
     build.check(err, "tree_hist")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return out

@@ -73,5 +73,6 @@ def vote_aggregate(preds, noise, *, num_classes):
                  labels.data_ptr(), *(o.data_ptr() for o in outs),
                  M, T, U, stream)
     build.check(err, "vote_aggregate")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return (labels, *outs)

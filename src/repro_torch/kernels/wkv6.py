@@ -114,5 +114,6 @@ def wkv6(r, k, v, w, u, s0):
                  s_last.data_ptr(), B, S, H, dh,
                  int(r.dtype == torch.bfloat16), p.threads, p.smem, stream)
     build.check(err, "wkv6")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return o, s_last
