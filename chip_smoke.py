@@ -6,9 +6,11 @@
 Phases, each failing loudly (a failed check raises and the script exits
 non-zero before printing a result):
 
-  1. device   : the card's name, count, power limit; the five CUDA
-                kernels built from ``src/repro_torch/csrc``, one nvcc
-                each, all started together (-Xptxas -v report printed
+  1. device   : the card's name, count, power limit; the six CUDA
+                kernel sources (the five TPU kernels' counterparts and
+                the attention backward) built from
+                ``src/repro_torch/csrc``, one nvcc each, all started
+                together (-Xptxas -v report printed
                 per kernel, and a summary line of the registers and
                 spills of the wgmma attention and WKV kernels).
   2. kernels  : each kernel against its plain PyTorch version on the
@@ -104,6 +106,26 @@ non-zero before printing a result):
                 (plain versions) with the same weights, held to the
                 parity rule with logits within 1e-4 of the largest; and
                 prefill(P) + decode steps against prefill(P + n).
+  9. lm_train : the LM training path.  N1, the flash-attention
+                backward, against its plain version at phi4-mini's
+                training shape (B 4, S 512, H 24, KV 8, dh 128, bf16), a
+                gemma2-like one (window 1024 < S 2048, soft-cap 50) and
+                a float32 dh-32 one, identical run to run, timed beside
+                its bound and the backward of one SDPA call; then
+                ``launch.train.train_lm`` on phi4-mini-3.8b at full
+                width (bf16 on float32 masters, AdamW, remat, B 4 x S
+                512, 8 steps): finite, falling losses, exact K3 / N1
+                launches a step, no K4 / K5; ``make_train_step`` on the
+                card against the CPU at the phi4 and gemma2 smokes in
+                float32 (AdamW losses and first-step gradients, SGD
+                parameters, within 1e-4); ``fedkt_lm`` at L0 and L2
+                card against CPU (>= 99 % equal server labels, equal
+                epsilon, K1 a party partition); 3 full-width phi4-mini
+                members' label step with the noisy token vote, K1 at
+                (3, 2048, 200,064) bit for bit against its plain
+                version; the trained parameters saved as a checkpoint
+                in the reference's format and served by ``launch.serve
+                --checkpoint``, streams equal to the in-memory ones.
   --profile    : device time by kernel and the device's busy share of
                 each full-width round (RF, GBDT, nn_L0, cnn_L0), of the
                 serving runs and of one recurrent prefill
@@ -134,6 +156,9 @@ FP32_OPS_PER_S = 67e12         # H100 SXM CUDA cores, float32
 BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16 dense
 ADULT_ROWS, ADULT_FEATURES = 48_842, 14
 ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+# K3's row log-sum-exp against the plain version's, absolute (as
+# tests/test_torch_cuda_lm.py holds it)
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}    # test_kernels.py
 
 
@@ -1502,6 +1527,562 @@ def phase_recurrent_parity(arch, device="cuda", prompt_len=100, gen=8,
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: LM training (lm_train)
+# ---------------------------------------------------------------------------
+def sdpa_backward_best(q, k, v, do, want, tol):
+    """The library yardstick of the attention backward: autograd of one
+    ``scaled_dot_product_attention`` call (``is_causal``) at the same
+    shape, its backward alone (CUDA events over repeated
+    ``autograd.grad`` on one retained graph), on the fastest of SDPA's
+    backends that take the call, each pinned with ``sdpa_kernel``, as
+    ``sdpa_best`` times the forward: (ms, backend, {backend: ms} of
+    every backend that took it).  Each backend's
+    gradients are held to ``want`` (N1's) within ``tol`` of the largest
+    |gradient|; where a backend refuses ``enable_gqa``, k and v are
+    expanded to q's heads and their gradients summed over the group
+    outside the timed call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    B, H, S, dh = qt.shape
+    KV = kt.shape[1]
+    g = do.transpose(1, 2)
+    times = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        for expand in (False, True):
+            kv = (t.repeat_interleave(H // KV, 1) if expand else t
+                  for t in (kt, vt))
+            leaves = [t.detach().requires_grad_(True) for t in (qt, *kv)]
+            with sdpa_kernel([backend]):
+                try:
+                    out = F.scaled_dot_product_attention(
+                        *leaves, is_causal=True,
+                        **({} if expand else {"enable_gqa": True}))
+                    grads = torch.autograd.grad(out, leaves, g,
+                                                retain_graph=True)
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    continue
+                ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, leaves, g, retain_graph=True), reps=10)
+            dq, dk, dv = grads
+            if expand:
+                dk, dv = (t.reshape(B, KV, H // KV, S, dh).sum(2)
+                          for t in (dk, dv))
+            label = name.lower() + ("+expanded_kv" if expand else "")
+            for a, w in zip((dq, dk, dv), want):
+                e = float((a.transpose(1, 2).float() - w.float()).abs()
+                          .max())
+                if e > tol * float(w.float().abs().max()):
+                    raise AssertionError(f"SDPA backward ({label}) != N1: "
+                                         f"{e}")
+            times[label] = ms
+            del out, grads, leaves
+            break
+    if not times:
+        raise AssertionError("no SDPA backend takes the backward")
+    label = min(times, key=times.get)
+    return times[label], label, times
+
+
+def lm_backward_rows():
+    """N1, the flash-attention backward, against
+    ``ref.attention_backward_plain`` on the card at phi4-mini's training
+    shape, a gemma2-like one (window shorter than S, soft-cap 50) and a
+    float32 dh-32 one: within the forward's tolerances of the largest
+    |gradient|, identical run to run; kernel, plain and library times
+    beside the bound.  The forward's row LSE is held to
+    ``ref.attention_plain``'s, and N1's gradients (from K3's o and LSE)
+    also to the plain backward from the plain forward's own o and LSE,
+    so that forward and backward together are held to the plain
+    versions.  Returns (rows, the worst absolute error, the worst error
+    relative to the largest |gradient|)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [  # label, B, S, H, KV, dh, dtype, window, softcap
+        ("phi4_train", 4, 512, 24, 8, 128, torch.bfloat16, 0, 0.0),
+        ("gemma2_like", 1, 2048, 32, 16, 128, torch.bfloat16, 1024, 50.0),
+        ("f32_dh32", 2, 384, 8, 2, 32, torch.float32, 64, 30.0)]
+    rows, worst_abs, worst_rel = [], 0.0, 0.0
+    for label, B, S, H, KV, dh, dt, window, cap in cases:
+        q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((B, S, KV, dh), device="cuda", generator=g)
+                .to(dt) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=cap)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        if not bool(torch.isfinite(lse).all()):
+            raise AssertionError(f"a training row sees no key at {label}")
+        o_plain, lse_plain = ref.attention_plain(q, k, v, return_lse=True,
+                                                 **kw)
+        lse_err = float((lse - lse_plain).abs().max())
+        if lse_err > LSE_TOL[dt]:
+            raise AssertionError(f"K3's LSE != plain at {label}: {lse_err}"
+                                 f" > {LSE_TOL[dt]}")
+        got = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+        again = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+        want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
+        whole = ref.attention_backward_plain(q, k, v, o_plain, do,
+                                             lse_plain, **kw)
+        torch.cuda.synchronize()
+        tol, err, rel, whole_rel = ATT_TOL[dt], 0.0, 0.0, 0.0
+        for name, a, b, w, p in zip(("dq", "dk", "dv"), got, again, want,
+                                    whole):
+            if not torch.equal(a, b):
+                raise AssertionError(f"N1 {name} differs run to run at "
+                                     f"{label}")
+            e = float((a.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            if e > tol * scale:
+                raise AssertionError(f"N1 {name} != plain at {label}: "
+                                     f"{e} > {tol} x {scale}")
+            e_whole = float((a.float() - p.float()).abs().max())
+            s_whole = float(p.float().abs().max())
+            if e_whole > tol * s_whole:
+                raise AssertionError(
+                    f"K3 + N1 {name} != plain forward + backward at "
+                    f"{label}: {e_whole} > {tol} x {s_whole}")
+            err, rel = max(err, e), max(rel, e / scale)
+            whole_rel = max(whole_rel, e_whole / s_whole)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        lib = None if cap or window else \
+            sdpa_backward_best(q, k, v, do, got, tol)
+        del again, want, whole, o_plain, lse_plain
+        ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do,
+                                                         lse, **kw), reps=10)
+        plain = cuda_ms(lambda: ref.attention_backward_plain(
+            q, k, v, o, do, lse, **kw), reps=3, warmup=1)
+        e = q.element_size()
+        nbytes = (e * (3 * q.numel() + 2 * (k.numel() + v.numel())
+                       + o.numel()) + 4 * lse.numel())
+        nops = 10 * B * H * valid_keys(S, S, True, window) * dh
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        row = {"kernel": "flash_attention_backward", "shape": label,
+               "B": B, "S": S, "H": H, "KV": KV, "dh": dh, "dtype": str(dt),
+               "window": window, "softcap": cap, "max_abs_err": err,
+               "max_rel_err": rel, "tol": tol,
+               "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dt],
+               "max_rel_err_vs_plain_forward_backward": whole_rel,
+               "kernel_ms": ms, "plain_ms": plain,
+               "library_ms": None if lib is None else lib[0],
+               "library": None if lib is None else
+               "autograd of SDPA (is_causal), backward only, fastest "
+               "backend",
+               "library_backend": None if lib is None else lib[1],
+               "library_variants": None if lib is None else lib[2],
+               "kernel_over_library": None if lib is None else ms / lib[0],
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+               "bytes": nbytes, "flop": nops,
+               "bit_identical_run_to_run": True}
+        log("[kernel] " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, o, lse, do, got
+        torch.cuda.empty_cache()
+    return rows, worst_abs, worst_rel
+
+
+def _lm_modules():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import vote_aggregate as va
+    from repro_torch.kernels import wkv6 as wk
+    return fa, va, rg, wk
+
+
+def _zero_lm_counts():
+    """Sets the launch counts of the LM path's kernels to 0, just before
+    a main-path run."""
+    fa, va, rg, wk = _lm_modules()
+    fa.launches = fa.bwd_launches = 0
+    va.launches = rg.launches = wk.launches = 0
+
+
+def _lm_counts():
+    """The counts since ``_zero_lm_counts``, read just after the run."""
+    fa, va, rg, wk = _lm_modules()
+    return {"flash_attention": fa.launches,
+            "flash_attention_backward": fa.bwd_launches,
+            "vote_aggregate": va.launches, "rglru_scan": rg.launches,
+            "wkv6": wk.launches}
+
+
+def lm_full_train(cfg, smi, steps=8):
+    """``launch.train.train_lm`` on ``cfg`` at full width: bf16 compute
+    on float32 masters (random weights from a seeded generator), AdamW,
+    remat, B 4 x S 512, ``steps`` steps, warmup 2, lr 3e-4.  Returns the
+    trained masters."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import Model, transformer
+    from repro_torch.tree_util import tree_leaves
+    model = Model(cfg)
+    module = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = transformer.tree_of(module)
+    del module
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tcfg = TrainConfig(batch_size=4, seq_len=512, steps=steps,
+                       warmup_steps=2, learning_rate=3e-4)
+    data = synthetic.tokens(n_seqs=64, seq_len=513, vocab=cfg.vocab_size,
+                            seed=1)["train"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    out = train_lm(model, TokenDataset(data), tcfg, params=params,
+                   log_every=1, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    got = _lm_counts()
+    L = cfg.num_layers
+    from repro_torch.kernels import flash_attention as fa
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_backward": fa.BWD_KERNELS * L * steps,
+            "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
+    if got != want:
+        raise AssertionError(f"train launches {got} != {want}")
+    losses = [h["loss"] for h in out["history"]]
+    secs = [h["seconds"] for h in out["history"]]
+    step_ms = [1e3 * (b - a) for a, b in zip(secs, secs[1:])]
+    med = float(np.median(step_ms[-6:]))
+    row = {"arch": cfg.name, "layers": L, "params": n_params,
+           "dtype": cfg.dtype, "B": 4, "S": 512, "steps": steps,
+           "losses": losses, "step_ms": step_ms, "step_ms_median_last6": med,
+           "tokens_per_s": 4 * 512 / med * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": {k: v // steps for k, v in got.items()},
+           "card": smi}
+    log("[lm-train] " + json.dumps(row))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not 12.21 <= losses[0] <= 14.0:
+        raise AssertionError(f"first loss {losses[0]} outside "
+                             f"[ln(vocab) 12.21, 14]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return out["params"], got, row
+
+
+def lm_card_vs_cpu(arch, steps=5):
+    """``make_train_step`` on the card and on the CPU from one init (the
+    port's, drawn on the CPU and moved) at ``arch``'s smoke widths in
+    float32.  With AdamW (the main path's optimizer): losses within
+    1e-4 relative and the first step's gradients within 1e-4 of each
+    leaf's largest |gradient|.  AdamW moves an element whose gradient is
+    ~1e-9 (a cancelling sum whose sign the two devices' orders round
+    differently) by about a tenth of the learning rate one way or the
+    other, so the AdamW parameters are held within 1e-4 of their leaf's
+    largest |value| on all but 1e-5 of the elements, and all of them
+    after the same steps with SGD, whose update is linear in the
+    gradient.  The first step's gradients are taken outside the counted
+    run; the counts are the AdamW card run's alone."""
+    from repro_torch import device as D
+    from repro_torch import prng
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.core.distill import make_train_step
+    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.tree_util import flatten_tree, tree_map
+    cfg = get_smoke(arch).replace(dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    init = model.init_tree(prng.PRNGKey(0), "cpu")
+    data = synthetic.tokens(n_seqs=32, seq_len=97, vocab=cfg.vocab_size,
+                            seed=2)["train"]
+
+    def batches(dev):
+        for b in TokenDataset(data, 0).batches(4, steps=steps):
+            yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def first_grads(dev):
+        leaves = tree_map(
+            lambda t: t.clone().to(dev).requires_grad_(True), init)
+        flat = flatten_tree(leaves)
+        with D.full_float32(torch.device(dev)):
+            g = torch.autograd.grad(model.loss(leaves, next(batches(dev))),
+                                    list(flat.values()))
+        return {n: x.cpu() for n, x in zip(flat, g)}
+
+    def train(dev, optimizer):
+        tcfg = TrainConfig(batch_size=4, seq_len=96, steps=steps,
+                           warmup_steps=1, learning_rate=1e-3,
+                           optimizer=optimizer)
+        params = tree_map(lambda t: t.clone().to(dev), init)
+        step, opt = make_train_step(model, tcfg)
+        losses = []
+        with D.full_float32(torch.device(dev)):
+            state = opt.init(params)
+            for b in batches(dev):
+                params, state, m = step(params, state, b)
+                losses.append(float(m["loss"]))
+        return losses, {n: t.cpu() for n, t in flatten_tree(params).items()}
+
+    def rel(a, b):
+        return max(float((a[n] - b[n]).abs().max())
+                   / max(float(b[n].abs().max()), 1e-30) for n in b)
+
+    gc, gh = first_grads("cuda"), first_grads("cpu")
+    torch.cuda.synchronize()
+    _zero_lm_counts()
+    lc, pc = train("cuda", "adamw")
+    torch.cuda.synchronize()
+    counts = _lm_counts()
+    lh, ph = train("cpu", "adamw")
+    sgd_card, sgd_cpu = train("cuda", "sgd")[1], train("cpu", "sgd")[1]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    n_params = sum(t.numel() for t in ph.values())
+    row = {"arch": arch, "steps": steps, "losses_card": lc,
+           "losses_cpu": lh, "max_loss_rel_err": loss_err,
+           "max_grad_rel_err_step1": rel(gc, gh),
+           "adamw_max_param_rel_err": rel(pc, ph),
+           "adamw_params_beyond_1e-4": sum(
+               int(((pc[n] - ph[n]).abs() > 1e-4 * ph[n].abs().max()).sum())
+               for n in ph),
+           "adamw_params_beyond_limit": int(1e-5 * n_params),
+           "params": n_params,
+           "sgd_max_param_rel_err": rel(sgd_card, sgd_cpu)}
+    log("[lm-parity] " + json.dumps(row))
+    if loss_err > 1e-4 or row["max_grad_rel_err_step1"] > 1e-4 or \
+            row["sgd_max_param_rel_err"] > 1e-4 or \
+            row["adamw_params_beyond_1e-4"] > \
+            row["adamw_params_beyond_limit"]:
+        raise AssertionError(f"card != CPU training at {arch}: {row}")
+    # each step a forward and its recompute (remat) and a backward a layer
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_backward": fa.BWD_KERNELS * L * steps,
+            "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
+    if counts != want:
+        raise AssertionError(f"card training launches {counts} != {want}")
+    return counts
+
+
+def lm_fedkt(level, gamma=0.0):
+    """``launch.train.fedkt_lm`` at the CLI's ``--fedkt --smoke`` config
+    (phi4-mini's smoke, 2 parties, s 2, t 2, vocab 512; in float32, as
+    an untrained model's near-tied logits would flip labels between
+    bf16 runs), card against CPU: >= 99 % equal server labels, equal
+    epsilon.  At the smoke's
+    vocabulary (512 <= 2048) every party partition's vote goes through
+    K1, with or without noise; at phi4-mini's full vocabulary a
+    noise-free vote takes ``ops.votes_sort`` instead (no kernel)."""
+    from repro_torch.configs import FedKTConfig, TrainConfig, get_smoke
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import fedkt_lm
+    from repro_torch.models import Model
+    cfg = get_smoke("phi4-mini-3.8b").replace(dtype="float32")
+    model = Model(cfg)
+    tcfg = TrainConfig(batch_size=8, seq_len=64, steps=20,
+                       learning_rate=3e-3)
+    fcfg = FedKTConfig(num_parties=2, num_partitions=2, num_subsets=2,
+                       num_classes=cfg.vocab_size, privacy_level=level,
+                       gamma=gamma)
+    data = synthetic.tokens(n_seqs=256, seq_len=65, vocab=cfg.vocab_size)
+    res, walls, counts = {}, {}, None
+    for dev in ("cuda", "cpu"):
+        _zero_lm_counts()
+        t0 = time.perf_counter()
+        res[dev] = fedkt_lm(model, data["train"], data["public"], fcfg,
+                            tcfg, test=data["test"], verbose=False,
+                            device=dev)["result"]
+        walls[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = _lm_counts()
+
+    def labels(r):
+        (row,) = r.by_domain.values()
+        return np.asarray(row["labels"])
+
+    agree = float((labels(res["cuda"]) == labels(res["cpu"])).mean())
+    votes = fcfg.num_parties * fcfg.num_partitions
+    row = {"level": level, "gamma": gamma, "wall_s": walls,
+           "server_label_agreement": agree,
+           "epsilon": {d: r.epsilon for d, r in res.items()},
+           "accuracy": {d: r.accuracy for d, r in res.items()},
+           "launches": counts}
+    log("[lm-fedkt] " + json.dumps(row))
+    if agree < 0.99:
+        raise AssertionError(f"fedkt {level}: labels agree on {agree}")
+    if res["cuda"].epsilon != res["cpu"].epsilon:
+        raise AssertionError(f"fedkt {level}: epsilon differs: {row}")
+    if counts["vote_aggregate"] != votes or counts["rglru_scan"] or \
+            counts["wkv6"] or not counts["flash_attention_backward"]:
+        raise AssertionError(f"fedkt {level}: launches {counts}")
+    return row, counts
+
+
+def lm_label_step(cfg, smi, members=3, gamma=0.1):
+    """The token vote at full width: ``members`` phi4-mini members
+    (random weights, bf16) predict a (2, 1024) public batch through
+    ``LMLearner.vote_members`` (K3 once a layer a member), then the
+    noisy token vote through K1 at (members, 2048, vocab), held bit for
+    bit against ``ref.vote_aggregate_plain`` on the same predictions and
+    noise.  A noise-free vote at this vocabulary launches no K1."""
+    from repro_torch import prng
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import voting
+    from repro_torch.core.learners import LMLearner
+    from repro_torch.data import synthetic
+    from repro_torch.federation.domain import token_domain
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import vote_aggregate as va
+    from repro_torch.models import Model
+    model = Model(cfg)
+    bank = [model.init(torch.Generator(device="cuda").manual_seed(s))
+            for s in range(1, members + 1)]
+    X = synthetic.tokens(n_seqs=16, seq_len=1025, vocab=cfg.vocab_size,
+                         seed=3)["public"][:2]
+    learner = LMLearner(model, TrainConfig(), device="cuda")
+    key = prng.PRNGKey(5)
+    learner.vote_members(bank, X, gamma=gamma, key=key)     # warm
+    torch.cuda.synchronize()
+    _zero_lm_counts()
+    t0 = time.perf_counter()
+    labels, gap = learner.vote_members(bank, X, gamma=gamma, key=key)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _lm_counts()
+    want = {"flash_attention": members * cfg.num_layers,
+            "flash_attention_backward": 0, "vote_aggregate": 1,
+            "rglru_scan": 0, "wkv6": 0}
+    if got != want:
+        raise AssertionError(f"label step launches {got} != {want}")
+    preds = learner.predict_stacked(bank, X)
+    T, U = preds.shape[1], cfg.vocab_size
+    noise = voting.laplace(key, (T, U), 1.0 / gamma, "cuda")
+    k_out = va.vote_aggregate(preds, noise, num_classes=U)
+    p_out = ref.vote_aggregate_plain(preds, U, noise)
+    torch.cuda.synchronize()
+    same = all(same_bits(a, b) for a, b in zip(k_out, p_out))
+    if not same or not torch.equal(k_out[0], labels) or \
+            not torch.equal(k_out[3] - k_out[4], gap):
+        raise AssertionError("K1 at the label step's shape != plain")
+    va.launches = 0
+    voting.token_teacher_vote(preds.reshape(members, 2, -1),
+                              token_domain(T, U))
+    sort_path = va.launches == 0
+    row = {"arch": cfg.name, "members": members, "queries": list(X.shape),
+           "T": T, "U": U, "gamma": gamma, "label_step_wall_s": wall,
+           "launches": got, "k1_bit_identical_to_plain": same,
+           "noise_free_vote_launches_no_k1": sort_path, "card": smi}
+    log("[lm-label] " + json.dumps(row))
+    if not sort_path:
+        raise AssertionError("a noise-free vocabulary vote launched K1")
+    return got, row
+
+
+def lm_checkpoint_serve(cfg, params, smi, prompt_len=256):
+    """Saves the trained masters in the reference's checkpoint format,
+    serves 4 requests of 32 tokens through ``launch.serve --checkpoint``
+    at full width, and holds the streams to the same parameters served
+    from memory."""
+    import shutil
+    from repro_torch import checkpoint, convert
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, transformer
+    from repro_torch.serving import Engine
+    path = os.path.join(ROOT, "build", "lm_checkpoint", "phi4")
+    t0 = time.perf_counter()
+    checkpoint.save(path, convert.lm_params_to_reference(cfg, params),
+                    step=8)
+    save_s = time.perf_counter() - t0
+    args = ["--arch", cfg.name, "--checkpoint", path, "--concurrent", "4",
+            "--max-tokens", "32", "--prompt-len", str(prompt_len),
+            "--slots", "4", "--cache-len", "512"]
+    _zero_lm_counts()
+    t0 = time.perf_counter()
+    served = serve.main(args)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _lm_counts()
+    shutil.rmtree(os.path.dirname(path))
+    module = transformer.to_module(cfg, params)
+    eng = Engine(Model(cfg), module, num_slots=4, cache_len=512,
+                 device="cuda")
+    rng = np.random.default_rng(0)          # the serve CLI's prompts
+    for n in rng.integers(1, prompt_len + 1, 4):
+        eng.submit(rng.integers(0, cfg.vocab_size, (int(n),))
+                   .astype(np.int32), 32)
+    mem = eng.run()
+    same = [r.tokens for r in mem] == [r.tokens for r in served]
+    row = {"arch": cfg.name, "streams": len(served),
+           "tokens": [len(r.tokens) for r in served],
+           "save_s": save_s, "serve_cli_s": serve_s,
+           "streams_equal_in_memory": same, "card": smi}
+    log("[lm-serve] " + json.dumps(row))
+    if not same or any(len(r.tokens) != 32 for r in served):
+        raise AssertionError("checkpoint-served streams != in-memory ones")
+    return counts
+
+
+def lm_profile_steps(cfg, params, steps=2):
+    """``--profile``: where a full-width train step's time goes (one
+    warm step, then ``steps`` profiled), from the trained masters."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.distill import make_train_step
+    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.models import Model
+    tcfg = TrainConfig(batch_size=4, seq_len=512, steps=8, warmup_steps=2,
+                       learning_rate=3e-4)
+    step, opt = make_train_step(Model(cfg), tcfg)
+    state = opt.init(params)
+    data = synthetic.tokens(n_seqs=64, seq_len=513, vocab=cfg.vocab_size,
+                            seed=1)["train"]
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in TokenDataset(data).batches(4, steps=steps + 1)]
+    step(params, state, batches[0])
+
+    def run():
+        for b in batches[1:]:
+            step(params, state, b)
+
+    _profiled(f"lm_train_{cfg.name}_x{steps}", run)
+
+
+def phase_lm_train(smi, profile=False):
+    """The LM training path (phase lm_train), in order: N1 against its
+    plain version; full-width phi4-mini training; card vs CPU training
+    at smoke width; the LM FedKT flow at L0 and L2; the full-width label
+    step and its token vote through K1; checkpoint to serve.  Returns
+    (N1 rows, N1 worst absolute error, N1 worst error relative to the
+    largest |gradient|, the main path's launches)."""
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    rows, err, rel = lm_backward_rows()
+    log(f"[lm_train] N1 rows at {time.time() - t0:.1f} s")
+    phi4 = get_config("phi4-mini-3.8b")
+    params, counts, _ = lm_full_train(phi4, smi)
+    runs = [counts]
+    log(f"[lm_train] full-width training at {time.time() - t0:.1f} s")
+    for arch in ("phi4-mini-3.8b", "gemma2-27b"):
+        runs.append(lm_card_vs_cpu(arch))
+    log(f"[lm_train] card vs CPU at {time.time() - t0:.1f} s")
+    runs.append(lm_fedkt("L0")[1])
+    runs.append(lm_fedkt("L2", gamma=0.1)[1])
+    log(f"[lm_train] fedkt flow at {time.time() - t0:.1f} s")
+    runs.append(lm_label_step(phi4, smi)[0])
+    torch.cuda.empty_cache()
+    log(f"[lm_train] label step at {time.time() - t0:.1f} s")
+    runs.append(lm_checkpoint_serve(phi4, params, smi))
+    # the main path's launches: the sum of the runs above, each counted
+    # from 0 just before it and read just after, so that no launch made
+    # to compare a kernel with its plain version is in it
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    log("[lm_train] launches " + json.dumps(launches))
+    if profile:     # last: a profiler session slows later host timing
+        lm_profile_steps(phi4, params)
+        log(f"[lm_train] profile at {time.time() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[lm_train] checkpoint serve at {time.time() - t0:.1f} s")
+    return rows, err, rel, launches
+
+
 def main():
     profile_rounds = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1589,10 +2170,18 @@ def main():
     torch.cuda.synchronize()
     log(f"[phase] recurrent parity ok at {time.time() - t_start:.1f} s")
 
+    n1_rows, n1_err, n1_rel, lm = phase_lm_train(smi,
+                                                 profile=profile_rounds)
+    for kname in ("flash_attention", "vote_aggregate"):
+        launches[kname] += lm[kname]
+    torch.cuda.synchronize()
+    log(f"[phase] lm_train ok at {time.time() - t_start:.1f} s")
+
     v = next(r for r in vote_rows if r["U"] == 2 and r["noise"])
     h = hist_rows[0]
     a = att_rows[0]
     rg, wk = rg_rows[0], wk_rows[0]
+    n1 = n1_rows[0]
     kernels = [
         {"name": "vote_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/vote_aggregate.cu",
@@ -1629,6 +2218,17 @@ def main():
          "ms": wk["kernel_ms"], "plain_ms": wk["plain_ms"],
          "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
          "library_ms": None},
+        # N1 has no TPU kernel: the reference trains through autodiff of
+        # its xla attention (ops.py:97)
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/ops.py:97",
+         "tpu_kernel": None,
+         "launches": lm["flash_attention_backward"],
+         "max_abs_err": n1_err, "max_rel_err": n1_rel,
+         "ms": n1["kernel_ms"],
+         "plain_ms": n1["plain_ms"], "bound_ms": n1["bound_ms"],
+         "bound_by": n1["bound_by"], "library_ms": n1["library_ms"]},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

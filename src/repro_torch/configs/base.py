@@ -117,3 +117,26 @@ class FedKTConfig:
     query_fraction: float = 1.0      # fraction of D_aux queried (DP budget)
     beta: float = 0.5                # Dirichlet concentration for partition
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """LM training / distillation hyper-parameters
+    (``repro.configs.base.TrainConfig``, every field and default).
+    ``pregather`` is the reference's ZeRO-3 bf16 pre-gather switch; on
+    one card it is the per-step cast of the float32 masters to
+    ``cfg.dtype`` inside the differentiated function, which the port's
+    train step always makes (``core/distill.py``)."""
+    batch_size: int = 32
+    seq_len: int = 128
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-6
+    epochs: int = 10
+    steps: int = 100
+    optimizer: str = "adamw"
+    warmup_steps: int = 10
+    grad_clip: float = 1.0
+    remat: bool = True
+    microbatches: int = 1   # gradient-accumulation splits of the batch
+    pregather: bool = True
+    seed: int = 0

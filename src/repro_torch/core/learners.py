@@ -4,6 +4,8 @@ NNLearner : an Adam training loop over a smallnet (MLP / CNN / VGG).
             Data is padded to power-of-two buckets, as in the reference,
             so a stacked fit of k models shares one bucket.
 RFLearner / GBDTLearner : the histogram tree learners (trees.py).
+LMLearner : a decoder LM (``models.Model``) trained by the distill.py
+            steps; predictions are one vocab id per token.
 
 Each has the same ``fit``/``predict`` and ``fit_stacked``/
 ``predict_stacked`` hooks the engines call.  A learner carries its
@@ -18,6 +20,8 @@ nn fit the reference's batches, row for row.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -264,6 +268,145 @@ class GBDTLearner:
                             .astype(np.float32)).to(dev)
         return T.predict_gbdt_stacked(trees, X, edges,
                                       self._gb().learning_rate)
+
+
+@dataclass(frozen=True, eq=False)
+class LMLearner:
+    """Language model as a FedKT learner (the paper's "any
+    classification model" claim at LM scale).
+
+    X is an (N, S+1) int32 token matrix; ``fit`` dispatches on the label
+    shape: per-sequence labels (size N — the partitioner's proxy
+    classes) mean plain next-token training, per-token labels (size N*S
+    — a vote answer) mean distillation on the given labels.
+    ``predict`` returns one vocab id per token, flattened to (N*S,),
+    which is exactly the (t, T) layout ``teacher_vote`` and
+    ``consistent_vote`` consume.  A state is a float32 parameter tree
+    (``models.transformer``) on ``device``; a serving ``Transformer``
+    predicts too.
+
+    PRNG contract: LM training randomness is owned by ``tcfg.seed``
+    (init, split for split as the reference's ``Model.init``) and
+    ``data_seed`` (the TokenDataset shuffle stream), matching
+    launch/train.py's ``train_lm``; the federation key a fit receives
+    only feeds DP vote noise elsewhere in the protocol, so it is unused
+    here.  Construct with ``data_seed=cfg.seed`` for the student and
+    final roles and the default 0 for teachers.
+
+    On the card the attention layers train through the flash kernel and
+    its hand-written backward; a recurrent arch raises in ``fit`` (its
+    kernels have no backward yet) and trains on the CPU.
+    """
+    model: Any                    # models.Model
+    tcfg: Any                     # configs.TrainConfig
+    data_seed: int = 0            # TokenDataset shuffle seed
+    device: str = D.DEFAULT
+
+    # the step caches live in __dict__ (cached_property); drop them on
+    # pickle so process transports ship only the config fields
+    def __getstate__(self):
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    def __setstate__(self, state):
+        for k, v in state.items():
+            object.__setattr__(self, k, v)
+
+    @functools.cached_property
+    def _train_machinery(self):
+        from repro_torch.core.distill import make_train_step
+        return make_train_step(self.model, self.tcfg)
+
+    @functools.cached_property
+    def _label_steps(self):
+        return {}                 # (num_members, gamma) -> step
+
+    def _tokens(self, X):
+        X = np.asarray(X)
+        assert X.ndim == 2 and X.shape[1] >= 3, \
+            "LMLearner expects (N, S+1) token sequences with S >= 2"
+        return X.astype(np.int32)
+
+    def _params(self, state, dev):
+        from repro_torch.models.transformer import Transformer
+        return state if isinstance(state, Transformer) else D.put(state, dev)
+
+    def fit(self, key, X, y=None):
+        from repro_torch.data.pipeline import TokenDataset
+        dev = D.resolve(self.device)
+        X = self._tokens(X)
+        N, S = X.shape[0], X.shape[1] - 1
+        if N < self.tcfg.batch_size:
+            raise ValueError(f"LMLearner.fit needs >= batch_size="
+                             f"{self.tcfg.batch_size} sequences, got {N}")
+        labels = None
+        if y is not None:
+            y = np.asarray(y)
+            if y.size == N * S:               # voted token labels
+                labels = y.reshape(N, S).astype(np.int32)
+            elif y.size != N:                 # size N: proxy classes
+                raise ValueError(f"labels of size {y.size} match neither "
+                                 f"{N} sequences nor {N * S} tokens")
+        step, opt = self._train_machinery
+        params = self.model.init_tree(prng.PRNGKey(self.tcfg.seed), dev)
+        ds = TokenDataset(X, self.data_seed)
+        with D.full_float32(dev):
+            opt_state = opt.init(params)
+            for batch in ds.batches(self.tcfg.batch_size,
+                                    steps=self.tcfg.steps, labels=labels):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()}
+                params, opt_state, _ = step(params, opt_state, batch)
+        return params
+
+    def predict(self, state, X):
+        """(N*S,) int32 greedy next-token predictions."""
+        dev = D.resolve(self.device)
+        toks = torch.from_numpy(self._tokens(X)[:, :-1]).to(dev)
+        with D.full_float32(dev):
+            return self.model.predict(self._params(state, dev),
+                                      {"tokens": toks}).reshape(-1)
+
+    def predict_stacked(self, bank, X):
+        """(M, N*S) predictions of a bank of M members (a sequence of
+        states), one member after another."""
+        return torch.stack([self.predict(st, X) for st in bank])
+
+    def vote_domain(self, Xq, default_num_classes: int, *,
+                    fingerprint=None):
+        """The LM path's vote layout, declared by the learner: one vote
+        row per query TOKEN (T = N*S over an (N, S+1) query matrix)
+        ranging over the model's own vocab, whatever the session's
+        default class count."""
+        from repro_torch.federation.domain import (fingerprint_queries,
+                                                   token_domain)
+        X = self._tokens(Xq)
+        if fingerprint is None:
+            fingerprint = fingerprint_queries(np.asarray(Xq))
+        return token_domain(X.shape[0] * (X.shape[1] - 1),
+                            self.model.cfg.vocab_size,
+                            fingerprint=fingerprint)
+
+    def label_step(self, num_members: int, gamma: float = 0.0):
+        """The raw ``distill.make_label_step`` over ``num_members``
+        parameter sets."""
+        from repro_torch.core.distill import make_label_step
+        return make_label_step(self.model, num_members, gamma=gamma)
+
+    def vote_members(self, bank, X, *, gamma: float = 0.0, key=None):
+        """Greedy predict + token vote over a member bank in one step.
+        Returns (labels (N*S,), clean gaps (N*S,)): bit for bit the
+        serial per-member predicts + ``teacher_vote``."""
+        dev = D.resolve(self.device)
+        toks = torch.from_numpy(self._tokens(X)[:, :-1]).to(dev)
+        ck = (len(bank), float(gamma))
+        if ck not in self._label_steps:
+            self._label_steps[ck] = self.label_step(len(bank), gamma)
+        with D.full_float32(dev):
+            labels, gap = self._label_steps[ck](
+                [self._params(st, dev) for st in bank], {"tokens": toks},
+                key)
+        return labels.reshape(-1), gap.reshape(-1)
 
 
 def accuracy(learner, state, X, y) -> float:

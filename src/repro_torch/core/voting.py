@@ -35,9 +35,10 @@ class VoteResult(NamedTuple):
 def laplace(key, shape, scale, device=None):
     """Laplace(0, scale) via inverse CDF of a uniform in [-0.5, 0.5),
     clipped to the SYMMETRIC interval [-0.5 + 1e-7, 0.5 - 1e-7].  The
-    uniform bits equal ``jax.random.uniform``'s; ``log1p`` may differ
+    uniform bits equal ``jax.random.uniform``'s (drawn on ``device``:
+    the token vote's noise is vocabulary-sized); ``log1p`` may differ
     from XLA's by an ulp."""
-    u = torch.from_numpy(prng.uniform(key, shape, -0.5, 0.5)).to(device)
+    u = prng.uniform_tensor(key, shape, -0.5, 0.5, device)
     u = torch.clamp(u, -0.5 + 1e-7, 0.5 - 1e-7)
     return (-scale * torch.sign(u)) * torch.log1p(-2.0 * torch.abs(u))
 
@@ -57,6 +58,24 @@ def teacher_vote(preds, num_classes, *, gamma=0.0,
     labels, counts, c1, c2 = ops.votes_with_clean(preds, num_classes,
                                                   noise)
     return VoteResult(labels, counts, c1 - c2)
+
+
+def token_teacher_vote(preds_bts, domain, *, gamma=0.0, key=None):
+    """LM-scale party-side vote: preds (M, B, S) over a vocab-sized class
+    space (U = domain.num_classes).  Returns (labels (B, S), gap (B,
+    S)), the gap the CLEAN top1 - top2, as ``teacher_vote``'s.  With
+    gamma > 0 the (B*S, vocab) Laplace noise is drawn on the votes'
+    device and the vote kernel folds it; without noise, at a vocabulary
+    over 2048, the vote is the sort path (``ops.votes_sort``)."""
+    M, B, S = preds_bts.shape
+    vocab = domain.num_classes
+    flat = preds_bts.reshape(M, B * S)
+    noise = None
+    if gamma > 0.0:
+        assert key is not None
+        noise = laplace(key, (B * S, vocab), 1.0 / gamma, flat.device)
+    labels, _, c1, c2 = ops.votes_with_clean(flat, vocab, noise)
+    return labels.reshape(B, S), (c1 - c2).reshape(B, S)
 
 
 def party_vote_counts(student_preds, domain, *,

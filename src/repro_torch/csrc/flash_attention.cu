@@ -402,7 +402,8 @@ __global__ void __launch_bounds__(WG_THREADS)
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ o, int Sq, int Skv,
                           int H, int KV, float scale, int causal, int window,
-                          float softcap, int q_offset) {
+                          float softcap, int q_offset,
+                          float* __restrict__ lse) {
   using W = Wg<DH>;
   constexpr int KS = DH / 16;  // k-steps of Q K^T
   constexpr int NT = BK / 8;   // 8-key n-tiles of S
@@ -593,6 +594,14 @@ __global__ void __launch_bounds__(WG_THREADS)
   for (int half = 0; half < 2; ++half) {
     const int s = q0 + r0 + g + 8 * half;
     if (s < Sq) {
+      // the row's natural-log LSE of its scaled, soft-capped, masked
+      // scores (m is in score units: c2 / LOG2E is the scale, or 1
+      // under the cap); +inf for a row that sees no key, so that the
+      // backward's exp(s - lse) is 0 there
+      if (lse != nullptr && t == 0)
+        lse[((size_t)b * H + h) * Sq + s] =
+            l[half] == 0.f ? __int_as_float(0x7f800000)
+                           : m[half] * (capped ? 1.f : scale) + logf(l[half]);
       const float li = l[half] == 0.f ? 1.f : l[half];
 #pragma unroll
       for (int d = 0; d < DT; ++d)
@@ -627,7 +636,8 @@ __global__ void __launch_bounds__(FMA_THREADS)
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
                         int Sq, int Skv, int H, int KV, float scale,
-                        int causal, int window, float softcap, int q_offset) {
+                        int causal, int window, float softcap, int q_offset,
+                        float* __restrict__ lse) {
   using S = SmemF32<DH>;
   constexpr int CD = DH / 16;  // output columns per thread
   extern __shared__ float smem_f32[];
@@ -754,6 +764,9 @@ __global__ void __launch_bounds__(FMA_THREADS)
   for (int i = 0; i < RQ; ++i) {
     const int s = q0 + ty + 16 * i;
     if (s < Sq) {
+      if (lse != nullptr && tx == 0)  // as the wgmma path's
+        lse[((size_t)b * H + h) * Sq + s] =
+            l[i] == 0.f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
       const float li = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
       for (int c = 0; c < CD; ++c)
@@ -769,10 +782,10 @@ __global__ void __launch_bounds__(FMA_THREADS)
 // (kernels/flash_attention.py: plan) and refuses a plan that is not its
 // own, so the wrapper's scratch-free plan and the kernel never disagree.
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int H, int KV, float scale, int causal,
-               int window, float softcap, int q_offset, int threads,
-               size_t smem, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int H, int KV, float scale,
+               int causal, int window, float softcap, int q_offset,
+               int threads, size_t smem, cudaStream_t stream) {
   if (threads != FMA_THREADS || smem != SmemF32<DH>::bytes)
     return (int)cudaErrorInvalidValue;
   // above 48 KB of shared memory only after opting in (per device)
@@ -783,7 +796,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_f32<DH><<<grid, FMA_THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-      H, KV, scale, causal, window, softcap, q_offset);
+      H, KV, scale, causal, window, softcap, q_offset, lse);
   return (int)cudaGetLastError();
 }
 
@@ -838,10 +851,11 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
 }
 
 template <int DH>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Skv, int H, int KV, float scale, int causal,
-                 int window, float softcap, int q_offset, int threads,
-                 size_t smem, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Skv, int H, int KV,
+                 float scale, int causal, int window, float softcap,
+                 int q_offset, int threads, size_t smem,
+                 cudaStream_t stream) {
   using W = Wg<DH>;
   if (threads != WG_THREADS || smem != W::bytes)
     return (int)cudaErrorInvalidValue;
@@ -857,7 +871,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_wgmma<DH><<<grid, WG_THREADS, W::bytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, Sq, Skv, H, KV, scale, causal, window,
-      softcap, q_offset);
+      softcap, q_offset, lse);
   return (int)cudaGetLastError();
 }
 
@@ -865,27 +879,32 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 // returns its error; no path stands in for another.
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
-              void* o, int B, int Sq, int Skv, int H, int KV, float scale,
-              int causal, int window, float softcap, int q_offset,
-              int threads, size_t smem, cudaStream_t s) {
+              void* o, float* lse, int B, int Sq, int Skv, int H, int KV,
+              float scale, int causal, int window, float softcap,
+              int q_offset, int threads, size_t smem, cudaStream_t s) {
   if (bf16)
-    return launch_wgmma<DH>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                            window, softcap, q_offset, threads, smem, s);
-  return launch_f32<DH>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+    return launch_wgmma<DH>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale,
+                            causal, window, softcap, q_offset, threads, smem,
+                            s);
+  return launch_f32<DH>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal,
                         window, softcap, q_offset, threads, smem, s);
 }
 
 }  // namespace
 
 // q, o (B, Sq, H, dh); k, v (B, Skv, KV, dh); contiguous, all float32
-// (bf16 = 0) or all bfloat16 (bf16 = 1), 16-byte aligned.  scale is
+// (bf16 = 0) or all bfloat16 (bf16 = 1), 16-byte aligned.  lse, when not
+// null, is a float32 (B, H, Sq) buffer that receives each row's
+// natural-log sum of exp of its scaled, soft-capped, masked scores (the
+// backward's input; +inf for a row that sees no key).  scale is
 // dh^-0.5 rounded to float32.  threads and smem are the launch plan's
 // (kernels/flash_attention.py: plan).  Launches on `stream`; returns
 // cudaGetLastError() (or the error of the shared-memory opt-in, or
 // cudaErrorInvalidValue where the plan is not the kernel's or a tensor
 // map cannot be made).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq,
                                       int Skv, int H, int KV, int dh,
                                       int bf16, int causal, int window,
                                       float softcap, float scale,
@@ -893,27 +912,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (Skv == 0 && lse != nullptr) return (int)cudaErrorInvalidValue;
   if (Skv == 0)  // no key at all: every row is 0
     return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * H * dh *
                                           (bf16 ? 2 : 4), s);
   const size_t bytes = (size_t)smem;
   switch (dh) {
     case 32:
-      return launch_dh<32>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                           causal, window, softcap, q_offset, threads,
-                           bytes, s);
+      return launch_dh<32>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
+                           H, KV, scale, causal, window, softcap,
+                           q_offset, threads, bytes, s);
     case 64:
-      return launch_dh<64>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                           causal, window, softcap, q_offset, threads,
-                           bytes, s);
+      return launch_dh<64>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
+                           H, KV, scale, causal, window, softcap,
+                           q_offset, threads, bytes, s);
     case 128:
-      return launch_dh<128>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                            causal, window, softcap, q_offset, threads,
-                            bytes, s);
+      return launch_dh<128>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
+                            H, KV, scale, causal, window, softcap,
+                            q_offset, threads, bytes, s);
     case 256:
-      return launch_dh<256>(bf16, q, k, v, o, B, Sq, Skv, H, KV, scale,
-                            causal, window, softcap, q_offset, threads,
-                            bytes, s);
+      return launch_dh<256>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
+                            H, KV, scale, causal, window, softcap,
+                            q_offset, threads, bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,6 +5,7 @@ so the same seed gives the same arrays in both packages.
 
   tabular_binary : Gaussian-mixture tabular binary task ("adult"/"cod-rna")
   digits         : 10-class procedural image task ("mnist"/"svhn")
+  tokens         : token streams of a sparse bigram process (the LM path)
 
 Splits follow the paper (75 / 12.5 / 12.5 for tabular; public = half of
 the test pool for images).
@@ -60,6 +61,27 @@ def digits(n=12_000, image_size=16, num_classes=10, seed=0,
             "X_public": X[n_tr:n_tr + n_half],
             "y_public": y[n_tr:n_tr + n_half],
             "X_test": X[n_tr + n_half:], "y_test": y[n_tr + n_half:]}
+
+
+def tokens(n_seqs=512, seq_len=128, vocab=512, seed=0,
+           order=2) -> Dict[str, np.ndarray]:
+    """Token streams from a random sparse bigram process (a learnable
+    non-trivial LM task for the distillation path)."""
+    rng = np.random.default_rng(seed)
+    # sparse transition table: each context -> 8 likely next tokens
+    nexts = rng.integers(0, vocab, (vocab, 8))
+    seqs = np.empty((n_seqs, seq_len), np.int32)
+    state = rng.integers(0, vocab, n_seqs)
+    for tpos in range(seq_len):
+        choose = rng.integers(0, 8, n_seqs)
+        rand = rng.integers(0, vocab, n_seqs)
+        use_rand = rng.random(n_seqs) < 0.1
+        state = np.where(use_rand, rand, nexts[state, choose])
+        seqs[:, tpos] = state
+    n_tr = int(n_seqs * 0.75)
+    n_half = (n_seqs - n_tr) // 2
+    return {"train": seqs[:n_tr], "public": seqs[n_tr:n_tr + n_half],
+            "test": seqs[n_tr + n_half:], "vocab": vocab}
 
 
 def _split_751212(X, y, rng):

@@ -2,7 +2,7 @@
 
     Party / Server / FedKTSession  — the protocol (who sends what, once)
     bindings.PartyBinding           — what ONE party brings to a round
-    engines.LoopEngine / VmapEngine — how teachers train and vote
+    engines.Loop/Vmap/LMEngine      — how teachers train and vote
     codec                           — PartyUpdate <-> bytes, frames
                                       byte-identical to the reference's
     transport.{InProcess,Thread,Subprocess}Transport
@@ -31,10 +31,10 @@ from repro_torch.federation.bindings import (PartyBinding,  # noqa: F401
 from repro_torch.federation.domain import (VoteDomain,  # noqa: F401
                                            example_domain,
                                            fingerprint_queries,
-                                           learner_domain)
+                                           learner_domain, token_domain)
 from repro_torch.federation.engines import (Engine,  # noqa: F401
-                                            LoopEngine, VmapEngine,
-                                            get_engine)
+                                            LMEngine, LoopEngine,
+                                            VmapEngine, get_engine)
 from repro_torch.federation.messages import (PartyUpdate,  # noqa: F401
                                              RoundResult, ShapeDtype,
                                              TokenLabels, label_wire_bytes,

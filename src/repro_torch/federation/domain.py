@@ -157,6 +157,16 @@ def example_domain(Xq, num_classes: int, *,
                       label_names=label_names)
 
 
+def token_domain(num_tokens: int, vocab_size: int, *,
+                 fingerprint: Optional[str] = None) -> VoteDomain:
+    """One vote row per query TOKEN (the LM path's flat (N*S,)
+    layout).  Anonymous by default: the callers that hold the concrete
+    query tokens attach the fingerprint."""
+    return VoteDomain(unit="token", num_units=int(num_tokens),
+                      num_classes=int(vocab_size),
+                      fingerprint=fingerprint)
+
+
 def learner_domain(student_learner, Xq, default_num_classes: int, *,
                    fingerprint: Optional[str] = None) -> VoteDomain:
     """The vote domain ONE party's students produce over ``Xq``.

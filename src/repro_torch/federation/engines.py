@@ -1,5 +1,5 @@
 """Execution engines: HOW a party's teachers get trained and queried
-(``repro.federation.engines``; the "loop" and "vmap" engines).
+(``repro.federation.engines``).
 
   LoopEngine : one ``learner.fit`` per teacher, serially.
   VmapEngine : all given teachers in ONE stacked fit over a shared
@@ -8,6 +8,9 @@
                in place of the reference's ``jax.vmap``.  For the tree
                learners that makes each depth level of a party's whole
                s*t teacher grid one histogram launch on the card.
+  LMEngine   : the distill.py steps as the backend of an ``LMLearner``:
+               full training loops for the fits, and each partition's
+               vote as the label step (greedy predicts + the token vote).
 
 PRNG contract: engines never split keys.  The Party precomputes the
 serial key schedule and passes one key per teacher, so switching
@@ -147,11 +150,66 @@ class VmapEngine:
                                      domain, consistent)
 
 
-_ENGINES = {"loop": LoopEngine, "vmap": VmapEngine}
+class LMEngine:
+    """LM engine: distill.py's label and train steps as the execution
+    backend.  A bank is the sequence of member states (the reference
+    stacks them on a leading axis for its vmap'd label step; the port's
+    label step predicts member by member, since a ctypes kernel cannot
+    be batched, so a list holds them without a stacked copy).  The
+    per-partition vote is the fused label step: greedy predicts + the
+    token vote (the vote kernel on the card, with noise).
+
+    Requires the learner to provide the LM hooks (``vote_members``,
+    ``predict_stacked`` — core.learners.LMLearner); generic learners
+    should use the loop/vmap engines instead."""
+    name = "lm"
+
+    @staticmethod
+    def _require_lm(learner):
+        if not hasattr(learner, "vote_members"):
+            raise TypeError(
+                f"engine='lm' needs an LM learner (vote_members/"
+                f"predict_stacked hooks); got {type(learner).__name__}. "
+                f"Use engine='loop' or 'vmap' for generic learners.")
+
+    def fit_teachers(self, keys, learner, datasets):
+        self._require_lm(learner)
+        return [learner.fit(kk, X, y) for kk, (X, y) in zip(keys, datasets)]
+
+    def slice_bank(self, bank, start, stop):
+        return bank[start:stop]
+
+    def predict_teachers(self, learner, bank, X):
+        return learner.predict_stacked(bank, X)
+
+    def label_queries(self, learner, bank, X, num_classes, *,
+                      gamma=0.0, key=None):
+        self._require_lm(learner)
+        vocab = learner.model.cfg.vocab_size
+        if num_classes != vocab:
+            raise ValueError(f"cfg.num_classes={num_classes} must equal "
+                             f"the model vocab_size={vocab} on the LM "
+                             f"path (token labels ARE class labels)")
+        return learner.vote_members(bank, X, gamma=gamma, key=key)
+
+    def fit_students(self, keys, learner, X, labelsets):
+        return [learner.fit(kk, X, y) for kk, y in zip(keys, labelsets)]
+
+    def predict_students(self, learner, states, X):
+        return _serial_predict(learner, states, X)
+
+    def student_vote_counts(self, learner, states, X, domain, *,
+                            consistent=True):
+        return _students_vote_counts(self, learner, states, X,
+                                     domain, consistent)
+
+
+_ENGINES = {"loop": LoopEngine, "vmap": VmapEngine, "lm": LMEngine}
 
 
 def get_engine(engine) -> Engine:
-    """Engine instance from a name ("loop" | "vmap") or pass-through."""
+    """Engine instance from a name ("loop" | "vmap" | "lm") or
+    pass-through."""
     if isinstance(engine, str):
         if engine not in _ENGINES:
             raise ValueError(f"unknown engine {engine!r}; "

@@ -22,8 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-KERNELS = ("vote_aggregate", "tree_hist", "flash_attention", "rglru_scan",
-           "wkv6")
+KERNELS = ("vote_aggregate", "tree_hist", "flash_attention",
+           "flash_attention_bwd", "rglru_scan", "wkv6")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # several host threads launch kernels in one process (the thread and

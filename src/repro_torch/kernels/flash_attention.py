@@ -15,6 +15,14 @@ the plain version (``ref.attention_plain``) for CPU tensors.
 ``launches`` counts the kernel launches this process made, so a run
 can show that its prefills went through the kernel.  ``plan`` is the
 launch's plan, which the CUDA launcher checks against its own.
+
+Training: ``return_lse=True`` also returns each row's float32
+log-sum-exp (B, H, Sq), which ``flash_attention_backward`` (the
+hand-written backward, ``csrc/flash_attention_bwd.cu``) takes with q,
+k, v, o and dO to give dQ, dK and dV; ``FlashAttention`` is the
+``torch.autograd.Function`` that joins the two, and ``bwd_launches``
+counts the backward's kernel launches (three a call).  The reference has
+no backward kernel: off the TPU it differentiates its xla attention.
 """
 from __future__ import annotations
 
@@ -26,6 +34,9 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+bwd_launches = 0
+BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
+BWD_HEAD_DIMS = (32, 64, 128)
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -67,7 +78,14 @@ _F = ctypes.c_float
 
 def _lib():
     fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_P] * 4 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def _bwd_lib():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [_F, _F, _P]
     fn.restype = _I
     return fn
 
@@ -91,11 +109,13 @@ def _check(t, name, shape, dtype, device):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    q_offset=0):
+                    q_offset=0, return_lse=False):
     """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh); CUDA tensors of one
     dtype (float32 or bfloat16), contiguous, H % KV == 0, dh in
     HEAD_DIMS.  ``q_offset`` is an int.  Returns (B, Sq, H, dh) in q's
-    dtype."""
+    dtype, and with ``return_lse`` also the float32 (B, H, Sq) row
+    log-sum-exp of the scaled, soft-capped, masked scores (+inf for a
+    row that sees no key)."""
     global launches
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
@@ -119,14 +139,98 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     _check(v, "v", (B, Skv, KV, dh), q.dtype, dev)
     p = plan(dh, q.dtype)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Skv, H, KV, dh, int(q.dtype == torch.bfloat16),
+                 None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV,
+                 dh, int(q.dtype == torch.bfloat16),
                  int(bool(causal)), int(window), float(softcap),
                  dh ** -0.5, q_offset, p.threads, p.smem, stream)
     build.check(err, "flash_attention")
     with build.COUNT_LOCK:
         launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
+                             softcap=0.0):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` at
+    q_offset 0 and Sq = Skv (training), given its output ``o``, its row
+    log-sum-exp ``lse`` (B, H, S) float32 and the output's gradient
+    ``do``.  CUDA tensors, contiguous; q, o, do (B, S, H, dh) and k, v
+    (B, S, KV, dh) of one dtype (float32 or bfloat16); dh in
+    BWD_HEAD_DIMS.  Every product accumulates in float32 in a fixed
+    order (no atomics): the gradients are identical run to run.  The
+    outputs are in q's dtype."""
+    global bwd_launches
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention_backward: q and k must be 4-d, "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_backward: dtype {q.dtype} not in "
+                        f"{DTYPES}")
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward: head dim {dh} not in "
+                         f"{BWD_HEAD_DIMS} (the attention archs' training "
+                         f"widths and their smokes)")
+    if KV == 0 or H % KV:
+        raise ValueError(f"flash_attention_backward: {H} heads do not split "
+                         f"over {KV} kv heads")
+    if k.shape[1] != S:
+        raise ValueError(f"flash_attention_backward: needs Sq == Skv (a "
+                         f"training call), got {S} and {k.shape[1]}")
+    dev = q.device
+    _check(q, "q", (B, S, H, dh), q.dtype, dev)
+    _check(k, "k", (B, S, KV, dh), q.dtype, dev)
+    _check(v, "v", (B, S, KV, dh), q.dtype, dev)
+    _check(o, "o", (B, S, H, dh), q.dtype, dev)
+    _check(do, "do", (B, S, H, dh), q.dtype, dev)
+    if (lse.device != dev or lse.dtype != torch.float32
+            or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_backward: lse must be a "
+                         f"contiguous float32 ({B}, {H}, {S}) tensor on "
+                         f"{dev}, got {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    d_rows = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    fn = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV,
+                 dh, int(q.dtype == torch.bfloat16), int(bool(causal)),
+                 int(window), float(softcap), dh ** -0.5, stream)
+    build.check(err, "flash_attention_backward")
+    with build.COUNT_LOCK:
+        bwd_launches += BWD_KERNELS
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward kernel saves its row
+    log-sum-exp, the backward runs ``flash_attention_backward``.  For
+    training calls (q_offset 0, Sq = Skv) on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, do.contiguous(), lse, causal=causal, window=window,
+            softcap=softcap)
+        return dq, dk, dv, None, None, None

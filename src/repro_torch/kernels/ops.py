@@ -15,6 +15,14 @@ reference also computes outside its kernels (``repro/kernels/ops.py``
 ``attention``, ``rglru``, ``wkv``).  To compare a kernel with its
 plain version on the card, call ``ref`` directly: nothing here runs a
 plain version in place of a kernel on a CUDA tensor.
+
+Gradients: a CUDA attention call that needs one (grad mode on and an
+input that requires it) runs ``flash_attention.FlashAttention``, the
+forward kernel and the hand-written backward.  The recurrence kernels
+have no backward yet (ROADMAP §2, N2), so a CUDA ``rglru`` or ``wkv``
+call that needs a gradient raises rather than return a tensor that
+would silently cut it; on the CPU the plain versions stay
+differentiable.
 """
 from __future__ import annotations
 
@@ -46,10 +54,30 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
             "per-row q_offset is only supported for single-token decode "
             f"(Sq == 1); got Sq={q.shape[1]}")
     if q.is_cuda and q.shape[1] > 1:
+        if _needs_grad(q, k, v):
+            if int(q_offset) != 0 or k.shape[1] != q.shape[1]:
+                raise NotImplementedError(
+                    "attention backward on the card covers training calls "
+                    "only (q_offset 0, Sq == Skv)")
+            return _fa.FlashAttention.apply(q, k, v, bool(causal),
+                                            int(window), float(softcap))
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=int(q_offset))
     return ref.attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(name, *tensors):
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP §2, N2: "
+            f"the K4/K5 backward kernels), so a training call on the card "
+            f"would cut the gradient here; train recurrent archs on the CPU "
+            f"or run this call without gradients")
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +94,7 @@ def rglru(x, log_a, h0=None):
     if h0 is None:
         h0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
     if x.is_cuda and S > 1:
+        _no_backward("rglru", x, log_a, h0)
         return _rg.rglru_scan(x, log_a, h0)
     return ref.rglru_scan_ref(x, log_a, h0)
 
@@ -85,6 +114,7 @@ def wkv(r, k, v, w, u, s0=None):
         s0 = torch.zeros((B, H, dh, dh), dtype=torch.float32,
                          device=r.device)
     if r.is_cuda and S > 1:
+        _no_backward("wkv", r, k, v, w, u, s0)
         return _wk.wkv6(r, k, v, w, u, s0)
     return ref.wkv6_ref(r, k, v, w, u, s0)
 

@@ -55,7 +55,7 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    q_offset=0):
+                    q_offset=0, return_lse=False):
     """The counterpart of the reference's ``_attention_xla``
     (``repro/kernels/ops.py:97``): the path that every decode step takes
     on the card and every attention call takes on the CPU.
@@ -66,6 +66,9 @@ def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     before P·V, as the reference does.  GQA folds the group into the
     head axis without repeating k and v.  (The reference's q-chunking
     only bounds memory: each query row's softmax is its own.)
+    ``return_lse`` also returns each row's float32 log-sum-exp of its
+    scaled, soft-capped, masked scores, (B, H, Sq): the flash kernel's
+    second output.
     """
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -81,7 +84,47 @@ def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = s.masked_fill(~m, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, dh).to(q.dtype)
+    o = o.reshape(B, Sq, H, dh).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
+
+
+def attention_backward_plain(q, k, v, o, do, lse, *, causal=True, window=0,
+                             softcap=0.0):
+    """The textbook gradients (dq, dk, dv) of attention at q_offset 0,
+    given its output ``o``, its row log-sum-exp ``lse`` (B, H, Sq) and
+    the output's gradient ``do``: the plain version of the hand-written
+    backward (``flash_attention.flash_attention_backward``).  With s the
+    scaled, soft-capped scores: P = exp(s - lse) (0 where masked), dV =
+    P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P (dP - D) (1 - (s/c)^2),
+    dQ = dS K * scale, dK = dS^T Q * scale, the group's q heads summed
+    into their kv head.  float32 throughout; results in q's dtype."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = dh ** -0.5
+    qf = q.float().reshape(B, Sq, KV, g, dh)
+    kf, vf = k.float(), v.float()
+    gf = do.float().reshape(B, Sq, KV, g, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    m = _mask(torch.arange(Sq, device=q.device), Skv, causal, window,
+              q.device)[None, None, None]
+    p = torch.where(m, torch.exp(s - lse.float().reshape(B, KV, g, Sq, 1)),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, gf)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", gf, vf)
+    d_rows = (do.float() * o.float()).sum(-1).reshape(B, Sq, KV, g)
+    ds = p * (dp - d_rows.permute(0, 2, 3, 1)[..., None])
+    if softcap > 0:
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(B, Sq, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

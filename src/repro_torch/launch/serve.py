@@ -19,7 +19,9 @@ engine refuses (recurrent blocks), as in the reference:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma-2b --device cpu --smoke
 
-Weights are random, from ``--seed``.
+Weights are random, from ``--seed``, unless ``--checkpoint PATH``
+names a checkpoint in the reference's format (``launch/train
+--checkpoint PATH`` writes one; so does the reference's train CLI).
 """
 from __future__ import annotations
 
@@ -62,6 +64,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="phi4-mini-3.8b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     ap.add_argument("--prompt-len", type=int, default=32,
@@ -87,6 +90,8 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch import convert
     from repro_torch import device as D
     from repro_torch.configs import ARCH_IDS, get_config, get_smoke
     from repro_torch.models import Model
@@ -99,8 +104,12 @@ def main(argv=None):
     dev = D.resolve(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
-                        device=dev)
+    if args.checkpoint:
+        params = convert.lm_params_from_reference(
+            cfg, ckpt_lib.load(args.checkpoint), dev)
+    else:
+        params = model.init(
+            torch.Generator(device=dev).manual_seed(args.seed), device=dev)
 
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(1, args.prompt_len + 1, args.concurrent)

@@ -1,7 +1,10 @@
 """Uniform model interface (``repro.models.registry``) for the decoder
-LMs the port serves (attention, RG-LRU and RWKV layers).  Batches are plain dicts with ``tokens`` (B, S),
-an integer tensor on the parameters' device.  ``loss`` and ``predict``
-(training and the teacher vote) are not ported yet."""
+LMs the port serves and trains (attention, RG-LRU and RWKV layers).
+Batches are plain dicts with ``tokens`` (B, S), and for ``loss``
+``labels`` (B, S) and an optional float ``mask`` (B, S), integer tensors
+on the parameters' device.  ``params`` is a serving ``Transformer`` or a
+float32 parameter tree (``transformer.view``): ``loss`` differentiates
+with respect to a tree's leaves."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -29,11 +32,32 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(0)
         return transformer.init_params(self.cfg, generator, dev)
 
+    def init_tree(self, key, device=D.DEFAULT):
+        """A float32 parameter tree from the threefry ``key``, split for
+        split as the reference's ``Model.init(key)``."""
+        return transformer.init_tree(self.cfg, key, D.resolve(device))
+
     def hidden(self, params, batch: Dict[str, Any], *, mode="train",
-               cache=None, pos=None):
+               cache=None, pos=None, remat=False):
         """(hidden (B, S, D), new_cache)."""
         return transformer.forward(self.cfg, params, batch["tokens"],
-                                   mode=mode, cache=cache, pos=pos)
+                                   mode=mode, cache=cache, pos=pos,
+                                   remat=remat)
+
+    def loss(self, params, batch, *, remat=True):
+        """Mean next-token (or distillation) cross-entropy of a batch;
+        MoE's auxiliary loss is not ported (no MoE arch is)."""
+        params = transformer.view(self.cfg, params)
+        h, _ = self.hidden(params, batch, mode="train", remat=remat)
+        return transformer.lm_loss(self.cfg, params, h, batch["labels"],
+                                   batch.get("mask"))
+
+    def predict(self, params, batch):
+        """Greedy per-token predictions (B, S) int32: the teacher vote."""
+        with torch.no_grad():
+            params = transformer.view(self.cfg, params)
+            h, _ = self.hidden(params, batch, mode="train")
+            return transformer.predict_argmax(self.cfg, params, h)
 
     def logits(self, params, batch, *, mode="train", cache=None, pos=None):
         """(float32 logits (B, S, V), new_cache)."""

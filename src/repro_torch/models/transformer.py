@@ -11,22 +11,42 @@ A cache is a list with one dict per layer: {"k", "v"}, each (B, L, KV,
 dh), for attention; {"h", "conv"} for RG-LRU; {"wkv", "shift_t",
 "shift_c"} for RWKV.  ``convert.lm_cache_from_reference`` maps the
 reference's stacked cache onto it.
+
+Parameters come in two forms.  Serving holds a ``Transformer`` module
+whose matrices are stored in ``cfg.dtype``.  Training holds a *tree*:
+nested dicts (and a list of layers under "blocks") of float32 master
+tensors with the module's names, {"embed": {"table"}, "blocks": [...],
+"final_norm": {...}, "lm_head": {...}} — the reference's parameter
+pytree with its periods unstacked into layers.  ``view`` casts a tree's
+leaves to the module's dtypes (inside autograd, so gradients land on the
+float32 masters, as the reference's ``pregather_params`` cast does) and
+hands the forward the same attribute names a module has.
+``init_tree`` draws a tree from a threefry key split for split as the
+reference's ``init_params``.  ``lm_loss`` and ``predict_argmax`` run the
+LM head in chunks of ``HEAD_CHUNK`` positions, so the (B, S, vocab)
+logits never exist at once.
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import List
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import prng
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, RWKV, \
     ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv as W
+from repro_torch.tree_util import tree_map
 
 ATTN_KINDS = (ATTN, ATTN_LOCAL)
+HEAD_CHUNK = 512
 
 
 def _check_ported(cfg: ModelConfig):
@@ -112,6 +132,183 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     """Random parameters at ``cfg``'s widths, drawn on ``device`` from
     ``generator`` (which must live on that device)."""
     return Transformer(cfg, device, generator)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (training)
+# ---------------------------------------------------------------------------
+def _as_tree(named):
+    """{"a.0.b": t} -> {"a": [{"b": t}]}: a module's dotted parameter
+    names as nested dicts, with the layer list under "blocks"."""
+    tree: dict = {}
+    for name, t in named:
+        node, parts = tree, name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+    tree["blocks"] = [tree["blocks"][str(i)]
+                      for i in range(len(tree["blocks"]))]
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def param_dtypes(cfg: ModelConfig):
+    """The dtype of every parameter of ``cfg``'s module, as a tree."""
+    return _as_tree((n, p.dtype) for n, p in
+                    Transformer(cfg, "meta").named_parameters())
+
+
+def tree_of(params: Transformer):
+    """A module's parameters as a float32 tree (copies): the masters a
+    training run starts from."""
+    return _as_tree((n, p.detach().to(torch.float32).clone())
+                    for n, p in params.named_parameters())
+
+
+def _ns(tree):
+    if isinstance(tree, dict):
+        return SimpleNamespace(**{k: _ns(v) for k, v in tree.items()})
+    if isinstance(tree, list):
+        return [_ns(v) for v in tree]
+    return tree
+
+
+def view(cfg: ModelConfig, params):
+    """What the forward reads: a module as it is, or a tree's leaves cast
+    to the module's dtypes (``cfg.dtype`` for matrices, float32 for
+    norms and the leaves the reference reads in float32), under the
+    module's attribute names.  The casts are recorded by autograd."""
+    if isinstance(params, (Transformer, SimpleNamespace)):
+        return params
+    return _ns(tree_map(lambda t, dt: t.to(dt), params, param_dtypes(cfg)))
+
+
+def to_module(cfg: ModelConfig, tree, device=None) -> Transformer:
+    """A tree as a serving ``Transformer`` (each leaf cast to the
+    module's dtype) on ``device`` (the tree's own by default)."""
+    dev = device or tree["embed"]["table"].device
+    module = Transformer(cfg, dev)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            node = tree
+            for part in name.split("."):
+                node = node[int(part)] if isinstance(node, list) \
+                    else node[part]
+            p.copy_(node.to(p.dtype))
+    return module
+
+
+def _normal(key, shape, scale):
+    return prng.normal(key, shape) * np.float32(scale)
+
+
+def _dense(key, shape, scale=None):
+    return _normal(key, shape, shape[0] ** -0.5 if scale is None else scale)
+
+
+def _norm_np(cfg):
+    p = {"scale": np.ones((cfg.d_model,), np.float32)}
+    if cfg.norm == "layernorm":
+        p["bias"] = np.zeros((cfg.d_model,), np.float32)
+    return p
+
+
+def _attn_np(cfg, key):
+    dh, D = cfg.head_dim_, cfg.d_model
+    k1, k2, k3, k4 = prng.split(key, 4)
+    return {"wq": _dense(k1, (D, cfg.num_heads * dh)),
+            "wk": _dense(k2, (D, cfg.num_kv_heads * dh)),
+            "wv": _dense(k3, (D, cfg.num_kv_heads * dh)),
+            "wo": _dense(k4, (cfg.num_heads * dh, D))}
+
+
+def _mlp_np(cfg, key):
+    k1, k2, k3 = prng.split(key, 3)
+    p = {"w_up": _dense(k1, (cfg.d_model, cfg.d_ff)),
+         "w_down": _dense(k2, (cfg.d_ff, cfg.d_model))}
+    if cfg.mlp == "swiglu":
+        p["w_gate"] = _dense(k3, (cfg.d_model, cfg.d_ff))
+    return p
+
+
+def _rglru_np(cfg, key):
+    D, width = cfg.d_model, cfg.rglru_conv_width
+    ks = prng.split(key, 7)
+    a0 = prng.uniform(ks[0], (D,), 0.9, 0.999)
+    z = -np.log(a0) / np.float32(cfg.rglru_c)
+    return {"w_in": _dense(ks[1], (D, D)), "w_gate": _dense(ks[2], (D, D)),
+            "conv_w": _normal(ks[3], (width, D), width ** -0.5),
+            "conv_b": np.zeros((D,), np.float32),
+            "w_a": _dense(ks[4], (D, D)), "w_x": _dense(ks[5], (D, D)),
+            "lam": np.log(np.expm1(z)).astype(np.float32),
+            "w_out": _dense(ks[6], (D, D))}
+
+
+def _rwkv_np(cfg, key):
+    D, H, dh = cfg.d_model, cfg.num_heads, cfg.rwkv_head_dim
+    ks = prng.split(key, 12)
+
+    def mix(k):
+        return prng.uniform(k, (D,))
+
+    return {"mu_r": mix(ks[0]), "mu_k": mix(ks[1]), "mu_v": mix(ks[2]),
+            "mu_w": mix(ks[3]), "mu_g": mix(ks[4]),
+            "w_r": _dense(ks[5], (D, D)), "w_k": _dense(ks[6], (D, D)),
+            "w_v": _dense(ks[7], (D, D)), "w_g": _dense(ks[8], (D, D)),
+            "w_o": _dense(ks[9], (D, D)),
+            "w0": np.full((D,), -0.6, np.float32),
+            "w_lora_a": _dense(ks[10], (D, W._W_LORA), 0.01),
+            "w_lora_b": _dense(ks[11], (W._W_LORA, D), 0.01),
+            "u": _normal(ks[0], (H, dh), 0.1),
+            "ln_scale": np.ones((H, dh), np.float32),
+            "cm_mu_k": mix(ks[1]), "cm_mu_r": mix(ks[2]),
+            "cm_w_r": _dense(ks[3], (D, D)),
+            "cm_w_up": _dense(ks[4], (D, cfg.d_ff)),
+            "cm_w_down": _dense(ks[5], (cfg.d_ff, D))}
+
+
+def _block_np(cfg, key, kind):
+    ks = prng.split(key, 6)
+    p = {"norm1": _norm_np(cfg), "norm2": _norm_np(cfg)}
+    if kind == RWKV:
+        p["tm"] = _rwkv_np(cfg, ks[0])
+        return p
+    if kind in ATTN_KINDS:
+        p["attn"] = _attn_np(cfg, ks[0])
+    else:
+        p["rglru"] = _rglru_np(cfg, ks[0])
+    p["ffn"] = _mlp_np(cfg, ks[1])
+    if cfg.post_norm:
+        p["post_norm1"] = _norm_np(cfg)
+        p["post_norm2"] = _norm_np(cfg)
+    return p
+
+
+def init_tree(cfg: ModelConfig, key, device):
+    """A float32 parameter tree drawn from the threefry ``key`` as the
+    reference's ``transformer.init_params`` draws it: the same splits
+    for the embedding, every period's blocks (a period key split over
+    the pattern), the tail and the head, and ``prng``'s draws (normal
+    within 2.5e-7 of ``jax.random.normal``).  Drawn on the host: meant
+    for the smoke and test widths."""
+    _check_ported(cfg)
+    nper, n = cfg.num_periods, len(cfg.pattern)
+    tail = cfg.pattern[:cfg.num_layers - nper * n]
+    keys = prng.split(key, 4 + len(tail))
+    blocks = []
+    for k in (prng.split(keys[1], nper) if nper else []):
+        kk = prng.split(k, n)
+        blocks += [_block_np(cfg, kk[j], kind)
+                   for j, kind in enumerate(cfg.pattern)]
+    blocks += [_block_np(cfg, keys[2 + i], kind)
+               for i, kind in enumerate(tail)]
+    tree = {"embed": {"table": _normal(keys[0], (cfg.vocab_size,
+                                                 cfg.d_model), 0.02)},
+            "blocks": blocks, "final_norm": _norm_np(cfg)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": _normal(keys[-1], (cfg.d_model,
+                                                   cfg.vocab_size), 0.02)}
+    return tree_map(lambda a: torch.from_numpy(a).to(device), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +434,18 @@ def _apply_block(cfg: ModelConfig, kind, bp: Block, x, *, mode, cache,
     return x + m, new_cache
 
 
-def forward(cfg: ModelConfig, params: Transformer, tokens, *, mode="train",
-            cache=None, pos=None):
-    """Returns (hidden (B, S, D), new_cache).  tokens: (B, S) integer
-    tensor.  "prefill" returns a fresh cache: a linear KV cache of S
-    entries per attention layer, the final state of each recurrent one
-    (run from a zero state, as the reference's prefill is); "decode"
-    updates the KV caches in place and returns the list with the new
-    recurrent states."""
+def forward(cfg: ModelConfig, params, tokens, *, mode="train",
+            cache=None, pos=None, remat=False):
+    """Returns (hidden (B, S, D), new_cache).  ``params``: a module or a
+    tree (``view``).  tokens: (B, S) integer tensor.  "prefill" returns
+    a fresh cache: a linear KV cache of S entries per attention layer,
+    the final state of each recurrent one (run from a zero state, as the
+    reference's prefill is); "decode" updates the KV caches in place and
+    returns the list with the new recurrent states.  ``remat`` (train
+    mode, with gradients) recomputes each block in the backward
+    (non-reentrant checkpointing), as the reference checkpoints its
+    period body in train mode."""
+    params = view(cfg, params)
     x = params.embed.table[tokens.long()]
     serve = mode in ("prefill", "decode")
     if mode == "decode" and cache is None:
@@ -258,7 +459,14 @@ def forward(cfg: ModelConfig, params: Transformer, tokens, *, mode="train",
             c = _init_layer_cache(cfg, kind, B, 0, x.dtype, x.device)
         else:
             c = None
-        x, nc = _apply_block(cfg, kind, bp, x, mode=mode, cache=c, pos=pos)
+        if remat and mode == "train" and torch.is_grad_enabled():
+            x, nc = checkpoint(
+                lambda x, kind=kind, bp=bp: _apply_block(
+                    cfg, kind, bp, x, mode=mode, cache=None, pos=pos),
+                x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, nc = _apply_block(cfg, kind, bp, x, mode=mode, cache=c,
+                                 pos=pos)
         if serve:
             new_cache.append(nc)
     return L.apply_norm(cfg, params.final_norm, x), new_cache
@@ -279,7 +487,70 @@ def _softcap(cfg, logits):
     return logits
 
 
-def logits_fn(cfg: ModelConfig, params: Transformer, hidden):
+def logits_fn(cfg: ModelConfig, params, hidden):
     """Full float32 logits — for decode-sized (B, 1, D) hidden states."""
-    w = _head_w(cfg, params).to(hidden.dtype)
+    w = _head_w(cfg, view(cfg, params)).to(hidden.dtype)
     return _softcap(cfg, (hidden @ w).float())
+
+
+def _chunks(S):
+    """(number of chunks, chunk length): HEAD_CHUNK positions a chunk,
+    or one chunk of all S when S is not a multiple (the reference's
+    fallback for ragged small cases)."""
+    cs = min(HEAD_CHUNK, S)
+    if S % cs:
+        cs = S
+    return S // cs, cs
+
+
+def _maybe_checkpoint(fn, *args):
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def lm_loss(cfg: ModelConfig, params, hidden, labels, mask=None):
+    """Mean masked cross-entropy over (B, S) positions, in float32 and
+    one ``HEAD_CHUNK`` of positions at a time, each chunk recomputed in
+    the backward, so the (B, S, V) logits never exist at once."""
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    n, cs = _chunks(S)
+    w = _head_w(cfg, view(cfg, params))
+
+    def chunk(h, lab, mk):
+        logits = _softcap(cfg, (h @ w.to(h.dtype)).float())
+        lse = torch.logsumexp(logits, dim=-1)
+        lab_logit = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return ((lse - lab_logit) * mk).sum()
+
+    tot = hidden.new_zeros((), dtype=torch.float32)
+    for i in range(n):
+        sl = slice(i * cs, (i + 1) * cs)
+        tot = tot + _maybe_checkpoint(chunk, hidden[:, sl], labels[:, sl],
+                                      mask[:, sl].float())
+    return tot / torch.clamp(mask.float().sum(), min=1.0)
+
+
+def _chunk_scan(cfg, params, hidden, fn):
+    """``fn`` of each chunk's float32 (soft-capped) logits, over chunks
+    of HEAD_CHUNK positions, each recomputed in the backward; the list
+    of results in position order."""
+    n, cs = _chunks(hidden.shape[1])
+    w = _head_w(cfg, view(cfg, params))
+
+    def body(h):
+        return fn(_softcap(cfg, (h @ w.to(h.dtype)).float()))
+
+    return [_maybe_checkpoint(body, hidden[:, i * cs:(i + 1) * cs])
+            for i in range(n)]
+
+
+def predict_argmax(cfg: ModelConfig, params, hidden):
+    """Greedy per-position prediction (B, S) int32 — the teacher vote;
+    the first of equal maxima, as ``jnp.argmax``."""
+    return torch.cat(_chunk_scan(cfg, params, hidden,
+                                 lambda lg: torch.argmax(lg, dim=-1)),
+                     dim=1).to(torch.int32)

@@ -8,6 +8,13 @@ are float32 and the step count an int32 tensor on the parameters'
 device, cast to float32 for the bias corrections, as in the reference;
 every operation is elementwise, so a stack of models (a leading model
 axis on every leaf) updates as one.
+
+``Optimizer.update_`` applies the same per-leaf arithmetic leaf by leaf
+and copies each result into the parameter and its moments: the LM
+train step uses it on its float32 masters, since at phi4-mini's size a
+functional update would hold a second copy of 46 GB of float32 state.
+Its extra memory is one leaf's temporaries, and it gives the values
+``update`` gives.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ class Optimizer:
     init: Callable[[Any], OptState]
     # (grads, state, params, lr) -> (params, state)
     update: Callable[..., tuple]
+    # the same, in place: (grads, state, params, lr) -> (params, state)
+    update_: Callable[..., tuple]
 
 
 def _zeros(params):
@@ -48,17 +57,43 @@ def _unzip(like, out, n):
     return [tree_map(lambda _, o, i=i: o[i], like, out) for i in range(n)]
 
 
+def _optimizer(init, rule, n_moments) -> Optimizer:
+    """An Optimizer from its per-leaf arithmetic: ``rule(step, lr)`` is a
+    function (g, p, *moments) -> (p, *moments), ``step`` the count after
+    this update and ``moments`` the first ``n_moments`` of (mu, nu)."""
+    def moments(state):
+        return (state.mu, state.nu)[:n_moments]
+
+    def update(grads, state, params, lr):
+        step = state.step + 1
+        out = tree_map(rule(step, lr), grads, params, *moments(state))
+        new_p, *new_m = _unzip(grads, out, 1 + n_moments)
+        nu = new_m[1] if n_moments == 2 else state.nu
+        return new_p, OptState(step, new_m[0], nu)
+
+    def update_(grads, state, params, lr):
+        step = state.step + 1
+        upd = rule(step, lr)
+        with torch.no_grad():
+            for leaves in zip(*map(tree_leaves, (grads, params,
+                                                 *moments(state)))):
+                for dst, src in zip(leaves[1:], upd(*leaves)):
+                    dst.copy_(src)
+        return params, OptState(step, state.mu, state.nu)
+
+    return Optimizer(init, update, update_)
+
+
 def adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
     def init(params):
         return OptState(_int_zero(params), _zeros(params), _zeros(params))
 
-    def update(grads, state, params, lr):
-        step = state.step + 1
+    def rule(step, lr):
         t = step.to(torch.float32)
         c1 = 1 - b1 ** t
         c2 = 1 - b2 ** t
 
-        def upd(g, m, v, p):
+        def upd(g, p, m, v):
             gf = g.to(torch.float32)
             pf = p.to(torch.float32)
             m = b1 * m + (1 - b1) * gf
@@ -66,11 +101,9 @@ def adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
             d = (m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * pf
             return (pf - lr * d).to(p.dtype), m, v
 
-        new_p, new_m, new_v = _unzip(
-            grads, tree_map(upd, grads, state.mu, state.nu, params), 3)
-        return new_p, OptState(step, new_m, new_v)
+        return upd
 
-    return Optimizer(init, update)
+    return _optimizer(init, rule, 2)
 
 
 def sgd(momentum=0.0) -> Optimizer:
@@ -78,16 +111,14 @@ def sgd(momentum=0.0) -> Optimizer:
         return OptState(_int_zero(params), _zeros(params),
                         _int_zero(params))
 
-    def update(grads, state, params, lr):
-        def upd(g, m, p):
+    def rule(step, lr):
+        def upd(g, p, m):
             m = momentum * m + g.to(torch.float32)
             return (p.to(torch.float32) - lr * m).to(p.dtype), m
 
-        new_p, new_m = _unzip(grads, tree_map(upd, grads, state.mu,
-                                              params), 2)
-        return new_p, OptState(state.step + 1, new_m, state.nu)
+        return upd
 
-    return Optimizer(init, update)
+    return _optimizer(init, rule, 1)
 
 
 def get(name: str, weight_decay=0.0) -> Optimizer:
@@ -100,10 +131,16 @@ def get(name: str, weight_decay=0.0) -> Optimizer:
     raise ValueError(name)
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_scale(grads, max_norm):
+    """(the factor that scales ``grads`` to a global norm of at most
+    ``max_norm``, the norm before clipping)."""
     gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
                         for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
+
+
+def clip_by_global_norm(grads, max_norm):
+    scale, gn = clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), gn
 
 

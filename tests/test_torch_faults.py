@@ -272,7 +272,29 @@ def test_dropped_ack_retransmit_reacked_exactly_once(data, serial):
 
 
 def test_duplicate_delivery_never_double_folds(data, serial):
-    res, sock = _chaos_round(data, "gbdt", {1: Fault("duplicate")})
+    """Party 0's frame is redelivered after its real exchange, as in the
+    reference's test: the coordinator re-ACKs it and folds each party
+    once.  Party 1 starts its round only after the proxy has logged the
+    duplicate's reply, so the round's report (written once both parties
+    have arrived) always sees the re-ACK, however loaded the host."""
+    plan = FaultPlan({0: Fault("duplicate")})
+    session = FedKTSession(make("gbdt"), data, FedKTConfig(**CFG2),
+                           engine="vmap", device="cpu",
+                           transport=SocketTransport(parallelism=1,
+                                                     chaos_plan=plan))
+    party1 = session.parties[1]
+    own_round = party1.local_round
+
+    def after_duplicate(*args, **kwargs):
+        deadline = time.monotonic() + 60.0
+        while not any("duplicate delivery" in line for line in plan.log):
+            assert time.monotonic() < deadline, plan.log
+            time.sleep(0.01)
+        return own_round(*args, **kwargs)
+
+    party1.local_round = after_duplicate
+    res = session.run()
+    sock = res.meta["socket"]
     assert_same_round(res, serial["gbdt"])
     assert len(sock["arrived"]) == 2
     assert sum(sock["re_acked"].values()) == 1

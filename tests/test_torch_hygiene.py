@@ -58,6 +58,7 @@ def test_cuda_sources_say_what_they_replace():
     for name, tpu in (("vote_aggregate", "vote_aggregate.py"),
                       ("tree_hist", "tree_hist.py"),
                       ("flash_attention", "flash_attention.py"),
+                      ("flash_attention_bwd", "flash_attention.py"),
                       ("rglru_scan", "rglru_scan.py"),
                       ("wkv6", "wkv6.py")):
         assert name in build.KERNELS
@@ -213,3 +214,39 @@ def test_cpu_nn_round_builds_no_kernel():
     assert res.meta["device"] == "cpu"
     assert build._LIBS == {}
     assert (th.launches, va.launches) == before
+
+
+def test_lm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the no-card path "
+                    "is checked on CPU-only hosts")
+    from repro_torch import prng
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.core.learners import LMLearner
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    model = Model(get_smoke("phi4-mini-3.8b"))
+    seqs = np.zeros((4, 9), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMLearner(model, TrainConfig(batch_size=2, steps=1)).fit(None, seqs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_tree(prng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
+
+
+def test_cpu_lm_training_builds_no_kernel():
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.core.learners import LMLearner
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    before = (fa.launches, fa.bwd_launches)
+    learner = LMLearner(Model(get_smoke("gemma2-27b")),
+                        TrainConfig(batch_size=2, steps=2), device="cpu")
+    seqs = synthetic.tokens(n_seqs=8, seq_len=17, vocab=512)["train"]
+    state = learner.fit(None, seqs)
+    assert learner.predict(state, seqs[:2]).shape == (32,)
+    assert build._LIBS == {}
+    assert (fa.launches, fa.bwd_launches) == before

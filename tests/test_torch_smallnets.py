@@ -24,7 +24,7 @@ from repro_torch import optim, prng
 from repro_torch.convert import from_reference, to_reference
 from repro_torch.data.synthetic import digits
 from repro_torch.models import smallnets as S
-from repro_torch.tree_util import flatten_tree
+from repro_torch.tree_util import flatten_tree, tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401
 
 NETS = {
@@ -93,16 +93,19 @@ def _close(got, want, atol=1e-6):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("opt", ["adamw", "adamw_wd", "sgd", "sgdm"])
+OPTIMIZERS = {"adamw": (lambda: optim.adamw(), lambda: j_adamw()),
+              "adamw_wd": (lambda: optim.adamw(weight_decay=1e-2),
+                           lambda: j_adamw(weight_decay=1e-2)),
+              "sgd": (lambda: optim.sgd(), lambda: j_sgd()),
+              "sgdm": (lambda: optim.get("sgdm"),
+                       lambda: j_sgd(momentum=0.9))}
+
+
+@pytest.mark.parametrize("opt", list(OPTIMIZERS))
 def test_optimizer_steps_match_reference(opt):
     """Three updates from the same params and gradients (the bias
     corrections at t = 1, 2, 3)."""
-    make = {"adamw": (lambda: optim.adamw(), lambda: j_adamw()),
-            "adamw_wd": (lambda: optim.adamw(weight_decay=1e-2),
-                         lambda: j_adamw(weight_decay=1e-2)),
-            "sgd": (lambda: optim.sgd(), lambda: j_sgd()),
-            "sgdm": (lambda: optim.get("sgdm"),
-                     lambda: j_sgd(momentum=0.9))}[opt]
+    make = OPTIMIZERS[opt]
     popt, jopt = make[0](), make[1]()
     jp = JS.MLP(14, 2).init(jax.random.PRNGKey(2))
     pp = from_reference(jp, "cpu")
@@ -115,6 +118,24 @@ def test_optimizer_steps_match_reference(opt):
         _close(ps.mu, js.mu)
     assert int(ps.step) == int(js.step) == 3
     assert ps.step.dtype == torch.int32
+
+
+@pytest.mark.parametrize("opt", list(OPTIMIZERS))
+def test_in_place_update_equals_update(opt):
+    """``update_`` writes into the params and moments it is given the
+    values ``update`` returns, bit for bit, over three steps."""
+    popt = OPTIMIZERS[opt][0]()
+    jp = JS.MLP(14, 2).init(jax.random.PRNGKey(2))
+    pp, qp = from_reference(jp, "cpu"), from_reference(jp, "cpu")
+    ps, qs = popt.init(pp), popt.init(qp)
+    for step in range(3):
+        g = from_reference(_grads_like(jp, step), "cpu")
+        pp, ps = popt.update(g, ps, pp, 1e-2)
+        out, qs = popt.update_(g, qs, qp, 1e-2)
+        assert out is qp
+        for a, b in zip(tree_leaves((pp, ps)), tree_leaves((qp, qs))):
+            assert torch.equal(a, b)
+    assert int(qs.step) == 3
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 1e3])
