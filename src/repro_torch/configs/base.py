@@ -96,12 +96,21 @@ class ModelConfig:
     def num_periods(self) -> int:
         return self.num_layers // len(self.pattern)
 
+    def layer_plan(self) -> Tuple[int, int, Tuple[str, ...]]:
+        """(first_k_dense, num_periods, tail_kinds), the reference's
+        ``transformer._layer_plan``: ``first_k_dense`` dense head blocks
+        of kind ``pattern[0]`` (MoE configs only), then the scanned
+        periods of the remaining layers, then their unrolled tail."""
+        fkd = self.moe.first_k_dense if self.moe else 0
+        remaining, n = self.num_layers - fkd, len(self.pattern)
+        return fkd, remaining // n, self.pattern[:remaining % n]
+
     @property
     def layer_kinds(self) -> Tuple[str, ...]:
-        """The block kind of every layer, in order: the reference's
-        scanned periods followed by its unrolled tail."""
-        n = len(self.pattern)
-        return tuple(self.pattern[i % n] for i in range(self.num_layers))
+        """The block kind of every layer, in order: the head blocks, the
+        reference's scanned periods, then its unrolled tail."""
+        fkd, nper, tail = self.layer_plan()
+        return (self.pattern[:1] * fkd + self.pattern * nper + tail)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
-"""--arch <id> registry (``repro.configs.registry``) for the archs the
-port serves so far.  ``get_config(id)`` returns the full-scale
+"""--arch <id> registry (``repro.configs.registry``) for the decoder
+archs.  ``get_config(id)`` returns the full-scale
 ModelConfig, ``get_smoke(id)`` the reduced same-family variant the CPU
 tests use.  An arch of the reference that is not ported yet raises a
 KeyError that says so."""
@@ -15,14 +15,17 @@ _MODULES: Dict[str, str] = {
     "gemma2-27b":     "repro_torch.configs.gemma2_27b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-7b":       "repro_torch.configs.rwkv6_7b",
+    "mixtral-8x7b":   "repro_torch.configs.mixtral_8x7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "stablelm-3b":    "repro_torch.configs.stablelm_3b",
+    "granite-20b":    "repro_torch.configs.granite_20b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
 
-# the reference's other archs: MoE, encoder-decoder, frontends, and the
-# dense archs whose layers (parallel blocks, partial rotary) wait for them
-NOT_PORTED = ("mixtral-8x7b", "llava-next-mistral-7b", "stablelm-3b",
-              "deepseek-moe-16b", "whisper-tiny", "granite-20b")
+# the reference's encoder-decoder arch (cross attention, models/encdec.py)
+NOT_PORTED = ("whisper-tiny",)
 
 
 def _module(arch_id: str):

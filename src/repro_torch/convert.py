@@ -43,13 +43,13 @@ def _tensor(a):
 
 
 def _layers(cfg, tree):
-    """The reference's per-layer subtrees in layer order: the periods
-    (every leaf stacked on axis 0 by ``jax.vmap``), then the unrolled
-    tail.  MoE's ``head_blocks`` are not ported."""
-    n = len(cfg.pattern)
-    out = []
-    for p in range(cfg.num_periods):
-        for j in range(n):
+    """The reference's per-layer subtrees in layer order: the dense head
+    blocks, the periods (every leaf stacked on axis 0 by ``jax.vmap``),
+    then the unrolled tail."""
+    fkd, nper, _ = cfg.layer_plan()
+    out = list(tree.get("head_blocks", []))
+    for p in range(nper):
+        for j in range(len(cfg.pattern)):
             out.append(tree_map(lambda a, p=p: np.asarray(a)[p],
                                 tree["periods"][f"b{j}"]))
     return out + list(tree["tail"])
@@ -58,13 +58,18 @@ def _layers(cfg, tree):
 def _ref_path(cfg, name):
     """The reference's checkpoint path of the port's parameter ``name``
     ("blocks.5.attn.wq"), and its index along the stacked period axis
-    (None outside the periods): layer i of the periods is block
-    b{i % len(pattern)} of period i // len(pattern); the tail follows."""
+    (None outside the periods): layer i < fkd is head block i; layer
+    fkd + i of the periods is block b{i % len(pattern)} of period
+    i // len(pattern); the tail follows."""
     parts = name.split(".")
     if parts[0] != "blocks":
         return "/".join(parts), None
     layer, rest = int(parts[1]), "/".join(parts[2:])
-    n, nper = len(cfg.pattern), cfg.num_periods
+    fkd, nper, _ = cfg.layer_plan()
+    n = len(cfg.pattern)
+    if layer < fkd:
+        return f"head_blocks/{layer}/{rest}", None
+    layer -= fkd
     if layer < nper * n:
         return f"periods/b{layer % n}/{rest}", layer // n
     return f"tail/{layer - nper * n}/{rest}", None
@@ -83,8 +88,6 @@ def _flat_reference(params):
     path -> array mapping (an ``np.load`` of the .npz reads each array
     on first access), as a path -> array mapping."""
     if "embed" in params:
-        if params.get("head_blocks"):
-            raise NotImplementedError("MoE head blocks are not ported yet")
         return flatten_tree(params)
     return params
 
@@ -108,8 +111,9 @@ def lm_params_to_reference(cfg, params):
     """The port's decoder-LM parameters (a ``Transformer`` or a tree) ->
     the reference's checkpoint layout: {path: float32 numpy array},
     paths as ``checkpoint.flatten_tree`` writes the reference's pytree
-    ("embed/table", "periods/b0/attn/wq" stacked over the periods,
-    "tail/0/...", "final_norm/scale", "lm_head/w").  Saved as it is, it
+    ("embed/table", "head_blocks/0/...", "periods/b0/attn/wq" and
+    "periods/b0/ffn/router" stacked over the periods, "tail/0/...",
+    "final_norm/scale", "lm_head/w").  Saved as it is, it
     is a checkpoint the reference restores."""
     grouped = {}
     for name, t in _port_named(params):
@@ -124,9 +128,9 @@ def lm_params_to_reference(cfg, params):
 def lm_params_from_reference(cfg, params, device=D.DEFAULT):
     """The reference's decoder-LM parameters (its pytree, or a
     checkpoint's flat path mapping) -> the port's ``Transformer`` on
-    ``device``.  Periods (and a recurrent tail, as recurrentgemma's) are
-    unstacked into layers; every matrix keeps its ``x @ W``
-    orientation.  Each parameter takes the dtype of the port's module:
+    ``device``.  Head blocks, periods (MoE leaves included) and a tail
+    (as recurrentgemma's) are unstacked into layers; every matrix keeps
+    its ``x @ W`` orientation.  Each parameter takes the dtype of the port's module:
     ``cfg.dtype`` where the reference casts it to the activations' dtype
     at each use, float32 where it reads it in float32 (RG-LRU's w_a,
     w_x, lam; RWKV's w0, u, ln_scale), ``cfg.param_dtype`` for norm

@@ -37,10 +37,13 @@ from repro_torch.tree_util import tree_leaves, tree_map
 
 
 def _leaf_grads(loss, tree):
-    """d loss / d every leaf of ``tree``, as a tree."""
+    """d loss / d every leaf of ``tree``, as a tree; zeros for a leaf
+    the loss does not read (a parallel block's norm2), as ``jax.grad``
+    gives."""
     leaves = tree_leaves(tree)
     by_leaf = {id(t): g for t, g in
-               zip(leaves, torch.autograd.grad(loss, leaves))}
+               zip(leaves, torch.autograd.grad(loss, leaves,
+                                               materialize_grads=True))}
     return tree_map(lambda t: by_leaf[id(t)], tree)
 
 
@@ -156,7 +159,8 @@ def make_bucket_prefill_step(model: Model) -> Callable:
     engine's ``Model.insert_cache`` places the cache."""
     @torch.inference_mode()
     def prefill(params, tokens, plens):
-        h, cache = model.hidden(params, {"tokens": tokens}, mode="prefill")
+        h, cache, _ = model.hidden(params, {"tokens": tokens},
+                                   mode="prefill")
         last = h[torch.arange(h.shape[0], device=h.device), plens - 1]
         logits = transformer.logits_fn(model.cfg, params, last[:, None])[:, 0]
         return torch.argmax(logits, dim=-1), cache, logits

@@ -23,6 +23,14 @@ k, v, o and dO to give dQ, dK and dV; ``FlashAttention`` is the
 ``torch.autograd.Function`` that joins the two, and ``bwd_launches``
 counts the backward's kernel launches (three a call).  The reference has
 no backward kernel: off the TPU it differentiates its xla attention.
+
+Head dims between the kernels' own (stablelm's 80) are zero-padded on
+the head axis to the next one (``padded_head_dim``: 80 -> 128) and run
+with the true dim's scale ``dh ** -0.5``: zero columns add nothing to
+q·k, to D = rowsum(dO·O) or to dQ and dK, and the padded output columns
+are sliced away.  That costs the padded dim's work and the pad and
+slice copies, 1.6x the reads at 80 (ROADMAP §2 has the native dh-80
+redesign).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -90,6 +99,18 @@ def _bwd_lib():
     return fn
 
 
+def padded_head_dim(dh, dims=HEAD_DIMS):
+    """The head dim a ``dh``-wide call launches at: ``dh`` itself where
+    the kernel has it, else the next larger of ``dims``; None above
+    them all."""
+    return next((d for d in dims if d >= dh), None)
+
+
+def _pad_heads(ts, dp):
+    """Each of ``ts`` zero-padded on its last (head) axis to ``dp``."""
+    return [F.pad(t, (0, dp - t.shape[-1])) for t in ts]
+
+
 def _check(t, name, shape, dtype, device):
     if not t.is_cuda or t.device != device:
         raise ValueError(f"flash_attention: {name} must be on {device}, got "
@@ -111,8 +132,9 @@ def _check(t, name, shape, dtype, device):
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, return_lse=False):
     """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh); CUDA tensors of one
-    dtype (float32 or bfloat16), contiguous, H % KV == 0, dh in
-    HEAD_DIMS.  ``q_offset`` is an int.  Returns (B, Sq, H, dh) in q's
+    dtype (float32 or bfloat16), contiguous, H % KV == 0, dh at most
+    the largest of HEAD_DIMS (a dh between them runs padded to the next
+    one).  ``q_offset`` is an int.  Returns (B, Sq, H, dh) in q's
     dtype, and with ``return_lse`` also the float32 (B, H, Sq) row
     log-sum-exp of the scaled, soft-capped, masked scores (+inf for a
     row that sees no key)."""
@@ -124,9 +146,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     Skv, KV = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
+    dp = padded_head_dim(dh)
+    if dp is None:
+        raise ValueError(f"flash_attention: head dim {dh} above "
+                         f"{HEAD_DIMS[-1]}")
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention: {H} heads do not split over "
                          f"{KV} kv heads")
@@ -137,7 +160,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     _check(q, "q", (B, Sq, H, dh), q.dtype, dev)
     _check(k, "k", (B, Skv, KV, dh), q.dtype, dev)
     _check(v, "v", (B, Skv, KV, dh), q.dtype, dev)
-    p = plan(dh, q.dtype)
+    if dp != dh:
+        q, k, v = _pad_heads((q, k, v), dp)
+    p = plan(dp, q.dtype)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -146,12 +171,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV,
-                 dh, int(q.dtype == torch.bfloat16),
+                 dp, int(q.dtype == torch.bfloat16),
                  int(bool(causal)), int(window), float(softcap),
                  dh ** -0.5, q_offset, p.threads, p.smem, stream)
     build.check(err, "flash_attention")
     with build.COUNT_LOCK:
         launches += 1
+    if dp != dh:
+        out = out[..., :dh].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -161,10 +188,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     q_offset 0 and Sq = Skv (training), given its output ``o``, its row
     log-sum-exp ``lse`` (B, H, S) float32 and the output's gradient
     ``do``.  CUDA tensors, contiguous; q, o, do (B, S, H, dh) and k, v
-    (B, S, KV, dh) of one dtype (float32 or bfloat16); dh in
-    BWD_HEAD_DIMS.  Every product accumulates in float32 in a fixed
-    order (no atomics): the gradients are identical run to run.  The
-    outputs are in q's dtype."""
+    (B, S, KV, dh) of one dtype (float32 or bfloat16); dh at most the
+    largest of BWD_HEAD_DIMS (padded to the next one between them).
+    Every product accumulates in float32 in a fixed order (no atomics):
+    the gradients are identical run to run.  The outputs are in q's
+    dtype."""
     global bwd_launches
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention_backward: q and k must be 4-d, "
@@ -174,10 +202,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_backward: dtype {q.dtype} not in "
                         f"{DTYPES}")
-    if dh not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward: head dim {dh} not in "
-                         f"{BWD_HEAD_DIMS} (the attention archs' training "
-                         f"widths and their smokes)")
+    dp = padded_head_dim(dh, BWD_HEAD_DIMS)
+    if dp is None:
+        raise ValueError(f"flash_attention_backward: head dim {dh} above "
+                         f"{BWD_HEAD_DIMS[-1]} (the attention archs' "
+                         f"training widths and their smokes)")
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention_backward: {H} heads do not split "
                          f"over {KV} kv heads")
@@ -196,6 +225,8 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
                          f"contiguous float32 ({B}, {H}, {S}) tensor on "
                          f"{dev}, got {lse.dtype} {tuple(lse.shape)} on "
                          f"{lse.device}")
+    if dp != dh:
+        q, k, v, o, do = _pad_heads((q, k, v, o, do), dp)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     d_rows = torch.empty((B, H, S), dtype=torch.float32, device=dev)
@@ -205,11 +236,13 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV,
-                 dh, int(q.dtype == torch.bfloat16), int(bool(causal)),
+                 dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
                  int(window), float(softcap), dh ** -0.5, stream)
     build.check(err, "flash_attention_backward")
     with build.COUNT_LOCK:
         bwd_launches += BWD_KERNELS
+    if dp != dh:
+        dq, dk, dv = (t[..., :dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

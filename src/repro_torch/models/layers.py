@@ -1,7 +1,7 @@
-"""Shared transformer layers: RMS and layer norms, RoPE, GQA attention,
-MLPs (``repro.models.layers``), for the ported archs: the reference's
-partial rotary, geglu/relu2 MLPs and cross attention wait for the archs
-that use them (``transformer._check_ported`` refuses their configs).
+"""Shared transformer layers: RMS and layer norms, RoPE (with
+stablelm's partial rotary), GQA attention and the four MLPs
+(``repro.models.layers``).  The reference's cross attention waits for
+the encoder-decoder arch (``transformer._check_ported`` refuses it).
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's dict keys (``attn.wq``, ``ffn.w_up``, ``norm1.scale``...),
@@ -76,11 +76,17 @@ def apply_norm(cfg: ModelConfig, p: Norm, x):
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
-def apply_rope(x, positions, theta: float):
+def apply_rope(x, positions, theta: float, pct: float = 1.0):
     """x: (B, S, N, dh); positions: (S,) shared across the batch, or
     (B, S) per-row absolute positions (continuous-batching decode, where
-    every cache slot sits at its own position)."""
-    half = x.shape[-1] // 2
+    every cache slot sits at its own position).  ``pct`` < 1 rotates
+    only the first ``int(dh * pct)`` (rounded down to even) channels of
+    each head and passes the rest through, as stablelm does."""
+    rot = int(x.shape[-1] * pct)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    half = rot // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
     if positions.dim() == 2:                     # (B, S) per-row
@@ -91,9 +97,11 @@ def apply_rope(x, positions, theta: float):
         ang = positions.reshape(-1, 1).float() * freqs
         cos = torch.cos(ang)[None, :, None, :]   # (1, S, 1, half)
         sin = torch.sin(ang)[None, :, None, :]
-    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    x1f, x2f = x[..., :half].float(), x[..., half:rot].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
-    return out.to(x.dtype)
+    if rot == x.shape[-1]:
+        return out.to(x.dtype)
+    return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +170,8 @@ def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
 
     if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
         o = ops.attention(q, k, v, causal=True, window=window,
                           softcap=cfg.attn_softcap)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
@@ -171,8 +179,8 @@ def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
         per_row = torch.is_tensor(pos) and pos.dim() == 1
         positions = (pos[:, None] if per_row else
                      torch.full((1,), int(pos), device=x.device))
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
         ck, cv = cache["k"], cache["v"]
         Lc = ck.shape[1]
         ring = window > 0 and Lc <= window
@@ -201,6 +209,9 @@ def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
+GATED_MLPS = ("swiglu", "geglu")
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device, generator=None,
                  d_ff: Optional[int] = None):
@@ -209,15 +220,26 @@ class MLP(nn.Module):
         dt = dtype_of(cfg.dtype)
         self.w_up = dense((cfg.d_model, d_ff), dt, device, generator)
         self.w_down = dense((d_ff, cfg.d_model), dt, device, generator)
-        if cfg.mlp == "swiglu":
+        if cfg.mlp in GATED_MLPS:
             self.w_gate = dense((cfg.d_model, d_ff), dt, device, generator)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(cfg: ModelConfig, p: MLP, x):
-    """swiglu (phi4-mini) or gelu (gemma2)."""
+    """swiglu, geglu (gated), gelu or relu2, by ``cfg.mlp``."""
     up = x @ p.w_up
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p.w_gate) * up
+    elif cfg.mlp == "geglu":
+        h = gelu(x @ p.w_gate) * up
+    elif cfg.mlp == "gelu":
+        h = gelu(up)
+    elif cfg.mlp == "relu2":
+        h = F.relu(up) ** 2
     else:
-        h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
+        raise ValueError(cfg.mlp)
     return h @ p.w_down

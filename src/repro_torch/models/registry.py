@@ -1,10 +1,13 @@
 """Uniform model interface (``repro.models.registry``) for the decoder
-LMs the port serves and trains (attention, RG-LRU and RWKV layers).
-Batches are plain dicts with ``tokens`` (B, S), and for ``loss``
-``labels`` (B, S) and an optional float ``mask`` (B, S), integer tensors
-on the parameters' device.  ``params`` is a serving ``Transformer`` or a
-float32 parameter tree (``transformer.view``): ``loss`` differentiates
-with respect to a tree's leaves."""
+LMs the port serves and trains (attention, RG-LRU and RWKV layers,
+dense or MoE FFNs).  Batches are plain dicts with ``tokens`` (B, S), and
+for ``loss`` ``labels`` (B, S) and an optional float ``mask`` (B, S),
+integer tensors on the parameters' device; a frontend model (llava) may
+add ``embeds`` (B, Se, D), prepended to the token embeddings, whose
+positions ``loss``, ``predict`` and train-mode ``logits`` drop.
+``params`` is a serving ``Transformer`` or a float32 parameter tree
+(``transformer.view``): ``loss`` differentiates with respect to a
+tree's leaves."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -39,31 +42,47 @@ class Model:
 
     def hidden(self, params, batch: Dict[str, Any], *, mode="train",
                cache=None, pos=None, remat=False):
-        """(hidden (B, S, D), new_cache)."""
+        """(hidden (B, S, D), new_cache, aux): S counts the frontend
+        positions of ``batch["embeds"]`` too."""
         return transformer.forward(self.cfg, params, batch["tokens"],
-                                   mode=mode, cache=cache, pos=pos,
-                                   remat=remat)
+                                   embeds=batch.get("embeds"), mode=mode,
+                                   cache=cache, pos=pos, remat=remat)
 
     def loss(self, params, batch, *, remat=True):
-        """Mean next-token (or distillation) cross-entropy of a batch;
-        MoE's auxiliary loss is not ported (no MoE arch is)."""
+        """Mean next-token (or distillation) cross-entropy of a batch,
+        plus the MoE blocks' load-balance loss."""
         params = transformer.view(self.cfg, params)
-        h, _ = self.hidden(params, batch, mode="train", remat=remat)
-        return transformer.lm_loss(self.cfg, params, h, batch["labels"],
+        h, _, aux = self.hidden(params, batch, mode="train", remat=remat)
+        h = self._text_hidden(h, batch)
+        loss = transformer.lm_loss(self.cfg, params, h, batch["labels"],
                                    batch.get("mask"))
+        return loss + aux if self.cfg.moe else loss
 
     def predict(self, params, batch):
         """Greedy per-token predictions (B, S) int32: the teacher vote."""
         with torch.no_grad():
             params = transformer.view(self.cfg, params)
-            h, _ = self.hidden(params, batch, mode="train")
+            h, _, _ = self.hidden(params, batch, mode="train")
+            h = self._text_hidden(h, batch)
             return transformer.predict_argmax(self.cfg, params, h)
 
     def logits(self, params, batch, *, mode="train", cache=None, pos=None):
-        """(float32 logits (B, S, V), new_cache)."""
-        h, new_cache = self.hidden(params, batch, mode=mode, cache=cache,
-                                   pos=pos)
+        """(float32 logits (B, S, V), new_cache); train mode drops the
+        frontend positions, prefill keeps them (they are in the
+        cache)."""
+        h, new_cache, _ = self.hidden(params, batch, mode=mode, cache=cache,
+                                      pos=pos)
+        if mode == "train":
+            h = self._text_hidden(h, batch)
         return transformer.logits_fn(self.cfg, params, h), new_cache
+
+    @staticmethod
+    def _text_hidden(h, batch):
+        """``h`` without the frontend positions, aligned with the
+        tokens and labels."""
+        if batch.get("embeds") is not None:
+            return h[:, batch["embeds"].shape[1]:]
+        return h
 
     def grow_cache(self, cache, extra_tokens: int):
         """``cache`` with every KV buffer grown by ``extra_tokens`` slots

@@ -1,11 +1,15 @@
-"""Decoder LM (``repro.models.transformer``) for the attention and
+"""Decoder LM (``repro.models.transformer``) for the dense, MoE and
 recurrent archs.
 
-A model is: embed -> one block per layer (an ``nn.ModuleList``, in
-place of the reference's ``lax.scan`` over stacked periods plus its
-unrolled tail) -> final norm -> (tied) LM head.  Layer i has kind
+A model is: embed (with a frontend's embeddings prepended, llava) ->
+one block per layer (an ``nn.ModuleList``, in place of the reference's
+dense head blocks, ``lax.scan`` over stacked periods and unrolled tail)
+-> final norm -> (tied) LM head.  Layer i has kind
 ``cfg.layer_kinds[i]``: attention (global or sliding-window), RG-LRU or
-RWKV.  MoE blocks are not ported yet and raise ``NotImplementedError``.
+RWKV.  Its FFN is an MLP, or in an MoE config ``models/moe.py``'s MoE
+past the ``first_k_dense`` head blocks (dense, ``d_ff *
+dense_ff_mult`` wide).  Blocks are sequential (x + attn, then + ffn) or
+parallel (stablelm: x + attn(n1) + ffn(n1)).
 
 A cache is a list with one dict per layer: {"k", "v"}, each (B, L, KV,
 dh), for attention; {"h", "conv"} for RG-LRU; {"wkv", "shift_t",
@@ -41,6 +45,7 @@ from repro_torch import prng
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, RWKV, \
     ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv as W
 from repro_torch.tree_util import tree_map
@@ -50,23 +55,13 @@ HEAD_CHUNK = 512
 
 
 def _check_ported(cfg: ModelConfig):
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks (models/moe.py) are not "
-                                  "ported yet")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("encoder-decoder models (models/encdec.py) "
+                                  "are not ported yet")
     bad = sorted({k for k in cfg.pattern
                   if k not in ATTN_KINDS + (RGLRU, RWKV)})
     if bad:
-        raise NotImplementedError(f"{bad} blocks are not ported yet")
-    if cfg.is_encoder_decoder or cfg.frontend_embeds:
-        raise NotImplementedError("encoder-decoder and frontend models are "
-                                  "not ported yet")
-    has_mlp = any(k != RWKV for k in cfg.pattern)
-    if (has_mlp and cfg.mlp not in ("swiglu", "gelu")) \
-            or cfg.parallel_block or cfg.rope_pct != 1.0:
-        raise NotImplementedError(
-            f"mlp={cfg.mlp!r}, parallel_block, partial rotary are not "
-            "ported yet: only the ported archs' layers (swiglu/gelu MLPs, "
-            "sequential blocks, full rotary) are")
+        raise ValueError(f"unknown block kinds {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -74,10 +69,14 @@ def _check_ported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 class Block(nn.Module):
     """One layer of kind ``kind``, with the reference's subtree names:
-    norm1, norm2 and attn or rglru, then ffn (and gemma2's post-norms);
-    an RWKV layer holds norm1, norm2 and tm (time- and channel-mix)."""
+    norm1, norm2 and attn or rglru, then ffn (an MLP ``dense_ff`` wide,
+    ``cfg.d_ff`` by default, or with ``use_moe`` an MoE) and gemma2's
+    post-norms; an RWKV layer holds norm1, norm2 and tm (time- and
+    channel-mix).  A parallel block holds norm2 and never reads it, as
+    in the reference."""
 
-    def __init__(self, cfg: ModelConfig, kind, device, generator=None):
+    def __init__(self, cfg: ModelConfig, kind, device, generator=None,
+                 use_moe=False, dense_ff=None):
         super().__init__()
         self.norm1 = L.Norm(cfg, device)
         self.norm2 = L.Norm(cfg, device)
@@ -88,7 +87,8 @@ class Block(nn.Module):
             self.attn = L.Attn(cfg, device, generator)
         else:
             self.rglru = R.RGLRU(cfg, device, generator)
-        self.ffn = L.MLP(cfg, device, generator)
+        self.ffn = M.MoE(cfg, device, generator) if use_moe \
+            else L.MLP(cfg, device, generator, d_ff=dense_ff)
         if cfg.post_norm:
             self.post_norm1 = L.Norm(cfg, device)
             self.post_norm2 = L.Norm(cfg, device)
@@ -117,8 +117,13 @@ class Transformer(nn.Module):
         super().__init__()
         _check_ported(cfg)
         self.embed = Embed(cfg, device, generator)
+        fkd = cfg.layer_plan()[0]
+        use_moe = cfg.moe is not None
+        dense_ff = cfg.d_ff * cfg.moe.dense_ff_mult if use_moe else None
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, device, generator) for kind in cfg.layer_kinds)
+            Block(cfg, kind, device, generator, use_moe=use_moe and i >= fkd,
+                  dense_ff=dense_ff if i < fkd else None)
+            for i, kind in enumerate(cfg.layer_kinds))
         self.final_norm = L.Norm(cfg, device)
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg, device, generator)
@@ -222,12 +227,36 @@ def _attn_np(cfg, key):
             "wo": _dense(k4, (cfg.num_heads * dh, D))}
 
 
-def _mlp_np(cfg, key):
+def _mlp_np(cfg, key, d_ff=None):
+    d_ff = d_ff or cfg.d_ff
     k1, k2, k3 = prng.split(key, 3)
-    p = {"w_up": _dense(k1, (cfg.d_model, cfg.d_ff)),
-         "w_down": _dense(k2, (cfg.d_ff, cfg.d_model))}
-    if cfg.mlp == "swiglu":
-        p["w_gate"] = _dense(k3, (cfg.d_model, cfg.d_ff))
+    p = {"w_up": _dense(k1, (cfg.d_model, d_ff)),
+         "w_down": _dense(k2, (d_ff, cfg.d_model))}
+    if cfg.mlp in L.GATED_MLPS:
+        p["w_gate"] = _dense(k3, (cfg.d_model, d_ff))
+    return p
+
+
+def _moe_np(cfg, key):
+    """``repro.models.moe.init_moe``'s draws, key reuse included: the
+    router and the shared experts' w_down both come from ks[0], the
+    experts' w_up and the shared w_gate both from ks[1]; the expert
+    tensors are drawn, then scaled by fan_in ** -0.5."""
+    m = cfg.moe
+    E, D, Fe = m.num_experts, cfg.d_model, cfg.d_ff
+    ks = prng.split(key, 5)
+    gated = cfg.mlp in L.GATED_MLPS
+    p = {"router": _dense(ks[0], (D, E), 0.02),
+         "w_up": _normal(ks[1], (E, D, Fe), D ** -0.5),
+         "w_down": _normal(ks[2], (E, Fe, D), Fe ** -0.5)}
+    if gated:
+        p["w_gate"] = _normal(ks[3], (E, D, Fe), D ** -0.5)
+    if m.num_shared_experts:
+        Fs = m.num_shared_experts * Fe
+        sp = {"w_up": _dense(ks[4], (D, Fs)), "w_down": _dense(ks[0], (Fs, D))}
+        if gated:
+            sp["w_gate"] = _dense(ks[1], (D, Fs))
+        p["shared"] = sp
     return p
 
 
@@ -267,7 +296,7 @@ def _rwkv_np(cfg, key):
             "cm_w_down": _dense(ks[5], (cfg.d_ff, D))}
 
 
-def _block_np(cfg, key, kind):
+def _block_np(cfg, key, kind, use_moe=False, dense_ff=None):
     ks = prng.split(key, 6)
     p = {"norm1": _norm_np(cfg), "norm2": _norm_np(cfg)}
     if kind == RWKV:
@@ -277,7 +306,8 @@ def _block_np(cfg, key, kind):
         p["attn"] = _attn_np(cfg, ks[0])
     else:
         p["rglru"] = _rglru_np(cfg, ks[0])
-    p["ffn"] = _mlp_np(cfg, ks[1])
+    p["ffn"] = _moe_np(cfg, ks[1]) if use_moe \
+        else _mlp_np(cfg, ks[1], dense_ff)
     if cfg.post_norm:
         p["post_norm1"] = _norm_np(cfg)
         p["post_norm2"] = _norm_np(cfg)
@@ -287,20 +317,25 @@ def _block_np(cfg, key, kind):
 def init_tree(cfg: ModelConfig, key, device):
     """A float32 parameter tree drawn from the threefry ``key`` as the
     reference's ``transformer.init_params`` draws it: the same splits
-    for the embedding, every period's blocks (a period key split over
-    the pattern), the tail and the head, and ``prng``'s draws (normal
-    within 2.5e-7 of ``jax.random.normal``).  Drawn on the host: meant
-    for the smoke and test widths."""
+    for the embedding (keys[0]), head block i (keys[1 + i]), every
+    period's blocks (keys[1 + fkd] split over the periods, each period
+    key split over the pattern), tail block i (keys[2 + fkd + i]) and
+    the head (keys[-1]), and ``prng``'s draws (normal within 2.5e-7 of
+    ``jax.random.normal``).  Drawn on the host: meant for the smoke and
+    test widths."""
     _check_ported(cfg)
-    nper, n = cfg.num_periods, len(cfg.pattern)
-    tail = cfg.pattern[:cfg.num_layers - nper * n]
-    keys = prng.split(key, 4 + len(tail))
-    blocks = []
-    for k in (prng.split(keys[1], nper) if nper else []):
+    fkd, nper, tail = cfg.layer_plan()
+    n = len(cfg.pattern)
+    use_moe = cfg.moe is not None
+    keys = prng.split(key, 4 + fkd + len(tail))
+    dense_ff = cfg.d_ff * (cfg.moe.dense_ff_mult if use_moe else 1)
+    blocks = [_block_np(cfg, keys[1 + i], cfg.pattern[0], dense_ff=dense_ff)
+              for i in range(fkd)]
+    for k in (prng.split(keys[1 + fkd], nper) if nper else []):
         kk = prng.split(k, n)
-        blocks += [_block_np(cfg, kk[j], kind)
+        blocks += [_block_np(cfg, kk[j], kind, use_moe)
                    for j, kind in enumerate(cfg.pattern)]
-    blocks += [_block_np(cfg, keys[2 + i], kind)
+    blocks += [_block_np(cfg, keys[2 + fkd + i], kind, use_moe)
                for i, kind in enumerate(tail)]
     tree = {"embed": {"table": _normal(keys[0], (cfg.vocab_size,
                                                  cfg.d_model), 0.02)},
@@ -408,6 +443,9 @@ def insert_cache(cfg: ModelConfig, slot_cache, prefill_cache, slots, plens):
 # ---------------------------------------------------------------------------
 def _apply_block(cfg: ModelConfig, kind, bp: Block, x, *, mode, cache,
                  pos):
+    """Returns (x, new_cache, aux): ``aux`` the block's MoE load-balance
+    loss (a float32 tensor), or None for a block without an MoE."""
+    aux = None
     if kind == RWKV:
         n1 = L.apply_norm(cfg, bp.norm1, x)
         y, st = W.rwkv_time_mix(cfg, bp.tm, n1, state=cache)
@@ -416,7 +454,7 @@ def _apply_block(cfg: ModelConfig, kind, bp: Block, x, *, mode, cache,
         y2, st_c = W.rwkv_channel_mix(cfg, bp.tm, n2, state=cache)
         new_cache = None if cache is None else {
             "wkv": st["wkv"], "shift_t": st["shift_t"], "shift_c": st_c}
-        return x + y2, new_cache
+        return x + y2, new_cache, aux
 
     n1 = L.apply_norm(cfg, bp.norm1, x)
     if kind in ATTN_KINDS:
@@ -427,30 +465,45 @@ def _apply_block(cfg: ModelConfig, kind, bp: Block, x, *, mode, cache,
                                      state=cache)
     if cfg.post_norm:
         y = L.apply_norm(cfg, bp.post_norm1, y)
+    if cfg.parallel_block:
+        # norm2 and post_norm2 are not read, as in the reference
+        return x + y + L.mlp_apply(cfg, bp.ffn, n1), new_cache, aux
     x = x + y
-    m = L.mlp_apply(cfg, bp.ffn, L.apply_norm(cfg, bp.norm2, x))
+    n2 = L.apply_norm(cfg, bp.norm2, x)
+    if hasattr(bp.ffn, "router"):          # an MoE block
+        m, aux = M.moe_apply(cfg, bp.ffn, n2)
+    else:
+        m = L.mlp_apply(cfg, bp.ffn, n2)
     if cfg.post_norm:
         m = L.apply_norm(cfg, bp.post_norm2, m)
-    return x + m, new_cache
+    return x + m, new_cache, aux
 
 
-def forward(cfg: ModelConfig, params, tokens, *, mode="train",
+def forward(cfg: ModelConfig, params, tokens, *, embeds=None, mode="train",
             cache=None, pos=None, remat=False):
-    """Returns (hidden (B, S, D), new_cache).  ``params``: a module or a
-    tree (``view``).  tokens: (B, S) integer tensor.  "prefill" returns
-    a fresh cache: a linear KV cache of S entries per attention layer,
-    the final state of each recurrent one (run from a zero state, as the
-    reference's prefill is); "decode" updates the KV caches in place and
-    returns the list with the new recurrent states.  ``remat`` (train
-    mode, with gradients) recomputes each block in the backward
-    (non-reentrant checkpointing), as the reference checkpoints its
-    period body in train mode."""
+    """Returns (hidden (B, S, D), new_cache, aux).  ``params``: a module
+    or a tree (``view``).  tokens: (B, St) integer tensor; ``embeds``:
+    an optional (B, Se, D) frontend embedding (llava's patches),
+    prepended to the token embeddings in their dtype, so S = Se + St.
+    ``aux`` is the float32 sum of the MoE blocks' load-balance losses,
+    the Python float 0.0 without MoE (a dense model launches nothing
+    for it).  "prefill" returns a fresh cache: a linear KV cache
+    of S entries per attention layer, the final state of each recurrent
+    one (run from a zero state, as the reference's prefill is);
+    "decode" updates the KV caches in place and returns the list with
+    the new recurrent states.  ``remat`` (train mode, with gradients)
+    recomputes each block in the backward (non-reentrant
+    checkpointing), as the reference checkpoints its period body in
+    train mode."""
     params = view(cfg, params)
     x = params.embed.table[tokens.long()]
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     serve = mode in ("prefill", "decode")
     if mode == "decode" and cache is None:
         raise ValueError("decode requires an existing cache")
     new_cache = [] if serve else None
+    aux = 0.0
     B = x.shape[0]
     for i, (kind, bp) in enumerate(zip(cfg.layer_kinds, params.blocks)):
         if mode == "decode":
@@ -460,16 +513,18 @@ def forward(cfg: ModelConfig, params, tokens, *, mode="train",
         else:
             c = None
         if remat and mode == "train" and torch.is_grad_enabled():
-            x, nc = checkpoint(
+            x, nc, a = checkpoint(
                 lambda x, kind=kind, bp=bp: _apply_block(
                     cfg, kind, bp, x, mode=mode, cache=None, pos=pos),
                 x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, nc = _apply_block(cfg, kind, bp, x, mode=mode, cache=c,
-                                 pos=pos)
+            x, nc, a = _apply_block(cfg, kind, bp, x, mode=mode, cache=c,
+                                    pos=pos)
+        if a is not None:
+            aux = aux + a
         if serve:
             new_cache.append(nc)
-    return L.apply_norm(cfg, params.final_norm, x), new_cache
+    return L.apply_norm(cfg, params.final_norm, x), new_cache, aux
 
 
 # ---------------------------------------------------------------------------

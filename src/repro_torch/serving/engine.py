@@ -83,8 +83,13 @@ class Engine:
     """Continuous-batching greedy-decode engine for one decoder model.
 
     Supported configs: decoder-only, attention blocks only (global
-    and/or sliding-window).  Recurrent blocks and encoder-decoder or
-    frontend models are refused up front, as in the reference.
+    and/or sliding-window), dense or MoE FFNs.  Recurrent blocks and
+    encoder-decoder or frontend models are refused up front, as in the
+    reference.  MoE configs run, but capacity dropping couples the rows
+    of a batch (a token's expert slot depends on the tokens before it),
+    so parity with solo ``serve_batch`` runs holds only where no token
+    is dropped (a capacity factor of at least E / K), as in the
+    reference.
     ``params`` must lie on ``device`` (the card unless "cpu" is asked
     for; asking for the card where there is none raises).
     ``keep_logits`` keeps every emitted token's logits row on the device

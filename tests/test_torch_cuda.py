@@ -331,8 +331,8 @@ def test_flash_attention_wrapper_refuses_bad_inputs(cuda):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):                 # mixed dtypes
         fa.flash_attention(q, k.bfloat16(), v)
-    qd, kd, vd = _att_inputs(cuda, 1, 8, 8, 4, 2, 48, torch.float32, 3)
-    with pytest.raises(ValueError, match="head dim"):
+    qd, kd, vd = _att_inputs(cuda, 1, 8, 8, 4, 2, 320, torch.float32, 3)
+    with pytest.raises(ValueError, match="head dim"):   # above 256
         fa.flash_attention(qd, kd, vd)
     with pytest.raises(ValueError, match="contiguous"):  # (B, H, S, dh)
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),

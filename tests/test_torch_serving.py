@@ -394,10 +394,10 @@ def test_chip_smoke_recurrent_phases_on_cpu():
     import chip_smoke
     from repro_torch.configs import get_smoke
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
-        m, launches = chip_smoke.phase_recurrent_serving(
+        m, launches = chip_smoke.phase_batch_serving(
             get_smoke(arch), device="cpu", batch=2, prompt_len=70, gen=3)
         assert m["generated"] == 6 and m["logits_finite"]
         assert launches == {"rglru_scan": 0, "wkv6": 0,
                             "flash_attention": 0}
-        row = chip_smoke.phase_recurrent_parity(arch, device="cpu")
+        row = chip_smoke.phase_smoke_parity(arch, device="cpu")
         assert row["matched_whole"] == 3 and row["max_diff"] == 0.0
