@@ -34,7 +34,11 @@ non-zero before printing a result):
                 and at the new archs' prefills: (f) stablelm-3b's dh 80,
                 (g) granite-20b's 48:1 MQA, (h) mixtral-8x7b's 4608
                 positions past its 4096 window, (i) llava's 2 x 3008,
-                (j) deepseek-moe-16b's 8 x 512 bucket; the RG-LRU scan at the recurrentgemma-2b prefill, at a
+                (j) deepseek-moe-16b's 8 x 512 bucket, and whisper-tiny's
+                non-causal calls over 1500 frames (a ragged last key
+                tile): (k) the encoder (8, 1500 x 1500), (l) cross
+                attention (8, 64 x 1500) and (l') the same in float32;
+                the RG-LRU scan at the recurrentgemma-2b prefill, at a
                 ragged S = 1000 and in float32, bit for bit; the WKV
                 recurrence at the rwkv6-7b prefill, from a nonzero
                 state, and in float32; the others within the
@@ -44,9 +48,10 @@ non-zero before printing a result):
                 time and one library call's where there is one (SDPA's
                 fastest pinned backend, named, under the explicit mask
                 and, where the window covers S, under ``is_causal``; and
-                the kernel's time over the faster); the vote and
-                RG-LRU kernels' device time also from 20 launches in a
-                CUDA graph (their event times read the host's).
+                the kernel's time over the faster); the vote,
+                attention and RG-LRU kernels' device time also from 20
+                launches in a CUDA graph (a small call's event time reads
+                the host's).
   3. round    : the one-shot FedKT round at full width (Adult's size:
                 48,842 rows x 14 features; 10 parties, s=2, t=5) for RF
                 and GBDT at L0 and RF at L2, through FedKTSession on
@@ -135,13 +140,26 @@ non-zero before printing a result):
                 llava's embeddings path, and one train step of
                 deepseek-moe's smoke (loss and gradients within 1e-4,
                 AdamW parameters as in phase 9, exact K3 and N1
-                launches).
+                launches); then whisper-tiny's smoke with 100 frames,
+                streams and one train step the same way.
+  8e. whisper   : whisper-tiny (the encoder-decoder) at full width (4 + 4
+                layers, d 384; bf16, random weights): ``serve_batch`` of
+                8 x 64-token prompts with 1500 random stub frames each,
+                32 tokens (exactly 12 K3 launches a prefill, none a
+                decode step; prefill ms, median of 5; a decode step's
+                ms; tok/s; peak memory); then 8 ``make_train_step``
+                steps (AdamW, remat) of B 8 x S 128 tokens + 1500
+                frames: step ms, tokens/s, peak memory, exact K3 (20)
+                and N1 (12 calls) launches a step, finite and falling
+                losses.
   9. lm_train : the LM training path.  N1, the flash-attention
                 backward, against its plain version at phi4-mini's
                 training shape (B 4, S 512, H 24, KV 8, dh 128, bf16), a
-                gemma2-like one (window 1024 < S 2048, soft-cap 50) and
-                a float32 dh-32 one, identical run to run, timed beside
-                its bound and the backward of one SDPA call; then
+                gemma2-like one (window 1024 < S 2048, soft-cap 50), a
+                float32 dh-32 one, and whisper-tiny's non-causal (m)
+                encoder (8, 1500 x 1500) and (n) cross attention (8,
+                128 x 1500: Sq != Skv), identical run to run, timed
+                beside its bound and the backward of one SDPA call; then
                 ``launch.train.train_lm`` on phi4-mini-3.8b at full
                 width (bf16 on float32 masters, AdamW, remat, B 4 x S
                 512, 8 steps): finite, falling losses, exact K3 / N1
@@ -160,9 +178,10 @@ non-zero before printing a result):
                 --checkpoint``, streams equal to the in-memory ones.
   --profile    : device time by kernel and the device's busy share of
                 each full-width round (RF, GBDT, nn_L0, cnn_L0), of the
-                serving runs and of one recurrent prefill
-                (torch.profiler; the host-bound phases after it read
-                slower than without the flag).
+                serving runs, of one recurrent prefill, and (last) of
+                one whisper prefill (8 x 64, 1500 frames) and one
+                whisper train step (torch.profiler; the host-bound
+                phases after it read slower than without the flag).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -605,12 +624,16 @@ def phase_attention():
     granite-20b's 48 q heads on one kv head, (h) mixtral-8x7b's prefill
     past its 4096-key window, (i) llava's 2880 embeds + 128 tokens
     (S 3008) and (j) deepseek-moe-16b's
-    largest engine bucket, each at the shape its main path launches.
-    The library
+    largest engine bucket, each at the shape its main path launches;
+    then whisper-tiny's non-causal calls over 1500 frames (a ragged last
+    64-key tile): (k) the encoder's self-attention (Sq = Skv = 1500),
+    (l) cross attention (Sq 64 prompt tokens, Skv 1500) and (l') the
+    same in float32.  The library
     yardstick is SDPA's fastest backend under the explicit causal+window
     mask where there is a window, and under ``is_causal`` where the
-    window is absent or covers S (then the mask IS the causal mask);
-    ``library_ms`` is the faster of the two."""
+    window is absent or covers S (then the mask IS the causal mask), and
+    with no mask at all for the non-causal rows; ``library_ms`` is the
+    fastest."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -636,12 +659,21 @@ def phase_attention():
         ("j_deepseek_bucket", 8, 512, 16, 16, 128, torch.bfloat16, 0, 0.0,
          True),
     ]
+    # (Sq, Skv, causal) of each case: the rows above are causal prefills
+    # (Sq = Skv = S); whisper-tiny's are non-causal over 1500 frames
+    cases = [c[:2] + (c[2],) + c[2:] + (True,) for c in cases] + [
+        ("k_whisper_encoder", 8, 1500, 1500, 6, 6, 64, torch.bfloat16, 0,
+         0.0, True, False),
+        ("l_whisper_cross", 8, 64, 1500, 6, 6, 64, torch.bfloat16, 0, 0.0,
+         True, False),
+        ("l2_whisper_cross_f32", 8, 64, 1500, 6, 6, 64, torch.float32, 0,
+         0.0, True, False)]
     rows, worst = [], 0.0
-    for label, B, S, H, KV, dh, dt, window, cap, lib in cases:
+    for label, B, S, Skv, H, KV, dh, dt, window, cap, lib, causal in cases:
         q = torch.randn((B, S, H, dh), device="cuda", generator=g).to(dt)
-        k = torch.randn((B, S, KV, dh), device="cuda", generator=g).to(dt)
-        v = torch.randn((B, S, KV, dh), device="cuda", generator=g).to(dt)
-        kw = dict(causal=True, window=window, softcap=cap)
+        k = torch.randn((B, Skv, KV, dh), device="cuda", generator=g).to(dt)
+        v = torch.randn((B, Skv, KV, dh), device="cuda", generator=g).to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
         got = fa.flash_attention(q, k, v, **kw)
         again = fa.flash_attention(q, k, v, **kw)
         want = ref.attention_ref(q, k, v, **kw)
@@ -659,17 +691,22 @@ def phase_attention():
         del want
         p = fa.plan(fa.padded_head_dim(dh), dt)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        # a small call's event time is the wrapper's host time (tensor
+        # maps, allocation); 20 launches in a CUDA graph read the device
+        graph = graph_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3,
                         warmup=1)
         yardsticks = {}
         if lib:   # SDPA computes the same function only without soft-cap
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            if window:   # the causal window as an explicit mask
+            if not causal:
+                yardsticks["no_mask"] = sdpa_best(qt, kt, vt)
+            elif window:   # the causal window as an explicit mask
                 mask = ref._mask(torch.arange(S, device="cuda"), S, True,
                                  window, "cuda")
                 yardsticks["explicit_mask"] = sdpa_best(qt, kt, vt,
                                                         attn_mask=mask)
-            if not window or window >= S:
+            if causal and (not window or window >= S):
                 yardsticks["is_causal"] = sdpa_best(qt, kt, vt,
                                                     is_causal=True)
             for _, _, out in yardsticks.values():
@@ -679,15 +716,15 @@ def phase_attention():
                       default=None)
         lib_ms = None if fastest is None else fastest[0]
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        nops = 4 * B * H * valid_keys(S, S, True, window) * dh
+        nops = 4 * B * H * valid_keys(S, Skv, causal, window) * dh
         b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
         row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
-               "H": H, "KV": KV, "dh": dh,
+               "Skv": Skv, "causal": causal, "H": H, "KV": KV, "dh": dh,
                "launched_dh": fa.padded_head_dim(dh), "dtype": str(dt),
                "window": window, "softcap": cap, "max_abs_err": err,
                "tol": tol, "plan": p._asdict(), "kernel_ms": ms,
-               "plain_ms": plain,
+               "graph_ms": graph, "plain_ms": plain,
                "library_ms": lib_ms,
                "library_backend": None if fastest is None else fastest[1],
                "library_variants": {n: {"ms": y[0], "backend": y[1]}
@@ -1568,12 +1605,18 @@ def phase_smoke_parity(arch, device="cuda", prompt_len=100, gen=8,
     cpu_params = model.init(device="cpu")
     cpu_params.load_state_dict({n: t.cpu() for n, t in
                                 params.state_dict().items()})
-    prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (3, prompt_len)).astype(np.int32)
-    toks, stats = serve_batch(model, params, prompts, gen, verbose=False,
-                              keep_logits=True)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (3, prompt_len)).astype(
+        np.int32)
+    extra = {}
+    if cfg.is_encoder_decoder:     # the stubbed frontend's frames
+        extra["frames"] = rng.normal(
+            0, 1, (3, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    toks, stats = serve_batch(model, params, prompts, gen, extra=extra,
+                              verbose=False, keep_logits=True)
     ctoks, cstats = serve_batch(model, cpu_params, prompts, gen,
-                                verbose=False, keep_logits=True)
+                                extra=extra, verbose=False,
+                                keep_logits=True)
     scale = float(cstats["logits"].abs().max())
     checks = []
     for i in range(len(prompts)):
@@ -1585,8 +1628,10 @@ def phase_smoke_parity(arch, device="cuda", prompt_len=100, gen=8,
                                  f"break the parity rule: {info}")
     longer = np.concatenate([prompts, toks[:, :gen - 1]], axis=1)
     with torch.inference_mode():
-        lg, _ = model.logits(params, {"tokens": torch.as_tensor(
-            longer, device=dev)}, mode="prefill")
+        lg, _ = model.logits(params, {
+            "tokens": torch.as_tensor(longer, device=dev),
+            **{k: torch.as_tensor(v, device=dev) for k, v in extra.items()}},
+            mode="prefill")
     handoff = float((lg[:, -1] - stats["logits"][:, gen - 1]).abs().max())
     row = {"arch": cfg.name, "compared": len(checks),
            "matched_whole": sum(c["match"] for c in checks),
@@ -1860,23 +1905,221 @@ def phase_arch_parity():
     smokes at their no-drop capacity, where the handoff is exact),
     llava's embeddings path, and one train step of deepseek-moe's smoke
     card against CPU (``lm_card_vs_cpu``: loss and gradients within
-    1e-4, exact K3 and N1 launches).  Returns that step's launches."""
+    1e-4, exact K3 and N1 launches); then whisper-tiny's smoke with 100
+    frames (a ragged last key tile) through ``serve_batch`` and one
+    train step the same way.  Returns those steps' launches."""
     from repro_torch.configs import get_smoke
     for arch in NEW_ARCHS:
         cfg = get_smoke(arch)
         phase_smoke_parity(arch, cfg=no_drop(cfg) if cfg.moe else cfg,
                            tag="arch-parity")
     llava_embeds_parity()
-    return lm_card_vs_cpu("deepseek-moe-16b", steps=1)
+    runs = [lm_card_vs_cpu("deepseek-moe-16b", steps=1)]
+    whisper = whisper_smoke()
+    phase_smoke_parity("whisper-tiny", cfg=whisper, prompt_len=40,
+                       tag="arch-parity")
+    runs.append(lm_card_vs_cpu("whisper-tiny", steps=1, cfg=whisper))
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def whisper_smoke():
+    """whisper-tiny's smoke with 100 frames beside the reference's 64:
+    1500's last 64-key tile is ragged, and so is 100's."""
+    from repro_torch.configs import get_smoke
+    return get_smoke("whisper-tiny").replace(encoder_seq_len=100,
+                                             frontend_embeds=100)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8e: whisper-tiny, the encoder-decoder, at full width
+# ---------------------------------------------------------------------------
+def whisper_model(seed=0):
+    """(cfg, Model, serving module): whisper-tiny at full width (4 + 4
+    layers, d 384, 6 heads of 64, vocab 51,865), bf16, random weights
+    from a seeded generator on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("whisper-tiny")
+    model = Model(cfg)
+    return cfg, model, model.init(
+        torch.Generator(device="cuda").manual_seed(seed))
+
+
+def whisper_serve(smi, batch=8, prompt_len=64, gen=32, reps=5):
+    """whisper_serve: ``serve_batch`` of ``batch`` rows of ``prompt_len``
+    prompt tokens with 1500 random stub frames each, ``gen`` tokens.
+    The timed run's launches are counted from 0: its one prefill must
+    launch K3 once an encoder layer and twice a decoder layer (self and
+    cross attention: 12), its decode steps none (one query row takes the
+    plain path).  Then ``reps`` runs of one token, whose prefill walls
+    give the median and whose one decode step each gives one step's
+    wall, each with its own 12 launches.  Every stream completes, every
+    logit is finite.  Returns (row, K3 launches, a closure that runs one
+    prefill, for ``--profile``)."""
+    from repro_torch.core.distill import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.serving import serve_batch
+    cfg, model, params = whisper_model()
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(
+        np.int32)
+    frames = torch.as_tensor(rng.normal(
+        0, 1, (batch, cfg.encoder_seq_len, cfg.d_model))).to(
+            L.dtype_of(cfg.dtype)).cuda()
+    extra = {"frames": frames}
+    serve_batch(model, params, prompts[:, :8], 2, extra=extra,
+                verbose=False)                                  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_prefill = cfg.num_encoder_layers + 2 * cfg.num_layers
+    fa.launches = 0
+    toks, stats = serve_batch(model, params, prompts, gen, extra=extra,
+                              verbose=False, keep_logits=True)
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(stats["logits"]).all())
+    reruns, rerun_launches = [], []
+    for _ in range(reps):
+        fa.launches = 0
+        reruns.append(serve_batch(model, params, prompts, 1, extra=extra,
+                                  verbose=False)[1])
+        rerun_launches.append(fa.launches)
+    runs = [r["prefill_s"] * 1e3 for r in reruns]
+    steps = [r["decode_s"] * 1e3 for r in reruns]
+    row = {"arch": cfg.name, "layers": [cfg.num_encoder_layers,
+                                        cfg.num_layers],
+           "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
+           "frames": cfg.encoder_seq_len, "gen": gen,
+           "prefill_ms": stats["prefill_s"] * 1e3, "prefill_ms_runs": runs,
+           "prefill_ms_median": float(np.median(runs)),
+           "decode_step_ms_runs": steps,
+           "decode_step_ms_median": float(np.median(steps)),
+           "decode_s": stats["decode_s"],
+           "decode_tok_per_s": stats["tok_per_s"],
+           "generated": stats["generated"], "peak_mem_bytes": peak,
+           "k3_launches": launches, "k3_per_prefill": per_prefill,
+           "k3_in_decode_steps": launches - per_prefill,
+           "k3_launches_reruns": rerun_launches, "logits_finite": finite,
+           "card": smi}
+    log("[whisper-serve] " + json.dumps(row))
+    if launches != per_prefill or set(rerun_launches) != {per_prefill}:
+        raise AssertionError(f"whisper serving launched K3 {launches} "
+                             f"times ({rerun_launches} in the reruns), not "
+                             f"{per_prefill} a prefill and 0 a decode step")
+    if toks.shape != (batch, gen) or stats["generated"] != batch * gen:
+        raise AssertionError("whisper: not every stream completed")
+    if not finite or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("whisper: non-finite logits or a token out "
+                             "of the vocabulary")
+    prefill = make_prefill_step(model)
+    batch_in = {"tokens": torch.as_tensor(prompts, device="cuda"),
+                "frames": frames}
+    return row, launches + sum(rerun_launches), \
+        lambda: prefill(params, batch_in)
+
+
+# whisper-tiny's peak learning rate (arXiv:2212.04356, its training
+# hyperparameters), and the ids its synthetic transcripts are drawn from:
+# a sparse bigram stream over the whole 51,865-id vocabulary has a flat
+# unigram distribution that 8 steps of 1,024 tokens cannot learn, so the
+# loss could not fall; over the first 4,096 ids it has the skew real
+# transcripts have
+WHISPER_LR = 1.5e-3
+WHISPER_DATA_VOCAB = 4096
+
+
+def whisper_train(smi, batch=8, seq=128, steps=8):
+    """whisper_train: ``make_train_step`` at full width (bf16 compute on
+    float32 masters, AdamW, remat), ``batch`` x ``seq`` decoder tokens
+    plus 1500 random frames a row, ``steps`` steps, warmup 2, lr
+    ``WHISPER_LR``, tokens from a synthetic bigram stream over
+    ``WHISPER_DATA_VOCAB`` ids.
+    Step walls (host clock; ``float(loss)`` synchronises), tokens/s over
+    the median of the last 6, peak memory, and the launches of the run
+    (counted from 0 just before it): per step K3 4 + 2 x 8 and N1 4 + 8
+    calls (three kernels each).  Finite losses, the last below the
+    first.  Returns (row, launches, a closure that runs one step, for
+    ``--profile``)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.distill import make_train_step
+    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.tree_util import tree_leaves
+    cfg, model, module = whisper_model()
+    params = transformer.tree_of(module)
+    del module
+    tcfg = TrainConfig(batch_size=batch, seq_len=seq, steps=steps,
+                       warmup_steps=2, learning_rate=WHISPER_LR)
+    step, opt = make_train_step(model, tcfg)
+    state = opt.init(params)
+    data = synthetic.tokens(n_seqs=2 * batch * steps, seq_len=seq + 1,
+                            vocab=WHISPER_DATA_VOCAB, seed=1)["train"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = []
+    for b in TokenDataset(data).batches(batch, steps=steps):
+        b = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        b["frames"] = torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
+                                  generator=g, device="cuda")
+        batches.append(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    got = _lm_counts()
+    k3, n1 = train_launches(cfg)
+    want = {"flash_attention": k3 * steps,
+            "flash_attention_backward": fa.BWD_KERNELS * n1 * steps,
+            "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
+    med = float(np.median(step_ms[-6:]))
+    row = {"arch": cfg.name, "params": sum(t.numel() for t in
+                                           tree_leaves(params)),
+           "dtype": cfg.dtype, "B": batch, "S": seq,
+           "frames": cfg.encoder_seq_len, "steps": steps,
+           "lr": WHISPER_LR, "data_vocab": WHISPER_DATA_VOCAB,
+           "losses": losses,
+           "step_ms": step_ms, "step_ms_median_last6": med,
+           "tokens_per_s": batch * seq / med * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": {k: v // steps for k, v in got.items()},
+           "card": smi}
+    log("[whisper-train] " + json.dumps(row))
+    if got != want:
+        raise AssertionError(f"whisper train launches {got} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite whisper training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper loss did not fall: {losses}")
+    return row, got, lambda: step(params, state, batches[0])
+
+
+def phase_whisper(smi):
+    """Phase 8e: whisper_serve, then whisper_train.  Returns (rows, the
+    main path's launches, [(name, closure)] for ``--profile``)."""
+    serve_row, k3, prefill = whisper_serve(smi)
+    torch.cuda.empty_cache()
+    train_row, counts, train_step = whisper_train(smi)
+    torch.cuda.empty_cache()
+    counts = dict(counts, flash_attention=counts["flash_attention"] + k3)
+    return [serve_row, train_row], counts, [
+        ("prefill_whisper-tiny_8x64", prefill),
+        ("train_step_whisper-tiny_8x128", train_step)]
 
 
 # ---------------------------------------------------------------------------
 # Phase 9: LM training (lm_train)
 # ---------------------------------------------------------------------------
-def sdpa_backward_best(q, k, v, do, want, tol):
+def sdpa_backward_best(q, k, v, do, want, tol, causal=True):
     """The library yardstick of the attention backward: autograd of one
-    ``scaled_dot_product_attention`` call (``is_causal``) at the same
-    shape, its backward alone (CUDA events over repeated
+    ``scaled_dot_product_attention`` call (``is_causal`` = ``causal``)
+    at the same shape, its backward alone (CUDA events over repeated
     ``autograd.grad`` on one retained graph), on the fastest of SDPA's
     backends that take the call, each pinned with ``sdpa_kernel``, as
     ``sdpa_best`` times the forward: (ms, backend, {backend: ms} of
@@ -1888,8 +2131,8 @@ def sdpa_backward_best(q, k, v, do, want, tol):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    B, H, S, dh = qt.shape
-    KV = kt.shape[1]
+    B, H, _, dh = qt.shape
+    KV, Skv = kt.shape[1], kt.shape[2]
     g = do.transpose(1, 2)
     times = {}
     for name in SDPA_BACKENDS:
@@ -1903,7 +2146,7 @@ def sdpa_backward_best(q, k, v, do, want, tol):
             with sdpa_kernel([backend]):
                 try:
                     out = F.scaled_dot_product_attention(
-                        *leaves, is_causal=True,
+                        *leaves, is_causal=causal,
                         **({} if expand else {"enable_gqa": True}))
                     grads = torch.autograd.grad(out, leaves, g,
                                                 retain_graph=True)
@@ -1914,7 +2157,7 @@ def sdpa_backward_best(q, k, v, do, want, tol):
                     out, leaves, g, retain_graph=True), reps=10)
             dq, dk, dv = grads
             if expand:
-                dk, dv = (t.reshape(B, KV, H // KV, S, dh).sum(2)
+                dk, dv = (t.reshape(B, KV, H // KV, Skv, dh).sum(2)
                           for t in (dk, dv))
             label = name.lower() + ("+expanded_kv" if expand else "")
             for a, w in zip((dq, dk, dv), want):
@@ -1935,8 +2178,11 @@ def sdpa_backward_best(q, k, v, do, want, tol):
 def lm_backward_rows():
     """N1, the flash-attention backward, against
     ``ref.attention_backward_plain`` on the card at phi4-mini's training
-    shape, a gemma2-like one (window shorter than S, soft-cap 50) and a
-    float32 dh-32 one: within the forward's tolerances of the largest
+    shape, a gemma2-like one (window shorter than S, soft-cap 50), a
+    float32 dh-32 one, and whisper-tiny's non-causal ones over 1500
+    frames: (m) the encoder (Sq = Skv = 1500) and (n) cross attention
+    (N1b: Sq 128 decoder tokens, Skv 1500): within the forward's
+    tolerances of the largest
     |gradient|, identical run to run; kernel, plain and library times
     beside the bound.  The forward's row LSE is held to
     ``ref.attention_plain``'s, and N1's gradients (from K3's o and LSE)
@@ -1947,17 +2193,23 @@ def lm_backward_rows():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(9)
-    cases = [  # label, B, S, H, KV, dh, dtype, window, softcap
-        ("phi4_train", 4, 512, 24, 8, 128, torch.bfloat16, 0, 0.0),
-        ("gemma2_like", 1, 2048, 32, 16, 128, torch.bfloat16, 1024, 50.0),
-        ("f32_dh32", 2, 384, 8, 2, 32, torch.float32, 64, 30.0)]
+    cases = [  # label, B, Sq, Skv, H, KV, dh, dtype, window, softcap, causal
+        ("phi4_train", 4, 512, 512, 24, 8, 128, torch.bfloat16, 0, 0.0,
+         True),
+        ("gemma2_like", 1, 2048, 2048, 32, 16, 128, torch.bfloat16, 1024,
+         50.0, True),
+        ("f32_dh32", 2, 384, 384, 8, 2, 32, torch.float32, 64, 30.0, True),
+        ("m_whisper_encoder", 8, 1500, 1500, 6, 6, 64, torch.bfloat16, 0,
+         0.0, False),
+        ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, torch.bfloat16, 0, 0.0,
+         False)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
-    for label, B, S, H, KV, dh, dt, window, cap in cases:
+    for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
                  .to(dt) for _ in range(2))
-        k, v = (torch.randn((B, S, KV, dh), device="cuda", generator=g)
+        k, v = (torch.randn((B, Skv, KV, dh), device="cuda", generator=g)
                 .to(dt) for _ in range(2))
-        kw = dict(causal=True, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap)
         o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
         if not bool(torch.isfinite(lse).all()):
             raise AssertionError(f"a training row sees no key at {label}")
@@ -1994,7 +2246,7 @@ def lm_backward_rows():
             whole_rel = max(whole_rel, e_whole / s_whole)
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         lib = None if cap or window else \
-            sdpa_backward_best(q, k, v, do, got, tol)
+            sdpa_backward_best(q, k, v, do, got, tol, causal=causal)
         del again, want, whole, o_plain, lse_plain
         ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do,
                                                          lse, **kw), reps=10)
@@ -2003,11 +2255,12 @@ def lm_backward_rows():
         e = q.element_size()
         nbytes = (e * (3 * q.numel() + 2 * (k.numel() + v.numel())
                        + o.numel()) + 4 * lse.numel())
-        nops = 10 * B * H * valid_keys(S, S, True, window) * dh
+        nops = 10 * B * H * valid_keys(S, Skv, causal, window) * dh
         b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
         row = {"kernel": "flash_attention_backward", "shape": label,
-               "B": B, "S": S, "H": H, "KV": KV, "dh": dh, "dtype": str(dt),
+               "B": B, "S": S, "Skv": Skv, "causal": causal, "H": H,
+               "KV": KV, "dh": dh, "dtype": str(dt),
                "window": window, "softcap": cap, "max_abs_err": err,
                "max_rel_err": rel, "tol": tol,
                "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dt],
@@ -2015,8 +2268,8 @@ def lm_backward_rows():
                "kernel_ms": ms, "plain_ms": plain,
                "library_ms": None if lib is None else lib[0],
                "library": None if lib is None else
-               "autograd of SDPA (is_causal), backward only, fastest "
-               "backend",
+               f"autograd of SDPA (is_causal={causal}), backward only, "
+               "fastest backend",
                "library_backend": None if lib is None else lib[1],
                "library_variants": None if lib is None else lib[2],
                "kernel_over_library": None if lib is None else ms / lib[0],
@@ -2083,8 +2336,9 @@ def lm_full_train(cfg, smi, steps=8):
     got = _lm_counts()
     L = cfg.num_layers
     from repro_torch.kernels import flash_attention as fa
-    want = {"flash_attention": 2 * L * steps,
-            "flash_attention_backward": fa.BWD_KERNELS * L * steps,
+    k3, n1 = train_launches(cfg)
+    want = {"flash_attention": k3 * steps,
+            "flash_attention_backward": fa.BWD_KERNELS * n1 * steps,
             "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
     if got != want:
         raise AssertionError(f"train launches {got} != {want}")
@@ -2132,10 +2386,23 @@ def adam_free_bound(lrs, b1=0.9, b2=0.999):
     return total
 
 
-def lm_card_vs_cpu(arch, steps=5):
+def train_launches(cfg):
+    """(K3 launches, N1 calls) of one remat train step of ``cfg``: a
+    decoder's every layer is attention (K3 in the forward and again in
+    the recompute); an encoder-decoder adds one K3 and one N1 call an
+    encoder layer (not recomputed), and its decoder layers run two
+    attentions each (self and cross)."""
+    if cfg.is_encoder_decoder:
+        E, L = cfg.num_encoder_layers, cfg.num_layers
+        return E + 2 * 2 * L, E + 2 * L
+    return 2 * cfg.num_layers, cfg.num_layers
+
+
+def lm_card_vs_cpu(arch, steps=5, cfg=None):
     """``make_train_step`` on the card and on the CPU from one init (the
-    port's, drawn on the CPU and moved) at ``arch``'s smoke widths in
-    float32.  With AdamW (the main path's optimizer): losses within
+    port's, drawn on the CPU and moved) at ``arch``'s smoke widths (or
+    ``cfg``'s) in float32; an encoder-decoder's batches carry seeded
+    random frames.  With AdamW (the main path's optimizer): losses within
     1e-4 relative and the first step's gradients within 1e-4 of each
     leaf's largest |gradient|.  AdamW's first step moves an element by
     the learning rate times the SIGN of its gradient, so an element whose
@@ -2160,14 +2427,20 @@ def lm_card_vs_cpu(arch, steps=5):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model
     from repro_torch.tree_util import flatten_tree, tree_map
-    cfg = get_smoke(arch).replace(dtype="float32", param_dtype="float32")
+    cfg = (cfg or get_smoke(arch)).replace(dtype="float32",
+                                           param_dtype="float32")
     model = Model(cfg)
     init = model.init_tree(prng.PRNGKey(0), "cpu")
     data = synthetic.tokens(n_seqs=32, seq_len=97, vocab=cfg.vocab_size,
                             seed=2)["train"]
+    frames = np.random.default_rng(3).normal(
+        0, 1, (steps, 4, cfg.encoder_seq_len, cfg.d_model)).astype(
+            np.float32) if cfg.is_encoder_decoder else None
 
     def batches(dev):
-        for b in TokenDataset(data, 0).batches(4, steps=steps):
+        for i, b in enumerate(TokenDataset(data, 0).batches(4, steps=steps)):
+            if frames is not None:
+                b = dict(b, frames=frames[i])
             yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
 
     def first_grads(dev):
@@ -2249,9 +2522,9 @@ def lm_card_vs_cpu(arch, steps=5):
             or chosen["free_worst"] > 1.0:
         raise AssertionError(f"card != CPU training at {arch}: {row}")
     # each step a forward and its recompute (remat) and a backward a layer
-    L = cfg.num_layers
-    want = {"flash_attention": 2 * L * steps,
-            "flash_attention_backward": fa.BWD_KERNELS * L * steps,
+    k3, n1 = train_launches(cfg)
+    want = {"flash_attention": k3 * steps,
+            "flash_attention_backward": fa.BWD_KERNELS * n1 * steps,
             "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
     if counts != want:
         raise AssertionError(f"card training launches {counts} != {want}")
@@ -2480,6 +2753,15 @@ def phase_lm_train(smi, profile=False):
     return rows, err, rel, launches
 
 
+def shape_rows(rows):
+    """Every shape a kernel was held and timed at, for its entry in the
+    kernels line (the entry's own numbers are its first row's)."""
+    keys = ("shape", "kernel_ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")
+    return [{("ms" if k == "kernel_ms" else k): r.get(k) for k in keys}
+            for r in rows]
+
+
 def main():
     profile_rounds = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -2577,6 +2859,10 @@ def main():
     launches["flash_attention"] += arch_train["flash_attention"]
     torch.cuda.synchronize()
     log(f"[phase] arch_parity ok at {time.time() - t_start:.1f} s")
+    _, whisper, whisper_profiles = phase_whisper(smi)
+    launches["flash_attention"] += whisper["flash_attention"]
+    torch.cuda.synchronize()
+    log(f"[phase] whisper ok at {time.time() - t_start:.1f} s")
 
     n1_rows, n1_err, n1_rel, lm = phase_lm_train(smi,
                                                  profile=profile_rounds)
@@ -2584,6 +2870,11 @@ def main():
         launches[kname] += lm[kname]
     torch.cuda.synchronize()
     log(f"[phase] lm_train ok at {time.time() - t_start:.1f} s")
+    if profile_rounds:   # last: a profiler session slows later host timing
+        for name, fn in whisper_profiles:
+            _profiled(name, fn)
+        log(f"[phase] whisper profile ok at {time.time() - t_start:.1f} s")
+    del whisper_profiles
 
     v = next(r for r in vote_rows if r["U"] == 2 and r["noise"])
     h = hist_rows[0]
@@ -2611,7 +2902,7 @@ def main():
          "launches": launches["flash_attention"], "max_abs_err": att_err,
          "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
          "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-         "library_ms": a["library_ms"]},
+         "library_ms": a["library_ms"], "shapes": shape_rows(att_rows)},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:48",
@@ -2633,11 +2924,13 @@ def main():
          "replaces": "src/repro/kernels/ops.py:97",
          "tpu_kernel": None,
          "launches": lm["flash_attention_backward"]
-         + arch_train["flash_attention_backward"],
+         + arch_train["flash_attention_backward"]
+         + whisper["flash_attention_backward"],
          "max_abs_err": n1_err, "max_rel_err": n1_rel,
          "ms": n1["kernel_ms"],
          "plain_ms": n1["plain_ms"], "bound_ms": n1["bound_ms"],
-         "bound_by": n1["bound_by"], "library_ms": n1["library_ms"]},
+         "bound_by": n1["bound_by"], "library_ms": n1["library_ms"],
+         "shapes": shape_rows(n1_rows)},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -3,10 +3,11 @@ arrays + a JSON manifest, in the reference's file format.
 
 Each leaf is saved under its '/'-joined key path (``flatten_tree``), and
 ``<path>.json`` records the step, the metrics and the sorted leaf paths,
-so either package restores the other's files.  A decoder LM is saved in
-the reference's own parameter layout (``convert.lm_params_to_reference``:
-periods stacked on a leading axis) and comes back through
-``convert.lm_params_from_reference`` (a serving ``Transformer``) or
+so either package restores the other's files.  An LM is saved in the
+reference's own parameter layout (``convert.lm_params_to_reference``:
+periods, or an encoder-decoder's encoder and decoder layers, stacked on
+a leading axis) and comes back through
+``convert.lm_params_from_reference`` (a serving module) or
 ``convert.lm_tree_from_reference`` (float32 training masters).
 """
 from __future__ import annotations

@@ -1,8 +1,7 @@
-"""--arch <id> registry (``repro.configs.registry``) for the decoder
-archs.  ``get_config(id)`` returns the full-scale
-ModelConfig, ``get_smoke(id)`` the reduced same-family variant the CPU
-tests use.  An arch of the reference that is not ported yet raises a
-KeyError that says so."""
+"""--arch <id> registry (``repro.configs.registry``).  ``get_config(id)``
+returns the full-scale ModelConfig, ``get_smoke(id)`` the reduced
+same-family variant the CPU tests use.  Every arch of the reference is
+ported (``NOT_PORTED`` is empty); an unknown id raises a KeyError."""
 from __future__ import annotations
 
 import importlib
@@ -11,21 +10,22 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
-    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
-    "gemma2-27b":     "repro_torch.configs.gemma2_27b",
-    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
-    "rwkv6-7b":       "repro_torch.configs.rwkv6_7b",
-    "mixtral-8x7b":   "repro_torch.configs.mixtral_8x7b",
-    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
-    "stablelm-3b":    "repro_torch.configs.stablelm_3b",
-    "granite-20b":    "repro_torch.configs.granite_20b",
+    "phi4-mini-3.8b":        "repro_torch.configs.phi4_mini_3_8b",
+    "mixtral-8x7b":          "repro_torch.configs.mixtral_8x7b",
+    "gemma2-27b":            "repro_torch.configs.gemma2_27b",
+    "recurrentgemma-2b":     "repro_torch.configs.recurrentgemma_2b",
     "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "stablelm-3b":           "repro_torch.configs.stablelm_3b",
+    "deepseek-moe-16b":      "repro_torch.configs.deepseek_moe_16b",
+    "whisper-tiny":          "repro_torch.configs.whisper_tiny",
+    "rwkv6-7b":              "repro_torch.configs.rwkv6_7b",
+    "granite-20b":           "repro_torch.configs.granite_20b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
 
-# the reference's encoder-decoder arch (cross attention, models/encdec.py)
-NOT_PORTED = ("whisper-tiny",)
+# archs of the reference that the port cannot build yet
+NOT_PORTED: tuple = ()
 
 
 def _module(arch_id: str):

@@ -54,11 +54,12 @@ def _requiring_grad(tree):
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     """(train_step, optimizer).  ``train_step(params, opt_state, batch)``
     -> (params, opt_state, {"loss", "grad_norm", "lr"}), ``params`` a
-    float32 tree and ``batch`` {"tokens", "labels"[, "mask"]} tensors on
-    its device.  ``tcfg.microbatches`` m > 1 splits the batch into m
-    row blocks and averages their losses and gradients, taken with
-    respect to ONE cast copy of the parameters (as the reference, which
-    accumulates in ``cfg.dtype`` and promotes to float32 once)."""
+    float32 tree and ``batch`` {"tokens", "labels"[, "mask"][, "frames"
+    or "embeds"]} tensors on its device.  ``tcfg.microbatches`` m > 1
+    splits every entry of the batch into m row blocks and averages
+    their losses and gradients, taken with respect to ONE cast copy of
+    the parameters (as the reference, which accumulates in
+    ``cfg.dtype`` and promotes to float32 once)."""
     opt = get_opt(tcfg.optimizer, weight_decay=tcfg.weight_decay)
     sched = warmup_cosine(tcfg.learning_rate, tcfg.warmup_steps,
                           max(tcfg.steps, 1))

@@ -282,8 +282,8 @@ class LMLearner:
     ``predict`` returns one vocab id per token, flattened to (N*S,),
     which is exactly the (t, T) layout ``teacher_vote`` and
     ``consistent_vote`` consume.  A state is a float32 parameter tree
-    (``models.transformer``) on ``device``; a serving ``Transformer``
-    predicts too.
+    (``models.transformer``) on ``device``; a serving module predicts
+    too.
 
     PRNG contract: LM training randomness is owned by ``tcfg.seed``
     (init, split for split as the reference's ``Model.init``) and
@@ -328,8 +328,8 @@ class LMLearner:
         return X.astype(np.int32)
 
     def _params(self, state, dev):
-        from repro_torch.models.transformer import Transformer
-        return state if isinstance(state, Transformer) else D.put(state, dev)
+        return state if isinstance(state, torch.nn.Module) \
+            else D.put(state, dev)
 
     def fit(self, key, X, y=None):
         from repro_torch.data.pipeline import TokenDataset

@@ -132,6 +132,18 @@ def fit_trees_gini(xb, y, w, feat_mask, *, depth, num_classes,
     return split_feat, split_bin, leaf
 
 
+def fit_tree_gini(xb, y, w, feat_mask, *, depth, num_classes,
+                  num_bins=NUM_BINS):
+    """One gini tree (the reference's single fit): xb (N, F) int32
+    bins; y (N,) labels; w (N,) f32 sample weights; feat_mask (F,) f32
+    in {0, 1}.  Returns (split_feat, split_bin, leaf), the batched fit
+    at a stack of one."""
+    tree = fit_trees_gini(xb[None], y[None], w[None], feat_mask[None],
+                          depth=depth, num_classes=num_classes,
+                          num_bins=num_bins)
+    return tuple(a[0] for a in tree)
+
+
 def tree_apply(tree, xb):
     """Leaf rows of every sample under every tree.  tree: (split_feat
     (G, I), split_bin (G, I), leaf (G, L, C)); xb: (Gf, N, F) with G a
@@ -154,6 +166,15 @@ def tree_apply(tree, xb):
 # ---------------------------------------------------------------------------
 # Random forest
 # ---------------------------------------------------------------------------
+def fit_forest(xb, y, w, fm, *, depth, num_classes, num_bins=NUM_BINS):
+    """One forest (the reference's ``vmap`` of ``fit_tree_gini``): xb
+    (N, F) bins shared by its T trees; w (T, N) per-tree sample weights;
+    fm (T, F) feature masks.  Returns (split_feat, split_bin, leaf) with
+    a leading T axis."""
+    return fit_trees_gini(xb[None], y[None], w, fm, depth=depth,
+                          num_classes=num_classes, num_bins=num_bins)
+
+
 def fit_forest_stacked(X, edges, y, w, fm, *, depth, num_classes,
                        num_bins=NUM_BINS):
     """k forests of T trees as one batched fit.  X: (k, M, F) f32 rows
@@ -251,6 +272,24 @@ def fit_trees_gh(xb, g, h, *, depth, num_bins=NUM_BINS, lam=1.0):
     return split_feat, split_bin, leaf
 
 
+def fit_tree_gh(xb, g, h, *, depth, num_bins=NUM_BINS, lam=1.0):
+    """One regression tree on gradients/hessians (the reference's
+    single fit): xb (N, F), g/h (N,).  Returns tree arrays with scalar
+    leaves (2^depth, 1), the batched fit at a stack of one."""
+    tree = fit_trees_gh(xb[None], g[None], h[None], depth=depth,
+                        num_bins=num_bins, lam=lam)
+    return tuple(a[0] for a in tree)
+
+
+def fit_gbdt(xb, y, w, lr, *, num_rounds, depth, num_bins=NUM_BINS):
+    """One GBDT's boosting loop (the reference's single fit): xb (N, F)
+    bins, y (N,), w (N,) masks the gradients/hessians.  Returns
+    (split_feat, split_bin, leaf) stacked over rounds (R, ...)."""
+    trees = _boost(xb[None], y[None], w[None], lr, num_rounds=num_rounds,
+                   depth=depth, num_bins=num_bins)
+    return tuple(a[0] for a in trees)
+
+
 def fit_gbdt_stacked(X, edges, y, w, lr, *, num_rounds, depth,
                      num_bins=NUM_BINS):
     """k GBDTs as one batched fit.  X: (k, M, F) rows padded to a shared
@@ -258,7 +297,12 @@ def fit_gbdt_stacked(X, edges, y, w, lr, *, num_rounds, depth,
     gradients/hessians, zero on padding rows, so padding never changes
     a split or leaf.  Returns (split_feat, split_bin, leaf) shaped
     (k, num_rounds, ...)."""
-    xb = binize(X, edges)
+    return _boost(binize(X, edges), y, w, lr, num_rounds=num_rounds,
+                  depth=depth, num_bins=num_bins)
+
+
+def _boost(xb, y, w, lr, *, num_rounds, depth, num_bins):
+    """The boosting loop of k GBDTs on binned rows xb (k, M, F)."""
     yf = y.to(torch.float32)
     lr = torch.tensor(lr, dtype=torch.float32, device=xb.device)
     logits = torch.zeros(yf.shape, dtype=torch.float32, device=xb.device)

@@ -17,9 +17,13 @@
 //   dQ = dS K · scale,   dK = dS^T Q · scale
 //
 // with the group's q heads summed into their kv head (GQA).  Masks: the
-// causal one, a sliding window, keys past S; q_offset is 0 and Sq = Skv
-// (training).  A row that sees no key has lse = +inf from the forward, so
-// its P is 0 and its dQ is 0, consistent with the forward's 0 output.
+// causal one, a sliding window, keys past Skv; q_offset is 0.  q, o, dO,
+// lse and D have Sq rows, k, v, dK and dV Skv rows: Sq = Skv for
+// self-attention (training), and Sq != Skv for an encoder-decoder's cross
+// attention, which is non-causal (a causal mask between two sequences
+// would need an offset, and the reference gives it none).  A row that
+// sees no key has lse = +inf from the forward, so its P is 0 and its dQ
+// is 0, consistent with the forward's 0 output.
 //
 // What bounds it on the H100: at phi4-mini's training shape (B 4, S 512,
 // H 24, KV 8, dh 128, bf16, causal) the inputs and outputs are about 44
@@ -33,15 +37,17 @@
 // Design: three launches, no atomics anywhere, every sum in one fixed
 // order, so the gradients are identical run to run.
 //  1. bwd_dot: D, one warp a (b, s, h) row.
-//  2. bwd_dkdv: one CTA owns one 64-key tile of one kv head of one batch
-//     row.  It keeps K and V in shared memory and dK, dV in registers,
-//     and walks every q head of its group and every 64-row query tile the
-//     mask lets see its keys; for each it stages Q, dO, lse and D,
+//  2. bwd_dkdv: one CTA owns one 64-key tile (of ceil(Skv / 64)) of one
+//     kv head of one batch row.  It keeps K and V in shared memory and dK,
+//     dV in registers, and walks every q head of its group and every
+//     64-row query tile (of ceil(Sq / 64)) the mask lets see its keys;
+//     for each it stages Q, dO, lse and D,
 //     computes S and dP (a 16 x 16 thread grid, 4 x 4 scores a thread),
 //     writes P and dS to shared memory and adds P^T dO and dS^T Q.
-//  3. bwd_dq: one CTA owns one 64-row query tile of one q head; it walks
-//     the key tiles the mask lets through, recomputes S, P, dP and dS
-//     the same way and adds dS K.
+//  3. bwd_dq: one CTA owns one 64-row query tile (of ceil(Sq / 64)) of
+//     one q head; it walks the key tiles (of ceil(Skv / 64)) the mask
+//     lets through, recomputes S, P, dP and dS the same way and adds
+//     dS K.
 // Inputs are float32 or bfloat16 (converted to float32 as they are
 // staged); every product accumulates in float32; outputs are in q's type.
 #include <cuda_bf16.h>
@@ -64,9 +70,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S,
-                                        int causal, int window) {
-  bool ok = qpos < S && kpos < S;
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq,
+                                        int Skv, int causal, int window) {
+  bool ok = qpos < Sq && kpos < Skv;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
@@ -87,7 +93,7 @@ struct Smem {
 };
 
 // Stages rows [r0, r0 + 64) of one head of a (B, S, heads, DH) tensor
-// into a padded float tile; rows past S are zeros.
+// (S = Sq or Skv) into a padded float tile; rows past S are zeros.
 template <int DH, typename T>
 __device__ __forceinline__ void stage(float* dst, const T* base, int r0,
                                       int S, size_t row_step) {
@@ -108,8 +114,9 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
                                        const float* lse_s, const float* D_s,
                                        float* Ps, float* dSs, int q0, int k0,
-                                       int S, float scale, int causal,
-                                       int window, float softcap) {
+                                       int Sq, int Skv, float scale,
+                                       int causal, int window,
+                                       float softcap) {
   using M = Smem<DH>;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float sc[R][R], dp[R][R];
@@ -149,7 +156,7 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
         s = softcap * t;
         dcap = 1.f - t * t;
       }
-      const float p = visible(q0 + r, k0 + c, S, causal, window)
+      const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, window)
                           ? expf(s - lse) : 0.f;
       if (Ps != nullptr) Ps[r * M::PLD + c] = p;
       dSs[r * M::PLD + c] = p * (dp[i][j] - D) * dcap;
@@ -157,21 +164,21 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
   }
 }
 
-// lse and D of query rows [q0, q0 + 64) of head h; rows past S get lse
+// lse and D of query rows [q0, q0 + 64) of head h; rows past Sq get lse
 // +inf (P = 0) and D 0.
 __device__ __forceinline__ void stage_rows(float* lse_s, float* D_s,
                                            const float* lse,
-                                           const float* Dv, int q0, int S,
+                                           const float* Dv, int q0, int Sq,
                                            size_t row0) {
   for (int r = threadIdx.x; r < BQ; r += THREADS) {
     const int s = q0 + r;
-    lse_s[r] = s < S ? lse[row0 + s] : __int_as_float(0x7f800000);
-    D_s[r] = s < S ? Dv[row0 + s] : 0.f;
+    lse_s[r] = s < Sq ? lse[row0 + s] : __int_as_float(0x7f800000);
+    D_s[r] = s < Sq ? Dv[row0 + s] : 0.f;
   }
 }
 
 // ---------------------------------------------------------------------------
-// 1. D = rowsum(dO ∘ O), float32 (B, H, S)
+// 1. D = rowsum(dO ∘ O), float32 (B, H, Sq)
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -204,8 +211,8 @@ __global__ void __launch_bounds__(THREADS)
     bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ Dv,
-             T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-             float scale, int causal, int window, float softcap) {
+             T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
+             int KV, float scale, int causal, int window, float softcap) {
   using M = Smem<DH>;
   constexpr int C = DH / 16;  // output columns a thread
   extern __shared__ float smem[];
@@ -225,15 +232,15 @@ __global__ void __launch_bounds__(THREADS)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t q_step = (size_t)H * DH, kv_step = (size_t)KV * DH;
 
-  stage<DH>(Ks, k + (size_t)b * S * kv_step + (size_t)kvh * DH, k0, S,
+  stage<DH>(Ks, k + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
             kv_step);
-  stage<DH>(Vs, v + (size_t)b * S * kv_step + (size_t)kvh * DH, k0, S,
+  stage<DH>(Vs, v + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
             kv_step);
 
   // the query tiles that can see a key of this tile
-  const int kmax = min(k0 + BK, S) - 1;
+  const int kmax = min(k0 + BK, Skv) - 1;
   const int qt_start = causal ? k0 / BQ : 0;
-  const int q_end = window > 0 ? min(S, kmax + window) : S;
+  const int q_end = window > 0 ? min(Sq, kmax + window) : Sq;
   const int qt_end = (q_end + BQ - 1) / BQ;
 
   float dK[R][C], dV[R][C];
@@ -244,18 +251,18 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
-    const T* qb = q + (size_t)b * S * q_step + (size_t)h * DH;
-    const T* gb = dout + (size_t)b * S * q_step + (size_t)h * DH;
-    const size_t row0 = ((size_t)b * H + h) * S;
+    const T* qb = q + (size_t)b * Sq * q_step + (size_t)h * DH;
+    const T* gb = dout + (size_t)b * Sq * q_step + (size_t)h * DH;
+    const size_t row0 = ((size_t)b * H + h) * Sq;
     for (int qt = qt_start; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the last tile's P, dS, Q and dO reads are done
-      stage<DH>(Qs, qb, q0, S, q_step);
-      stage<DH>(dOs, gb, q0, S, q_step);
-      stage_rows(lse_s, D_s, lse, Dv, q0, S, row0);
+      stage<DH>(Qs, qb, q0, Sq, q_step);
+      stage<DH>(dOs, gb, q0, Sq, q_step);
+      stage_rows(lse_s, D_s, lse, Dv, q0, Sq, row0);
       __syncthreads();
-      scores<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, Ps, dSs, q0, k0, S, scale,
-                 causal, window, softcap);
+      scores<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, Ps, dSs, q0, k0, Sq, Skv,
+                 scale, causal, window, softcap);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q over the tile's 64 rows, in row order
 #pragma unroll 4
@@ -285,8 +292,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = k0 + ty + 16 * i;
-    if (s < S) {
-      const size_t off = ((size_t)b * S + s) * kv_step + (size_t)kvh * DH;
+    if (s < Skv) {
+      const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         store(dk + off + tx + 16 * c, dK[i][c] * scale);
@@ -304,8 +311,8 @@ __global__ void __launch_bounds__(THREADS)
     bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ Dv,
-           T* __restrict__ dq, int S, int H, int KV, float scale, int causal,
-           int window, float softcap) {
+           T* __restrict__ dq, int Sq, int Skv, int H, int KV, float scale,
+           int causal, int window, float softcap) {
   using M = Smem<DH>;
   constexpr int C = DH / 16;
   extern __shared__ float smem[];
@@ -323,17 +330,18 @@ __global__ void __launch_bounds__(THREADS)
   const int kvh = h / (H / KV);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t q_step = (size_t)H * DH, kv_step = (size_t)KV * DH;
-  const T* kb = k + (size_t)b * S * kv_step + (size_t)kvh * DH;
-  const T* vb = v + (size_t)b * S * kv_step + (size_t)kvh * DH;
+  const T* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
+  const T* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
 
-  stage<DH>(Qs, q + (size_t)b * S * q_step + (size_t)h * DH, q0, S, q_step);
-  stage<DH>(dOs, dout + (size_t)b * S * q_step + (size_t)h * DH, q0, S,
+  stage<DH>(Qs, q + (size_t)b * Sq * q_step + (size_t)h * DH, q0, Sq,
             q_step);
-  stage_rows(lse_s, D_s, lse, Dv, q0, S, ((size_t)b * H + h) * S);
+  stage<DH>(dOs, dout + (size_t)b * Sq * q_step + (size_t)h * DH, q0, Sq,
+            q_step);
+  stage_rows(lse_s, D_s, lse, Dv, q0, Sq, ((size_t)b * H + h) * Sq);
 
   // the key tiles rows [q0, q0 + 64) can see (the forward's key_tiles)
-  const int qhi = min(q0 + BQ, S) - 1;
-  int kt_end = (S + BK - 1) / BK;
+  const int qhi = min(q0 + BQ, Sq) - 1;
+  int kt_end = (Skv + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, qhi / BK + 1);
   const int kt_start =
       window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / BK : 0;
@@ -347,11 +355,11 @@ __global__ void __launch_bounds__(THREADS)
   for (int kt = kt_start; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the last tile's dS and K reads are done
-    stage<DH>(Ks, kb, k0, S, kv_step);
-    stage<DH>(Vs, vb, k0, S, kv_step);
+    stage<DH>(Ks, kb, k0, Skv, kv_step);
+    stage<DH>(Vs, vb, k0, Skv, kv_step);
     __syncthreads();
-    scores<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, nullptr, dSs, q0, k0, S, scale,
-               causal, window, softcap);
+    scores<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, nullptr, dSs, q0, k0, Sq, Skv,
+               scale, causal, window, softcap);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -370,8 +378,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = q0 + ty + 16 * i;
-    if (s < S) {
-      const size_t off = ((size_t)b * S + s) * q_step + (size_t)h * DH;
+    if (s < Sq) {
+      const size_t off = ((size_t)b * Sq + s) * q_step + (size_t)h * DH;
 #pragma unroll
       for (int c = 0; c < C; ++c)
         store(dq + off + tx + 16 * c, dQ[i][c] * scale);
@@ -382,8 +390,8 @@ __global__ void __launch_bounds__(THREADS)
 template <int DH, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* Dv, void* dq, void* dk,
-           void* dv, int B, int S, int H, int KV, float scale, int causal,
-           int window, float softcap, cudaStream_t stream) {
+           void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
+           int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = Smem<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dkdv<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -393,66 +401,72 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long rows = (long)B * S * H;
+  const long rows = (long)B * Sq * H;
   const int dot_blocks = (int)((rows + THREADS / 32 - 1) / (THREADS / 32));
   bwd_dot<T><<<dot_blocks, THREADS, 0, stream>>>(
-      (const T*)o, (const T*)dout, Dv, B, S, H, DH);
+      (const T*)o, (const T*)dout, Dv, B, Sq, H, DH);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 kv_grid((S + BK - 1) / BK, KV, B);
+  const dim3 kv_grid((Skv + BK - 1) / BK, KV, B);
   bwd_dkdv<DH, T><<<kv_grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, Dv,
-      (T*)dk, (T*)dv, S, H, KV, scale, causal, window, softcap);
+      (T*)dk, (T*)dv, Sq, Skv, H, KV, scale, causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 q_grid((S + BQ - 1) / BQ, H, B);
+  const dim3 q_grid((Sq + BQ - 1) / BQ, H, B);
   bwd_dq<DH, T><<<q_grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, Dv,
-      (T*)dq, S, H, KV, scale, causal, window, softcap);
+      (T*)dq, Sq, Skv, H, KV, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int launch_dtype(int bf16, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const float* lse,
-                 float* Dv, void* dq, void* dk, void* dv, int B, int S,
-                 int H, int KV, float scale, int causal, int window,
+                 float* Dv, void* dq, void* dk, void* dv, int B, int Sq,
+                 int Skv, int H, int KV, float scale, int causal, int window,
                  float softcap, cudaStream_t s) {
   if (bf16)
     return launch<DH, __nv_bfloat16>(q, k, v, o, dout, lse, Dv, dq, dk, dv,
-                                     B, S, H, KV, scale, causal, window,
-                                     softcap, s);
-  return launch<DH, float>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, S, H,
-                           KV, scale, causal, window, softcap, s);
+                                     B, Sq, Skv, H, KV, scale, causal,
+                                     window, softcap, s);
+  return launch<DH, float>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
+                           Skv, H, KV, scale, causal, window, softcap, s);
 }
 
 }  // namespace
 
-// q, o, dout, dq (B, S, H, dh); k, v, dk, dv (B, S, KV, dh); contiguous,
-// all float32 (bf16 = 0) or all bfloat16 (bf16 = 1).  lse is the
-// forward's float32 (B, H, S) row log-sum-exp; Dv a float32 (B, H, S)
-// scratch buffer for D.  scale is dh^-0.5 rounded to float32; dh is 32,
-// 64 or 128.  Launches three kernels on `stream`; returns the first
-// nonzero cudaGetLastError() (or cudaErrorInvalidValue for another dh).
+// q, o, dout, dq (B, Sq, H, dh); k, v, dk, dv (B, Skv, KV, dh);
+// contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1).  lse is
+// the forward's float32 (B, H, Sq) row log-sum-exp; Dv a float32 (B, H,
+// Sq) scratch buffer for D.  scale is dh^-0.5 rounded to float32; dh is
+// 32, 64 or 128; a causal call needs Sq == Skv.  Launches three kernels
+// on `stream`; returns the first nonzero cudaGetLastError() (or
+// cudaErrorInvalidValue for another dh, no key at all, or a causal call
+// with Sq != Skv).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* Dv, void* dq, void* dk,
-    void* dv, int B, int S, int H, int KV, int dh, int bf16, int causal,
-    int window, float softcap, float scale, void* stream) {
-  if (B == 0 || S == 0 || H == 0) return (int)cudaGetLastError();
+    void* dv, int B, int Sq, int Skv, int H, int KV, int dh, int bf16,
+    int causal, int window, float softcap, float scale, void* stream) {
+  if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
+  if (Skv == 0 || (causal && Sq != Skv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* D = (float*)Dv;
   switch (dh) {
     case 32:
-      return launch_dtype<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, S,
-                              H, KV, scale, causal, window, softcap, s);
+      return launch_dtype<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B,
+                              Sq, Skv, H, KV, scale, causal, window,
+                              softcap, s);
     case 64:
-      return launch_dtype<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, S,
-                              H, KV, scale, causal, window, softcap, s);
+      return launch_dtype<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B,
+                              Sq, Skv, H, KV, scale, causal, window,
+                              softcap, s);
     case 128:
       return launch_dtype<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B,
-                               S, H, KV, scale, causal, window, softcap, s);
+                               Sq, Skv, H, KV, scale, causal, window,
+                               softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

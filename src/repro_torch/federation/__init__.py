@@ -26,8 +26,9 @@
 from repro_torch.federation import codec  # noqa: F401
 from repro_torch.federation.aggregate import (  # noqa: F401
     StreamingVoteAggregate)
-from repro_torch.federation.bindings import (PartyBinding,  # noqa: F401
-                                             ResolvedBinding, learner_kind)
+from repro_torch.federation.bindings import (  # noqa: F401
+    PartyBinding, ResolvedBinding, learner_kind, register_learner_kind,
+    registered_learner_kinds)
 from repro_torch.federation.domain import (VoteDomain,  # noqa: F401
                                            example_domain,
                                            fingerprint_queries,

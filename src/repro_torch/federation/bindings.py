@@ -10,7 +10,7 @@ student learner.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from repro_torch.federation.domain import VoteDomain, learner_domain
 from repro_torch.federation.engines import Engine, get_engine
@@ -26,9 +26,23 @@ _KIND_BY_CLASS: Dict[str, str] = {
 }
 
 
+def register_learner_kind(cls_name: str, kind: str) -> None:
+    """Names a learner class for wire-level kind validation (a custom
+    learner only needs this if it wants a kind shorter than its class
+    name)."""
+    _KIND_BY_CLASS[cls_name] = kind
+
+
+def registered_learner_kinds() -> List[str]:
+    """Every wire-level learner kind the registry knows, sorted — what
+    a CLI prints when a roster names a kind it cannot build."""
+    return sorted(set(_KIND_BY_CLASS.values()))
+
+
 def learner_kind(learner: Any) -> str:
-    """Short kind name for a learner instance ("rf" | "gbdt" | ... |
-    the lowercased class name for unregistered learners)."""
+    """Short kind name for a learner instance ("nn" | "rf" | "gbdt" |
+    "lm" | a registered kind | the lowercased class name for
+    unregistered learners)."""
     name = type(learner).__name__
     return _KIND_BY_CLASS.get(name, name.lower())
 

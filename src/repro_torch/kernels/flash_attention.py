@@ -19,7 +19,8 @@ launch's plan, which the CUDA launcher checks against its own.
 Training: ``return_lse=True`` also returns each row's float32
 log-sum-exp (B, H, Sq), which ``flash_attention_backward`` (the
 hand-written backward, ``csrc/flash_attention_bwd.cu``) takes with q,
-k, v, o and dO to give dQ, dK and dV; ``FlashAttention`` is the
+k, v, o and dO to give dQ, dK and dV (Sq = Skv, or Sq != Skv for a
+non-causal cross attention); ``FlashAttention`` is the
 ``torch.autograd.Function`` that joins the two, and ``bwd_launches``
 counts the backward's kernel launches (three a call).  The reference has
 no backward kernel: off the TPU it differentiates its xla attention.
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 launches = 0
+NEG_INF = -1e30    # a masked score's running-max floor (csrc: NEG_INF)
 bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
 BWD_HEAD_DIMS = (32, 64, 128)
@@ -94,7 +96,7 @@ def _lib():
 
 def _bwd_lib():
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [_F, _F, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [_F, _F, _P]
     fn.restype = _I
     return fn
 
@@ -185,10 +187,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
                              softcap=0.0):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` at
-    q_offset 0 and Sq = Skv (training), given its output ``o``, its row
-    log-sum-exp ``lse`` (B, H, S) float32 and the output's gradient
-    ``do``.  CUDA tensors, contiguous; q, o, do (B, S, H, dh) and k, v
-    (B, S, KV, dh) of one dtype (float32 or bfloat16); dh at most the
+    q_offset 0, given its output ``o``, its row log-sum-exp ``lse`` (B,
+    H, Sq) float32 and the output's gradient ``do``: self-attention (Sq
+    = Skv, training) or, with ``causal=False``, cross attention (Sq !=
+    Skv).  CUDA tensors, contiguous; q, o, do (B, Sq, H, dh) and k, v
+    (B, Skv, KV, dh) of one dtype (float32 or bfloat16); dh at most the
     largest of BWD_HEAD_DIMS (padded to the next one between them).
     Every product accumulates in float32 in a fixed order (no atomics):
     the gradients are identical run to run.  The outputs are in q's
@@ -197,8 +200,8 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention_backward: q and k must be 4-d, "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
-    B, S, H, dh = q.shape
-    KV = k.shape[2]
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_backward: dtype {q.dtype} not in "
                         f"{DTYPES}")
@@ -210,33 +213,35 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention_backward: {H} heads do not split "
                          f"over {KV} kv heads")
-    if k.shape[1] != S:
-        raise ValueError(f"flash_attention_backward: needs Sq == Skv (a "
-                         f"training call), got {S} and {k.shape[1]}")
+    if causal and Skv != Sq:
+        raise ValueError(f"flash_attention_backward: a causal call needs "
+                         f"Sq == Skv (a training call), got {Sq} and {Skv}")
+    if Skv == 0:
+        raise ValueError("flash_attention_backward: no key (Skv = 0)")
     dev = q.device
-    _check(q, "q", (B, S, H, dh), q.dtype, dev)
-    _check(k, "k", (B, S, KV, dh), q.dtype, dev)
-    _check(v, "v", (B, S, KV, dh), q.dtype, dev)
-    _check(o, "o", (B, S, H, dh), q.dtype, dev)
-    _check(do, "do", (B, S, H, dh), q.dtype, dev)
+    _check(q, "q", (B, Sq, H, dh), q.dtype, dev)
+    _check(k, "k", (B, Skv, KV, dh), q.dtype, dev)
+    _check(v, "v", (B, Skv, KV, dh), q.dtype, dev)
+    _check(o, "o", (B, Sq, H, dh), q.dtype, dev)
+    _check(do, "do", (B, Sq, H, dh), q.dtype, dev)
     if (lse.device != dev or lse.dtype != torch.float32
-            or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
+            or tuple(lse.shape) != (B, H, Sq) or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_backward: lse must be a "
-                         f"contiguous float32 ({B}, {H}, {S}) tensor on "
+                         f"contiguous float32 ({B}, {H}, {Sq}) tensor on "
                          f"{dev}, got {lse.dtype} {tuple(lse.shape)} on "
                          f"{lse.device}")
     if dp != dh:
         q, k, v, o, do = _pad_heads((q, k, v, o, do), dp)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    d_rows = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    d_rows = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV,
-                 dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H,
+                 KV, dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
                  int(window), float(softcap), dh ** -0.5, stream)
     build.check(err, "flash_attention_backward")
     with build.COUNT_LOCK:
@@ -249,7 +254,8 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
 class FlashAttention(torch.autograd.Function):
     """Attention with a gradient: the forward kernel saves its row
     log-sum-exp, the backward runs ``flash_attention_backward``.  For
-    training calls (q_offset 0, Sq = Skv) on CUDA tensors."""
+    training calls on CUDA tensors: q_offset 0, and Sq = Skv unless
+    ``causal`` is False (cross attention)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):

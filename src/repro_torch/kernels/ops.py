@@ -18,7 +18,9 @@ plain version in place of a kernel on a CUDA tensor.
 
 Gradients: a CUDA attention call that needs one (grad mode on and an
 input that requires it) runs ``flash_attention.FlashAttention``, the
-forward kernel and the hand-written backward.  The recurrence kernels
+forward kernel and the hand-written backward: at q_offset 0, over Sq =
+Skv, or over Sq != Skv when non-causal (an encoder-decoder's cross
+attention).  The recurrence kernels
 have no backward yet (ROADMAP §2, N2), so a CUDA ``rglru`` or ``wkv``
 call that needs a gradient raises rather than return a tensor that
 would silently cut it; on the CPU the plain versions stay
@@ -34,6 +36,8 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import tree_hist as _th
 from repro_torch.kernels import vote_aggregate as _va
 from repro_torch.kernels import wkv6 as _wk
+
+NEG_INF = ref.NEG_INF      # the plain paths' masked-score value
 
 
 # ---------------------------------------------------------------------------
@@ -55,10 +59,11 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
             f"(Sq == 1); got Sq={q.shape[1]}")
     if q.is_cuda and q.shape[1] > 1:
         if _needs_grad(q, k, v):
-            if int(q_offset) != 0 or k.shape[1] != q.shape[1]:
+            if int(q_offset) != 0 or (causal and k.shape[1] != q.shape[1]):
                 raise NotImplementedError(
                     "attention backward on the card covers training calls "
-                    "only (q_offset 0, Sq == Skv)")
+                    "only: q_offset 0, and Sq == Skv unless causal=False "
+                    "(cross attention)")
             return _fa.FlashAttention.apply(q, k, v, bool(causal),
                                             int(window), float(softcap))
         return _fa.flash_attention(q, k, v, causal=causal, window=window,

@@ -99,7 +99,9 @@ def attention_backward_plain(q, k, v, o, do, lse, *, causal=True, window=0,
     scaled, soft-capped scores: P = exp(s - lse) (0 where masked), dV =
     P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P (dP - D) (1 - (s/c)^2),
     dQ = dS K * scale, dK = dS^T Q * scale, the group's q heads summed
-    into their kv head.  float32 throughout; results in q's dtype."""
+    into their kv head.  q, o, do (B, Sq, H, dh) and k, v (B, Skv, KV,
+    dh): Sq may differ from Skv (an encoder-decoder's cross attention,
+    non-causal).  float32 throughout; results in q's and k's dtypes."""
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV

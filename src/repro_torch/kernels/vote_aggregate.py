@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+NEG_INF = -1e30    # an empty top-2 slot's score (csrc: NEG_INF)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

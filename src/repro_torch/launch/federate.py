@@ -66,7 +66,8 @@ from repro_torch.core.partition import vertical_split
 from repro_torch.data.synthetic import tabular_binary
 from repro_torch.federation import (FaultPlan, FedKTSession, PartyBinding,
                                     SocketTransport, party_starting_keys,
-                                    query_budget, run_party_client)
+                                    query_budget, registered_learner_kinds,
+                                    run_party_client)
 from repro_torch.models.smallnets import MLP
 
 LEARNER_KINDS = ("nn", "rf", "gbdt")
@@ -113,7 +114,9 @@ def party_kinds(args):
             if k not in LEARNER_KINDS:
                 raise SystemExit(
                     f"--learners: unknown learner kind {k!r} for party "
-                    f"{i}; this launcher builds {list(LEARNER_KINDS)}")
+                    f"{i}; this launcher builds {list(LEARNER_KINDS)} "
+                    f"(registered wire kinds: "
+                    f"{registered_learner_kinds()})")
         return kinds
     return [args.learner] * args.parties
 

@@ -13,11 +13,14 @@ On the CPU, at the smoke widths:
 Open loop: ``--arrival R`` submits the requests at seeded Poisson
 arrivals of R req/s.  ``--serial`` serves them through the fixed-batch
 ``serve_batch`` instead, which is also the path of the models the
-engine refuses (recurrent blocks), as in the reference:
+engine refuses (recurrent blocks, frontends, the encoder-decoder, which
+serves random stub ``frames``), as in the reference:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma-2b --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch whisper-tiny --device cpu --smoke
 
 Weights are random, from ``--seed``, unless ``--checkpoint PATH``
 names a checkpoint in the reference's format (``launch/train
@@ -95,6 +98,7 @@ def main(argv=None):
     from repro_torch import device as D
     from repro_torch.configs import ARCH_IDS, get_config, get_smoke
     from repro_torch.models import Model
+    from repro_torch.models import layers as L
     from repro_torch.serving import Engine, serve_batch
     from repro_torch.serving.engine import refusal
 
@@ -120,8 +124,13 @@ def main(argv=None):
     if why:
         print(f"serial fixed-batch path ({why})")
         batch = np.stack([np.resize(p, args.prompt_len) for p in prompts])
+        extra = {}
+        if cfg.is_encoder_decoder:     # the stubbed frontend's frames
+            extra["frames"] = torch.as_tensor(rng.normal(
+                0, 1, (len(prompts), cfg.encoder_seq_len, cfg.d_model))
+            ).to(L.dtype_of(cfg.dtype))
         tokens, stats = serve_batch(model, params, batch, args.max_tokens,
-                                    eos_id=args.eos)
+                                    extra=extra, eos_id=args.eos)
         print("generated:", tokens[:, :8], "...")
         return stats
 

@@ -1,2 +1,3 @@
-"""Decoder LMs for serving: layers, the transformer and ``Model``."""
-from repro_torch.models.registry import Model  # noqa: F401
+"""Language models for serving and training: layers, the decoder
+transformer, the encoder-decoder and ``Model``."""
+from repro_torch.models.registry import Model, build  # noqa: F401

@@ -1,7 +1,6 @@
 """Shared transformer layers: RMS and layer norms, RoPE (with
-stablelm's partial rotary), GQA attention and the four MLPs
-(``repro.models.layers``).  The reference's cross attention waits for
-the encoder-decoder arch (``transformer._check_ported`` refuses it).
+stablelm's partial rotary), GQA self-attention, the encoder-decoder's
+cross attention and the four MLPs (``repro.models.layers``).
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's dict keys (``attn.wq``, ``ffn.w_up``, ``norm1.scale``...),
@@ -18,12 +17,15 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.tree_util import tree_map
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -43,6 +45,83 @@ def dense(shape, dtype, device, generator=None, scale=None):
     scale = shape[0] ** -0.5 if scale is None else scale
     w = torch.randn(shape, generator=generator, device=device) * scale
     return _param(w.to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Threefry draws: the reference's init functions, split for split
+# ---------------------------------------------------------------------------
+def _normal(key, shape, scale):
+    return prng.normal(key, shape) * np.float32(scale)
+
+
+def _dense(key, shape, scale=None):
+    return _normal(key, shape, shape[0] ** -0.5 if scale is None else scale)
+
+
+def _norm_np(cfg):
+    p = {"scale": np.ones((cfg.d_model,), np.float32)}
+    if cfg.norm == "layernorm":
+        p["bias"] = np.zeros((cfg.d_model,), np.float32)
+    return p
+
+
+def _attn_np(cfg, key):
+    dh, D = cfg.head_dim_, cfg.d_model
+    k1, k2, k3, k4 = prng.split(key, 4)
+    return {"wq": _dense(k1, (D, cfg.num_heads * dh)),
+            "wk": _dense(k2, (D, cfg.num_kv_heads * dh)),
+            "wv": _dense(k3, (D, cfg.num_kv_heads * dh)),
+            "wo": _dense(k4, (cfg.num_heads * dh, D))}
+
+
+def _mlp_np(cfg, key, d_ff=None):
+    d_ff = d_ff or cfg.d_ff
+    k1, k2, k3 = prng.split(key, 3)
+    p = {"w_up": _dense(k1, (cfg.d_model, d_ff)),
+         "w_down": _dense(k2, (d_ff, cfg.d_model))}
+    if cfg.mlp in GATED_MLPS:
+        p["w_gate"] = _dense(k3, (cfg.d_model, d_ff))
+    return p
+
+
+def _param_tensors(cfg: ModelConfig, tree):
+    """A tree of float32 numpy draws as tensors in ``cfg.param_dtype``,
+    as the reference's init functions return them."""
+    dt = dtype_of(cfg.param_dtype)
+    return tree_map(lambda a: torch.from_numpy(a).to(dt), tree)
+
+
+def dense_init(key, shape, dtype, scale=None):
+    """A (fan_in, fan_out) matrix drawn from the threefry ``key`` as
+    ``repro.models.layers.dense_init`` draws it (normal, std fan_in^-0.5
+    or ``scale``; ``prng.normal`` is within 2.5e-7 of
+    ``jax.random.normal``), in ``dtype`` (a torch dtype or its name)."""
+    dt = dtype_of(dtype) if isinstance(dtype, str) else dtype
+    return torch.from_numpy(_dense(key, shape, scale)).to(dt)
+
+
+def init_norm(cfg: ModelConfig):
+    return _param_tensors(cfg, _norm_np(cfg))
+
+
+def init_attn(cfg: ModelConfig, key, cross=False):
+    """{"wq", "wk", "wv", "wo"} from ``key``; ``cross`` changes nothing
+    (the encoder output has the decoder's width), as in the
+    reference."""
+    return _param_tensors(cfg, _attn_np(cfg, key))
+
+
+def init_mlp(cfg: ModelConfig, key, d_ff: Optional[int] = None):
+    return _param_tensors(cfg, _mlp_np(cfg, key, d_ff))
+
+
+class Embed(nn.Module):
+    """The token embedding table (vocab, d_model), in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, device, generator=None):
+        super().__init__()
+        self.table = dense((cfg.vocab_size, cfg.d_model), dtype_of(cfg.dtype),
+                           device, generator, scale=0.02)
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +184,7 @@ def apply_rope(x, positions, theta: float, pct: float = 1.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention block (GQA / MQA / local / softcap), causal
+# Attention block (GQA / MQA / local / softcap); cross attention
 # ---------------------------------------------------------------------------
 class Attn(nn.Module):
     def __init__(self, cfg: ModelConfig, device, generator=None):
@@ -151,7 +230,7 @@ def ring_attn_cache(cache, window, cur):
 
 
 def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
-               cache=None, pos=None):
+               cache=None, pos=None, causal=True, use_rope=True):
     """Self-attention.  Returns (y, new_cache).
 
     mode: "train" (no cache) | "prefill" (returns the populated linear
@@ -159,7 +238,9 @@ def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
     entries; ``pos`` is the absolute position of the new token — an int
     shared by the batch, or a (B,) integer tensor of PER-ROW positions).
     Decode writes the new key and value into ``cache`` in place and
-    returns it (the reference returns an updated copy).
+    returns it (the reference returns an updated copy).  The
+    encoder-decoder runs its encoder with ``causal=False`` and both
+    stacks with ``use_rope=False`` (sinusoidal positions instead).
     """
     B, S, D = x.shape
     dh = cfg.head_dim_
@@ -169,18 +250,20 @@ def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
     v = (x @ p.wv).reshape(B, S, cfg.num_kv_heads, dh)
 
     if mode in ("train", "prefill"):
-        positions = torch.arange(S, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-        o = ops.attention(q, k, v, causal=True, window=window,
+        if use_rope:
+            positions = torch.arange(S, device=x.device)
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+        o = ops.attention(q, k, v, causal=causal, window=window,
                           softcap=cfg.attn_softcap)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
     else:  # decode
         per_row = torch.is_tensor(pos) and pos.dim() == 1
-        positions = (pos[:, None] if per_row else
-                     torch.full((1,), int(pos), device=x.device))
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+        if use_rope:
+            positions = (pos[:, None] if per_row else
+                         torch.full((1,), int(pos), device=x.device))
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
         ck, cv = cache["k"], cache["v"]
         Lc = ck.shape[1]
         ring = window > 0 and Lc <= window
@@ -197,13 +280,38 @@ def attn_apply(cfg: ModelConfig, p: Attn, x, *, kind=ATTN, mode="train",
         # Ring mode: every live slot is inside the window by
         # construction, so no window mask (it would mask wrapped slots);
         # the causal mask with q_offset=pos is exact for pos < Lc.
-        o = ops.attention(q, ck.to(x.dtype), cv.to(x.dtype), causal=True,
+        o = ops.attention(q, ck.to(x.dtype), cv.to(x.dtype), causal=causal,
                           window=0 if ring else window,
                           softcap=cfg.attn_softcap, q_offset=pos)
         new_cache = cache
 
     y = o.reshape(B, S, cfg.num_heads * dh) @ p.wo
     return y, new_cache
+
+
+def cross_attn_apply(cfg: ModelConfig, p: Attn, x, kv_cache):
+    """Encoder-decoder cross attention (whisper): the decoder's queries
+    over ``kv_cache`` {"k", "v"} (B, Se, KV, dh), computed once from the
+    encoder output (``cross_kv``); non-causal, no RoPE.  A prefill (S >
+    1) on the card launches the flash-attention kernel over the Se
+    keys; a decode step (S == 1) takes the plain path, as in the
+    reference."""
+    B, S, D = x.shape
+    dh = cfg.head_dim_
+    q = (x @ p.wq).reshape(B, S, cfg.num_heads, dh)
+    o = ops.attention(q, kv_cache["k"].to(x.dtype),
+                      kv_cache["v"].to(x.dtype), causal=False)
+    return o.reshape(B, S, cfg.num_heads * dh) @ p.wo
+
+
+def cross_kv(cfg: ModelConfig, p: Attn, enc_out):
+    """Cross-attention K/V {"k", "v"} (B, Se, KV, dh) of one decoder
+    layer, from the encoder output (B, Se, D)."""
+    B, S, _ = enc_out.shape
+    dh = cfg.head_dim_
+    k = (enc_out @ p.wk).reshape(B, S, cfg.num_kv_heads, dh)
+    v = (enc_out @ p.wv).reshape(B, S, cfg.num_kv_heads, dh)
+    return {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch import prng
 from repro_torch.models import layers as L
+from repro_torch.models.layers import _dense, _normal
 
 
 class SharedExperts(nn.Module):
@@ -68,6 +70,35 @@ class MoE(nn.Module):
                                   scale=D ** -0.5)
         if m.num_shared_experts:
             self.shared = SharedExperts(cfg, device, generator)
+
+
+def _moe_np(cfg, key):
+    """``repro.models.moe.init_moe``'s draws, key reuse included: the
+    router and the shared experts' w_down both come from ks[0], the
+    experts' w_up and the shared w_gate both from ks[1]; the expert
+    tensors are drawn, then scaled by fan_in ** -0.5."""
+    m = cfg.moe
+    E, D, Fe = m.num_experts, cfg.d_model, cfg.d_ff
+    ks = prng.split(key, 5)
+    gated = cfg.mlp in L.GATED_MLPS
+    p = {"router": _dense(ks[0], (D, E), 0.02),
+         "w_up": _normal(ks[1], (E, D, Fe), D ** -0.5),
+         "w_down": _normal(ks[2], (E, Fe, D), Fe ** -0.5)}
+    if gated:
+        p["w_gate"] = _normal(ks[3], (E, D, Fe), D ** -0.5)
+    if m.num_shared_experts:
+        Fs = m.num_shared_experts * Fe
+        sp = {"w_up": _dense(ks[4], (D, Fs)), "w_down": _dense(ks[0], (Fs, D))}
+        if gated:
+            sp["w_gate"] = _dense(ks[1], (D, Fs))
+        p["shared"] = sp
+    return p
+
+
+def init_moe(cfg: ModelConfig, key):
+    """The reference's ``init_moe``: the MoE block's parameters from
+    ``key``, as tensors in ``cfg.param_dtype``."""
+    return L._param_tensors(cfg, _moe_np(cfg, key))
 
 
 def _act(cfg: ModelConfig, g, up):

@@ -1,11 +1,13 @@
-"""Uniform model interface (``repro.models.registry``) for the decoder
-LMs the port serves and trains (attention, RG-LRU and RWKV layers,
-dense or MoE FFNs).  Batches are plain dicts with ``tokens`` (B, S), and
-for ``loss`` ``labels`` (B, S) and an optional float ``mask`` (B, S),
-integer tensors on the parameters' device; a frontend model (llava) may
-add ``embeds`` (B, Se, D), prepended to the token embeddings, whose
-positions ``loss``, ``predict`` and train-mode ``logits`` drop.
-``params`` is a serving ``Transformer`` or a float32 parameter tree
+"""Uniform model interface (``repro.models.registry``) over the archs
+the port serves and trains: decoder LMs (attention, RG-LRU and RWKV
+layers, dense or MoE FFNs) and the encoder-decoder (``encdec``).
+Batches are plain dicts with ``tokens`` (B, S), and for ``loss``
+``labels`` (B, S) and an optional float ``mask`` (B, S), integer tensors
+on the parameters' device; a frontend model (llava) may add ``embeds``
+(B, Se, D), prepended to the token embeddings, whose positions
+``loss``, ``predict`` and train-mode ``logits`` drop; an
+encoder-decoder (whisper) takes ``frames`` (B, Sf, D), the encoder's
+input.  ``params`` is a serving module or a float32 parameter tree
 (``transformer.view``): ``loss`` differentiates with respect to a
 tree's leaves."""
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclass(frozen=True)
@@ -25,7 +27,7 @@ class Model:
     cfg: ModelConfig
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device=D.DEFAULT) -> transformer.Transformer:
+             device=D.DEFAULT) -> torch.nn.Module:
         """Random parameters on ``device`` (the card unless "cpu" is
         asked for; raises where there is none), drawn from
         ``generator``, a ``torch.Generator`` on that device (seed 0 when
@@ -33,17 +35,32 @@ class Model:
         dev = D.resolve(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        if self.cfg.is_encoder_decoder:
+            return encdec.init_params(self.cfg, generator, dev)
         return transformer.init_params(self.cfg, generator, dev)
 
     def init_tree(self, key, device=D.DEFAULT):
         """A float32 parameter tree from the threefry ``key``, split for
         split as the reference's ``Model.init(key)``."""
+        if self.cfg.is_encoder_decoder:
+            return encdec.init_tree(self.cfg, key, D.resolve(device))
         return transformer.init_tree(self.cfg, key, D.resolve(device))
 
     def hidden(self, params, batch: Dict[str, Any], *, mode="train",
                cache=None, pos=None, remat=False):
         """(hidden (B, S, D), new_cache, aux): S counts the frontend
-        positions of ``batch["embeds"]`` too."""
+        positions of ``batch["embeds"]`` too.  An encoder-decoder
+        encodes ``batch["frames"]`` when the batch has them (train and
+        prefill; a decode step reads the cross K/V from its cache)."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            params = transformer.view(cfg, params)
+            frames = batch.get("frames")
+            enc_out = None if frames is None else \
+                encdec.encode(cfg, params, frames)
+            return encdec.decode_forward(cfg, params, batch["tokens"],
+                                         enc_out, mode=mode, cache=cache,
+                                         pos=pos, remat=remat)
         return transformer.forward(self.cfg, params, batch["tokens"],
                                    embeds=batch.get("embeds"), mode=mode,
                                    cache=cache, pos=pos, remat=remat)
@@ -87,18 +104,36 @@ class Model:
     def grow_cache(self, cache, extra_tokens: int):
         """``cache`` with every KV buffer grown by ``extra_tokens`` slots
         (sliding-window layers become rings; recurrent state passes
-        through)."""
+        through; an encoder-decoder's cross K/V never grow)."""
+        if self.cfg.is_encoder_decoder:
+            return encdec.grow_cache(self.cfg, cache, extra_tokens)
         return transformer.grow_cache(self.cfg, cache, extra_tokens)
 
     def insert_cache(self, slot_cache, prefill_cache, slots, plens):
         """Writes each request of a padded-bucket prefill cache into its
         row of the continuous-batching slot cache, in place (see
-        ``transformer.insert_cache``)."""
+        ``transformer.insert_cache``); decoder-only models only."""
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError("slot-cache serving is decoder-only")
         return transformer.insert_cache(self.cfg, slot_cache, prefill_cache,
                                         slots, plens)
 
-    def init_cache(self, batch_size, cache_len, dtype=None,
-                   device=D.DEFAULT):
+    def init_cache(self, batch_size, cache_len, dtype=None, enc_out=None,
+                   params=None, device=D.DEFAULT):
+        """Zero caches of ``cache_len`` slots on ``device``; an
+        encoder-decoder's also holds the cross K/V of ``enc_out`` (with
+        ``params``; zeros without), on ``enc_out``'s device."""
+        if self.cfg.is_encoder_decoder:
+            dev = enc_out.device if enc_out is not None else \
+                D.resolve(device)
+            params = None if params is None else \
+                transformer.view(self.cfg, params)
+            return encdec.init_dec_cache(self.cfg, batch_size, cache_len,
+                                         enc_out, params, dtype, dev)
         return transformer.init_cache(self.cfg, batch_size, cache_len,
                                       dtype, D.resolve(device))
 
+
+
+def build(cfg: ModelConfig) -> Model:
+    return Model(cfg)

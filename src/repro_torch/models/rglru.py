@@ -20,13 +20,16 @@ each use in the reference and are stored in ``cfg.dtype``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _param, dense, dtype_of
+from repro_torch.models.layers import (_dense, _normal, _param,
+                                       _param_tensors, dense, dtype_of)
 
 
 class RGLRU(nn.Module):
@@ -49,6 +52,25 @@ class RGLRU(nn.Module):
             z = -torch.log(0.9 + 0.099 * a0) / cfg.rglru_c
             lam = torch.log(torch.expm1(z))
         self.lam = _param(lam)
+
+
+def _rglru_np(cfg, key):
+    D, width = cfg.d_model, cfg.rglru_conv_width
+    ks = prng.split(key, 7)
+    a0 = prng.uniform(ks[0], (D,), 0.9, 0.999)
+    z = -np.log(a0) / np.float32(cfg.rglru_c)
+    return {"w_in": _dense(ks[1], (D, D)), "w_gate": _dense(ks[2], (D, D)),
+            "conv_w": _normal(ks[3], (width, D), width ** -0.5),
+            "conv_b": np.zeros((D,), np.float32),
+            "w_a": _dense(ks[4], (D, D)), "w_x": _dense(ks[5], (D, D)),
+            "lam": np.log(np.expm1(z)).astype(np.float32),
+            "w_out": _dense(ks[6], (D, D))}
+
+
+def init_rglru(cfg: ModelConfig, key):
+    """The reference's ``init_rglru``: the block's parameters from
+    ``key``, as tensors in ``cfg.param_dtype``."""
+    return _param_tensors(cfg, _rglru_np(cfg, key))
 
 
 def init_rglru_state(cfg: ModelConfig, batch, dtype, device):

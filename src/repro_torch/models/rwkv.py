@@ -16,13 +16,16 @@ reference and are stored in ``cfg.dtype``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _param, dense, dtype_of
+from repro_torch.models.layers import (_dense, _normal, _param,
+                                       _param_tensors, dense, dtype_of)
 
 _W_LORA = 64
 GROUPNORM_EPS = 64e-5
@@ -66,6 +69,35 @@ class RWKV(nn.Module):
         self.cm_w_r = mat((D, D))
         self.cm_w_up = mat((D, cfg.d_ff))
         self.cm_w_down = mat((cfg.d_ff, D))
+
+
+def _rwkv_np(cfg, key):
+    D, H, dh = cfg.d_model, cfg.num_heads, cfg.rwkv_head_dim
+    ks = prng.split(key, 12)
+
+    def mix(k):
+        return prng.uniform(k, (D,))
+
+    return {"mu_r": mix(ks[0]), "mu_k": mix(ks[1]), "mu_v": mix(ks[2]),
+            "mu_w": mix(ks[3]), "mu_g": mix(ks[4]),
+            "w_r": _dense(ks[5], (D, D)), "w_k": _dense(ks[6], (D, D)),
+            "w_v": _dense(ks[7], (D, D)), "w_g": _dense(ks[8], (D, D)),
+            "w_o": _dense(ks[9], (D, D)),
+            "w0": np.full((D,), -0.6, np.float32),
+            "w_lora_a": _dense(ks[10], (D, _W_LORA), 0.01),
+            "w_lora_b": _dense(ks[11], (_W_LORA, D), 0.01),
+            "u": _normal(ks[0], (H, dh), 0.1),
+            "ln_scale": np.ones((H, dh), np.float32),
+            "cm_mu_k": mix(ks[1]), "cm_mu_r": mix(ks[2]),
+            "cm_w_r": _dense(ks[3], (D, D)),
+            "cm_w_up": _dense(ks[4], (D, cfg.d_ff)),
+            "cm_w_down": _dense(ks[5], (cfg.d_ff, D))}
+
+
+def init_rwkv(cfg: ModelConfig, key):
+    """The reference's ``init_rwkv``: the block's parameters from
+    ``key``, as tensors in ``cfg.param_dtype``."""
+    return _param_tensors(cfg, _rwkv_np(cfg, key))
 
 
 def init_rwkv_state(cfg: ModelConfig, batch, dtype, device):

@@ -17,7 +17,8 @@ dh), for attention; {"h", "conv"} for RG-LRU; {"wkv", "shift_t",
 reference's stacked cache onto it.
 
 Parameters come in two forms.  Serving holds a ``Transformer`` module
-whose matrices are stored in ``cfg.dtype``.  Training holds a *tree*:
+(an encoder-decoder's ``encdec.EncDec``: ``new_module``) whose matrices
+are stored in ``cfg.dtype``.  Training holds a *tree*:
 nested dicts (and a list of layers under "blocks") of float32 master
 tensors with the module's names, {"embed": {"table"}, "blocks": [...],
 "final_norm": {...}, "lm_head": {...}} — the reference's parameter
@@ -44,10 +45,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, RWKV, \
     ModelConfig
+from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv as W
+from repro_torch.models.layers import _attn_np, _mlp_np, _norm_np, _normal
+from repro_torch.models.moe import _moe_np
+from repro_torch.models.rglru import _rglru_np
+from repro_torch.models.rwkv import _rwkv_np
 from repro_torch.tree_util import tree_map
 
 ATTN_KINDS = (ATTN, ATTN_LOCAL)
@@ -56,8 +62,8 @@ HEAD_CHUNK = 512
 
 def _check_ported(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder models (models/encdec.py) "
-                                  "are not ported yet")
+        raise ValueError("an encoder-decoder config builds models/encdec.py's "
+                         "EncDec (new_module), not a Transformer")
     bad = sorted({k for k in cfg.pattern
                   if k not in ATTN_KINDS + (RGLRU, RWKV)})
     if bad:
@@ -94,14 +100,6 @@ class Block(nn.Module):
             self.post_norm2 = L.Norm(cfg, device)
 
 
-class Embed(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, generator=None):
-        super().__init__()
-        self.table = L.dense((cfg.vocab_size, cfg.d_model),
-                             L.dtype_of(cfg.dtype), device, generator,
-                             scale=0.02)
-
-
 class LMHead(nn.Module):
     def __init__(self, cfg: ModelConfig, device, generator=None):
         super().__init__()
@@ -116,7 +114,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device, generator=None):
         super().__init__()
         _check_ported(cfg)
-        self.embed = Embed(cfg, device, generator)
+        self.embed = L.Embed(cfg, device, generator)
         fkd = cfg.layer_plan()[0]
         use_moe = cfg.moe is not None
         dense_ff = cfg.d_ff * cfg.moe.dense_ff_mult if use_moe else None
@@ -139,20 +137,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     return Transformer(cfg, device, generator)
 
 
+def new_module(cfg: ModelConfig, device, generator=None) -> nn.Module:
+    """``cfg``'s parameter module: an ``encdec.EncDec`` for an
+    encoder-decoder, else a ``Transformer``."""
+    if cfg.is_encoder_decoder:
+        return E.EncDec(cfg, device, generator)
+    return Transformer(cfg, device, generator)
+
+
 # ---------------------------------------------------------------------------
 # Parameter trees (training)
 # ---------------------------------------------------------------------------
+# the layer lists of a tree: a decoder's blocks, an encoder-decoder's
+# encoder and decoder layers
+LAYER_LISTS = ("blocks", "enc", "dec")
+
+
 def _as_tree(named):
     """{"a.0.b": t} -> {"a": [{"b": t}]}: a module's dotted parameter
-    names as nested dicts, with the layer list under "blocks"."""
+    names as nested dicts, with the layer lists (``LAYER_LISTS``) as
+    lists."""
     tree: dict = {}
     for name, t in named:
         node, parts = tree, name.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = t
-    tree["blocks"] = [tree["blocks"][str(i)]
-                      for i in range(len(tree["blocks"]))]
+    for key in LAYER_LISTS:
+        if key in tree:
+            tree[key] = [tree[key][str(i)] for i in range(len(tree[key]))]
     return tree
 
 
@@ -160,10 +173,10 @@ def _as_tree(named):
 def param_dtypes(cfg: ModelConfig):
     """The dtype of every parameter of ``cfg``'s module, as a tree."""
     return _as_tree((n, p.dtype) for n, p in
-                    Transformer(cfg, "meta").named_parameters())
+                    new_module(cfg, "meta").named_parameters())
 
 
-def tree_of(params: Transformer):
+def tree_of(params: nn.Module):
     """A module's parameters as a float32 tree (copies): the masters a
     training run starts from."""
     return _as_tree((n, p.detach().to(torch.float32).clone())
@@ -183,16 +196,16 @@ def view(cfg: ModelConfig, params):
     to the module's dtypes (``cfg.dtype`` for matrices, float32 for
     norms and the leaves the reference reads in float32), under the
     module's attribute names.  The casts are recorded by autograd."""
-    if isinstance(params, (Transformer, SimpleNamespace)):
+    if isinstance(params, (nn.Module, SimpleNamespace)):
         return params
     return _ns(tree_map(lambda t, dt: t.to(dt), params, param_dtypes(cfg)))
 
 
-def to_module(cfg: ModelConfig, tree, device=None) -> Transformer:
-    """A tree as a serving ``Transformer`` (each leaf cast to the
+def to_module(cfg: ModelConfig, tree, device=None) -> nn.Module:
+    """A tree as a serving module (``new_module``; each leaf cast to the
     module's dtype) on ``device`` (the tree's own by default)."""
     dev = device or tree["embed"]["table"].device
-    module = Transformer(cfg, dev)
+    module = new_module(cfg, dev)
     with torch.no_grad():
         for name, p in module.named_parameters():
             node = tree
@@ -201,99 +214,6 @@ def to_module(cfg: ModelConfig, tree, device=None) -> Transformer:
                     else node[part]
             p.copy_(node.to(p.dtype))
     return module
-
-
-def _normal(key, shape, scale):
-    return prng.normal(key, shape) * np.float32(scale)
-
-
-def _dense(key, shape, scale=None):
-    return _normal(key, shape, shape[0] ** -0.5 if scale is None else scale)
-
-
-def _norm_np(cfg):
-    p = {"scale": np.ones((cfg.d_model,), np.float32)}
-    if cfg.norm == "layernorm":
-        p["bias"] = np.zeros((cfg.d_model,), np.float32)
-    return p
-
-
-def _attn_np(cfg, key):
-    dh, D = cfg.head_dim_, cfg.d_model
-    k1, k2, k3, k4 = prng.split(key, 4)
-    return {"wq": _dense(k1, (D, cfg.num_heads * dh)),
-            "wk": _dense(k2, (D, cfg.num_kv_heads * dh)),
-            "wv": _dense(k3, (D, cfg.num_kv_heads * dh)),
-            "wo": _dense(k4, (cfg.num_heads * dh, D))}
-
-
-def _mlp_np(cfg, key, d_ff=None):
-    d_ff = d_ff or cfg.d_ff
-    k1, k2, k3 = prng.split(key, 3)
-    p = {"w_up": _dense(k1, (cfg.d_model, d_ff)),
-         "w_down": _dense(k2, (d_ff, cfg.d_model))}
-    if cfg.mlp in L.GATED_MLPS:
-        p["w_gate"] = _dense(k3, (cfg.d_model, d_ff))
-    return p
-
-
-def _moe_np(cfg, key):
-    """``repro.models.moe.init_moe``'s draws, key reuse included: the
-    router and the shared experts' w_down both come from ks[0], the
-    experts' w_up and the shared w_gate both from ks[1]; the expert
-    tensors are drawn, then scaled by fan_in ** -0.5."""
-    m = cfg.moe
-    E, D, Fe = m.num_experts, cfg.d_model, cfg.d_ff
-    ks = prng.split(key, 5)
-    gated = cfg.mlp in L.GATED_MLPS
-    p = {"router": _dense(ks[0], (D, E), 0.02),
-         "w_up": _normal(ks[1], (E, D, Fe), D ** -0.5),
-         "w_down": _normal(ks[2], (E, Fe, D), Fe ** -0.5)}
-    if gated:
-        p["w_gate"] = _normal(ks[3], (E, D, Fe), D ** -0.5)
-    if m.num_shared_experts:
-        Fs = m.num_shared_experts * Fe
-        sp = {"w_up": _dense(ks[4], (D, Fs)), "w_down": _dense(ks[0], (Fs, D))}
-        if gated:
-            sp["w_gate"] = _dense(ks[1], (D, Fs))
-        p["shared"] = sp
-    return p
-
-
-def _rglru_np(cfg, key):
-    D, width = cfg.d_model, cfg.rglru_conv_width
-    ks = prng.split(key, 7)
-    a0 = prng.uniform(ks[0], (D,), 0.9, 0.999)
-    z = -np.log(a0) / np.float32(cfg.rglru_c)
-    return {"w_in": _dense(ks[1], (D, D)), "w_gate": _dense(ks[2], (D, D)),
-            "conv_w": _normal(ks[3], (width, D), width ** -0.5),
-            "conv_b": np.zeros((D,), np.float32),
-            "w_a": _dense(ks[4], (D, D)), "w_x": _dense(ks[5], (D, D)),
-            "lam": np.log(np.expm1(z)).astype(np.float32),
-            "w_out": _dense(ks[6], (D, D))}
-
-
-def _rwkv_np(cfg, key):
-    D, H, dh = cfg.d_model, cfg.num_heads, cfg.rwkv_head_dim
-    ks = prng.split(key, 12)
-
-    def mix(k):
-        return prng.uniform(k, (D,))
-
-    return {"mu_r": mix(ks[0]), "mu_k": mix(ks[1]), "mu_v": mix(ks[2]),
-            "mu_w": mix(ks[3]), "mu_g": mix(ks[4]),
-            "w_r": _dense(ks[5], (D, D)), "w_k": _dense(ks[6], (D, D)),
-            "w_v": _dense(ks[7], (D, D)), "w_g": _dense(ks[8], (D, D)),
-            "w_o": _dense(ks[9], (D, D)),
-            "w0": np.full((D,), -0.6, np.float32),
-            "w_lora_a": _dense(ks[10], (D, W._W_LORA), 0.01),
-            "w_lora_b": _dense(ks[11], (W._W_LORA, D), 0.01),
-            "u": _normal(ks[0], (H, dh), 0.1),
-            "ln_scale": np.ones((H, dh), np.float32),
-            "cm_mu_k": mix(ks[1]), "cm_mu_r": mix(ks[2]),
-            "cm_w_r": _dense(ks[3], (D, D)),
-            "cm_w_up": _dense(ks[4], (D, cfg.d_ff)),
-            "cm_w_down": _dense(ks[5], (cfg.d_ff, D))}
 
 
 def _block_np(cfg, key, kind, use_moe=False, dense_ff=None):
@@ -530,7 +450,9 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, mode="train",
 # ---------------------------------------------------------------------------
 # LM head
 # ---------------------------------------------------------------------------
-def _head_w(cfg: ModelConfig, params: Transformer):
+def _head_w(cfg: ModelConfig, params):
+    """The LM head (d_model, vocab): the embedding's transpose when tied
+    (an encoder-decoder's always is), else ``lm_head.w``."""
     if cfg.tie_embeddings:
         return params.embed.table.T
     return params.lm_head.w

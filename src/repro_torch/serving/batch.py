@@ -35,10 +35,15 @@ def _sync(device):
 
 
 def serve_batch(model, params, prompts: np.ndarray, gen: int,
+                cache_len: int = 0, extra=None,
                 eos_id: Optional[int] = None, verbose: bool = True,
                 keep_logits: bool = False):
     """prompts: (B, P) integers.  Runs on the parameters' device.
     Returns ((B, gen) generated tokens, stats dict).
+
+    ``extra`` adds batch entries to the prefill (an encoder-decoder's
+    ``frames``, moved to the parameters' device); the caches grow by
+    ``max(gen, cache_len - P)`` slots after the prefill.
 
     stats: prefill_s / decode_s wall times (host clock after a
     synchronise), generated (EOS-masked token count across the batch),
@@ -52,11 +57,13 @@ def serve_batch(model, params, prompts: np.ndarray, gen: int,
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
 
-    tokens_in = torch.as_tensor(np.asarray(prompts), device=dev)
+    batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
+    for k, v in (extra or {}).items():
+        batch[k] = torch.as_tensor(v, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens_in})
-    cache = model.grow_cache(cache, gen)
+    logits, cache = prefill(params, batch)
+    cache = model.grow_cache(cache, max(gen, cache_len - P))
     logits = logits[:, -1]
     tok = torch.argmax(logits, dim=-1)[:, None]
     _sync(dev)

@@ -36,10 +36,11 @@ ARCHS = ["tiny", "phi4-mini-3.8b", "gemma2-27b", "recurrentgemma-2b",
          "rwkv6-7b"]
 PORTED = ["phi4-mini-3.8b", "gemma2-27b", "recurrentgemma-2b", "rwkv6-7b",
           "mixtral-8x7b", "deepseek-moe-16b", "stablelm-3b", "granite-20b",
-          "llava-next-mistral-7b"]
+          "llava-next-mistral-7b", "whisper-tiny"]
 # parameters of the full-width models, from ``jax.eval_shape`` of the
 # reference's init
 PARAM_COUNTS = {"phi4-mini-3.8b": 3_836_021_760,
+                "whisper-tiny": 36_448_128,
                 "deepseek-moe-16b": 16_377_694_208,
                 "granite-20b": 20_316_401_664,
                 "llava-next-mistral-7b": 7_241_732_096,
@@ -105,20 +106,20 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_archs_raise():
-    """whisper-tiny (encoder-decoder) is the one arch left to port."""
+    """Every arch of the reference is ported (whisper-tiny, the
+    encoder-decoder, was the last): ``NOT_PORTED`` is empty, the arch
+    ids are the reference's, and an unknown arch raises."""
     from repro_torch.configs.registry import ARCH_IDS, NOT_PORTED
     from repro.configs import ARCH_IDS as JARCH_IDS
-    assert NOT_PORTED == ("whisper-tiny",)
-    assert sorted(ARCH_IDS + list(NOT_PORTED)) == sorted(JARCH_IDS)
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-tiny")
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_smoke("whisper-tiny")
+    assert NOT_PORTED == ()
+    assert ARCH_IDS == JARCH_IDS
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
+    with pytest.raises(KeyError, match="unknown"):
+        get_smoke("gpt-5")
     cfg = port_config(jget_smoke("whisper-tiny"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(cfg).init(device="cpu")
+    assert Model(cfg).init(device="cpu").dec[0].xattn.wq.shape == \
+        (cfg.d_model, cfg.num_heads * cfg.head_dim_)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -130,8 +131,8 @@ def test_full_width_parameters_match_the_reference(arch):
     jshapes = jax.eval_shape(JModel(jcfg).init, jax.random.PRNGKey(0))
     flat = jax.tree_util.tree_flatten_with_path(jshapes)[0]
     want = sum(int(np.prod(leaf.shape)) for _, leaf in flat)
-    from repro_torch.models.transformer import Transformer
-    mod = Transformer(get_config(arch), torch.device("meta"))
+    from repro_torch.models.transformer import new_module
+    mod = new_module(get_config(arch), torch.device("meta"))
     got = sum(p.numel() for p in mod.parameters())
     assert got == want
     if arch in PARAM_COUNTS:
@@ -144,6 +145,19 @@ def test_full_width_parameters_match_the_reference(arch):
 
     def mine(block):
         return {n: tuple(p.shape) for n, p in block.named_parameters()}
+
+    if jcfg.is_encoder_decoder:
+        # the reference's enc / dec leaves stacked over the layers, the
+        # port's listed; every matrix bf16, every norm float32
+        for key in ("enc", "dec"):
+            for layer in getattr(mod, key):
+                assert mine(layer) == shapes(jshapes[key], 1)
+        for key in ("embed", "enc_norm", "final_norm"):
+            assert mine(getattr(mod, key)) == shapes(jshapes[key], 0)
+        for n, p in mod.named_parameters():
+            want_dt = torch.float32 if "norm" in n else torch.bfloat16
+            assert p.dtype == want_dt, n
+        return
 
     # layer by layer: head block i is blocks[i], the reference's period
     # b{j} leaves (unstacked) are blocks[fkd + j]
