@@ -176,6 +176,20 @@ non-zero before printing a result):
                 version; the trained parameters saved as a checkpoint
                 in the reference's format and served by ``launch.serve
                 --checkpoint``, streams equal to the in-memory ones.
+  10. dryrun  : the port's dry-run on the meta device (no kernel
+                launch; host time): one arch per family (phi4-mini,
+                mixtral, recurrentgemma, whisper) x the four input
+                shapes x both production meshes, each pair's dominant
+                term, per-device peak against the card's 80 GB and the
+                seconds of its terms, the skips equal to ``SKIPS``; then
+                lm_train's exact step (phi4-mini, B 4 x S 512, remat,
+                AdamW, float32 masters) on a one-device mesh, predicted
+                beside that phase's measured step ms and peak memory
+                (the params, gradients and AdamW state it predicts may
+                not exceed the measured peak; its K3 and N1 calls must
+                equal the launches the card counted); FedKT's label step
+                at 16 members (protocol bytes), and at lm_label's 3
+                members and (2, 1024) block beside its measured wall.
   --profile    : device time by kernel and the device's busy share of
                 each full-width round (RF, GBDT, nn_L0, cnn_L0), of the
                 serving runs, of one recurrent prefill, and (last) of
@@ -570,15 +584,6 @@ def phase_hist(N_teacher, N_student):
     return rows, worst
 
 
-def valid_keys(Sq, Skv, causal, window, q_offset=0):
-    """(query, key) pairs the mask lets through: the work this input
-    needs."""
-    q = np.arange(Sq) + q_offset
-    hi = np.minimum(q + 1, Skv) if causal else np.full(Sq, Skv)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
 
@@ -636,6 +641,7 @@ def phase_attention():
     fastest."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels.meta import valid_pairs
     g = torch.Generator(device="cuda").manual_seed(2)
     cases = [  # label, B, S, H, KV, dh, dtype, window, softcap, library
         ("a_phi4_prefill", 8, 512, 24, 8, 128, torch.bfloat16, 0, 0.0,
@@ -716,7 +722,7 @@ def phase_attention():
                       default=None)
         lib_ms = None if fastest is None else fastest[0]
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        nops = 4 * B * H * valid_keys(S, Skv, causal, window) * dh
+        nops = 4 * B * H * valid_pairs(S, Skv, causal, window) * dh
         b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
         row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
@@ -2192,6 +2198,7 @@ def lm_backward_rows():
     relative to the largest |gradient|)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels.meta import valid_pairs
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = [  # label, B, Sq, Skv, H, KV, dh, dtype, window, softcap, causal
         ("phi4_train", 4, 512, 512, 24, 8, 128, torch.bfloat16, 0, 0.0,
@@ -2255,7 +2262,7 @@ def lm_backward_rows():
         e = q.element_size()
         nbytes = (e * (3 * q.numel() + 2 * (k.numel() + v.numel())
                        + o.numel()) + 4 * lse.numel())
-        nops = 10 * B * H * valid_keys(S, Skv, causal, window) * dh
+        nops = 10 * B * H * valid_pairs(S, Skv, causal, window) * dh
         b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else FP32_OPS_PER_S)
         row = {"kernel": "flash_attention_backward", "shape": label,
@@ -2611,11 +2618,13 @@ def lm_label_step(cfg, smi, members=3, gamma=0.1):
     key = prng.PRNGKey(5)
     learner.vote_members(bank, X, gamma=gamma, key=key)     # warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero_lm_counts()
     t0 = time.perf_counter()
     labels, gap = learner.vote_members(bank, X, gamma=gamma, key=key)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     got = _lm_counts()
     want = {"flash_attention": members * cfg.num_layers,
             "flash_attention_backward": 0, "vote_aggregate": 1,
@@ -2638,6 +2647,7 @@ def lm_label_step(cfg, smi, members=3, gamma=0.1):
     sort_path = va.launches == 0
     row = {"arch": cfg.name, "members": members, "queries": list(X.shape),
            "T": T, "U": U, "gamma": gamma, "label_step_wall_s": wall,
+           "peak_mem_bytes": peak,
            "launches": got, "k1_bit_identical_to_plain": same,
            "noise_free_vote_launches_no_k1": sort_path, "card": smi}
     log("[lm-label] " + json.dumps(row))
@@ -2720,13 +2730,14 @@ def phase_lm_train(smi, profile=False):
     at smoke width; the LM FedKT flow at L0 and L2; the full-width label
     step and its token vote through K1; checkpoint to serve.  Returns
     (N1 rows, N1 worst absolute error, N1 worst error relative to the
-    largest |gradient|, the main path's launches)."""
+    largest |gradient|, the main path's launches, the measured rows of
+    the full-width train and label steps)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     rows, err, rel = lm_backward_rows()
     log(f"[lm_train] N1 rows at {time.time() - t0:.1f} s")
     phi4 = get_config("phi4-mini-3.8b")
-    params, counts, _ = lm_full_train(phi4, smi)
+    params, counts, train_row = lm_full_train(phi4, smi)
     runs = [counts]
     log(f"[lm_train] full-width training at {time.time() - t0:.1f} s")
     for arch in ("phi4-mini-3.8b", "gemma2-27b"):
@@ -2735,7 +2746,8 @@ def phase_lm_train(smi, profile=False):
     runs.append(lm_fedkt("L0")[1])
     runs.append(lm_fedkt("L2", gamma=0.1)[1])
     log(f"[lm_train] fedkt flow at {time.time() - t0:.1f} s")
-    runs.append(lm_label_step(phi4, smi)[0])
+    label_counts, label_row = lm_label_step(phi4, smi)
+    runs.append(label_counts)
     torch.cuda.empty_cache()
     log(f"[lm_train] label step at {time.time() - t0:.1f} s")
     runs.append(lm_checkpoint_serve(phi4, params, smi))
@@ -2750,7 +2762,147 @@ def phase_lm_train(smi, profile=False):
     del params
     torch.cuda.empty_cache()
     log(f"[lm_train] checkpoint serve at {time.time() - t0:.1f} s")
-    return rows, err, rel, launches
+    return rows, err, rel, launches, {"train": train_row,
+                                      "label": label_row}
+
+
+# one arch per family: the whole 10 x 4 x 2 matrix takes ~150 s of host
+# time (``python -m repro_torch.launch.dryrun --all`` prices it anywhere)
+DRYRUN_ARCHS = ("phi4-mini-3.8b", "mixtral-8x7b", "recurrentgemma-2b",
+                "whisper-tiny")
+
+
+def dryrun_pairs(smi, archs=DRYRUN_ARCHS):
+    """``launch.dryrun.run_one`` over ``archs`` x every input shape x
+    both production meshes: one line a pair; raises on an error or on
+    skips other than ``SKIPS``'s."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import analysis, dryrun
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    skipped, traces = set(), {}
+    for arch in archs:
+        for name in INPUT_SHAPES:
+            for multi_pod in (False, True):
+                t = time.perf_counter()
+                rec = dryrun.run_one(arch, name, multi_pod, out_dir,
+                                     force=True, quiet=True, traces=traces)
+                secs = time.perf_counter() - t
+                if rec.get("error"):
+                    raise AssertionError(f"dry-run {arch} {name}: "
+                                         f"{rec['error']}")
+                if rec.get("skipped"):
+                    skipped.add((arch, name))
+                    log(f"[dryrun] {arch} {name} {rec['mesh']} skipped: "
+                        f"{rec['skipped']}")
+                    continue
+                peak = rec["peak_memory_bytes"]
+                log(f"[dryrun] {arch} {name} {rec['mesh']} dominant "
+                    f"{rec['dominant']} (t_compute {rec['t_compute']:.4g} "
+                    f"s, t_memory {rec['t_memory']:.4g} s, t_collective "
+                    f"{rec['t_collective']:.4g} s), peak/device "
+                    f"{peak / 1e9:.2f} GB of {analysis.HBM_BYTES / 1e9:.0f}"
+                    f" GB ({'fits' if peak <= analysis.HBM_BYTES else 'over'}"
+                    f"), priced in {secs:.2f} s | {smi}")
+            traces.clear()
+    want = {k for k in dryrun.SKIPS if k[0] in archs}
+    if skipped != want:
+        raise AssertionError(f"dry-run skips {skipped} != SKIPS {want}")
+
+
+def dryrun_train(smi, measured):
+    """lm_train's exact step on a one-device mesh, predicted beside the
+    phase's measured row.  Raises if the params, gradients and AdamW
+    state it predicts exceed the measured peak, or if its K3 / N1 calls
+    differ from the launches the card counted."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    cfg = get_config("phi4-mini-3.8b")
+    # lm_full_train's step: B 4 x S 512, remat, AdamW, float32 masters
+    tcfg = TrainConfig(batch_size=4, seq_len=512, steps=8, warmup_steps=2,
+                       learning_rate=3e-4)
+    rec = dryrun.price(cfg.name, InputShape("lm_train", 512, 4, "train"),
+                       Mesh(("data",), (1,)), "local_1", cfg=cfg, tcfg=tcfg)
+    n = analysis.count_params(Model(cfg).init_shapes(), exclude_embed=False)
+    state = 4 * 4 * n          # float32 params, gradients, mu and nu
+    calls = rec["kernels"]
+    row = {"arch": cfg.name, "B": 4, "S": 512,
+           "predicted": {k: rec[k] for k in (
+               "t_compute", "t_memory", "flops_per_device",
+               "bytes_per_device", "resident_bytes",
+               "activation_peak_bytes", "peak_memory_bytes")},
+           "predicted_params_grads_adamw_bytes": state,
+           "predicted_kernel_calls": {k: v["calls"]
+                                      for k, v in calls.items()},
+           "measured_step_ms_median_last6":
+               measured["step_ms_median_last6"],
+           "measured_peak_mem_bytes": measured["peak_mem_bytes"],
+           "measured_launches_per_step": measured["launches_per_step"],
+           "card": smi}
+    log("[dryrun-train] " + json.dumps(row))
+    if state > measured["peak_mem_bytes"]:
+        raise AssertionError(f"predicted resident state {state} B exceeds "
+                             f"the measured peak "
+                             f"{measured['peak_mem_bytes']} B")
+    got = measured["launches_per_step"]
+    if (calls["flash_attention"]["calls"] != got["flash_attention"] or
+            fa.BWD_KERNELS * calls["flash_attention_backward"]["calls"]
+            != got["flash_attention_backward"]):
+        raise AssertionError(f"dry-run kernel calls {calls} != the card's "
+                             f"launches a step {got}")
+    return row
+
+
+def dryrun_label(smi, measured):
+    """FedKT's label step priced at 16 members on the pod mesh (its
+    protocol bytes), then at lm_label's 3 members and (2, 1024) block on
+    one device beside that phase's measured wall (which adds the noisy
+    vote's Laplace draw and K1: the dry-run prices the reference's
+    noise-free label step)."""
+    from repro_torch.launch import fedkt_dryrun
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+    arch = "phi4-mini-3.8b"
+    pod = fedkt_dryrun.price_label_step(arch, 16, 32, 4096,
+                                        make_production_mesh(), "pod1_16x16")
+    log("[dryrun-fedkt] " + json.dumps({
+        "arch": arch, "members": 16, "B": 32, "S": 4096,
+        "dominant": pod["dominant"], "t_compute": pod["t_compute"],
+        "t_memory": pod["t_memory"], "t_collective": pod["t_collective"],
+        "collective": pod["collective"], "protocol": pod["protocol"],
+        "card": smi}))
+    B, S = measured["queries"][0], measured["queries"][1] - 1
+    one = fedkt_dryrun.price_label_step(arch, measured["members"], B, S,
+                                        Mesh(("data",), (1,)), "local_1")
+    row = {"arch": arch, "members": measured["members"], "B": B, "S": S,
+           "predicted": {k: one[k] for k in (
+               "t_compute", "t_memory", "flops_per_device",
+               "bytes_per_device", "peak_memory_bytes")},
+           "predicted_kernel_calls": {k: v["calls"]
+                                      for k, v in one["kernels"].items()},
+           "protocol": one["protocol"],
+           "measured_label_step_wall_s": measured["label_step_wall_s"],
+           "measured_peak_mem_bytes": measured["peak_mem_bytes"],
+           "measured_launches": measured["launches"], "card": smi}
+    log("[dryrun-label] " + json.dumps(row))
+    if one["kernels"]["flash_attention"]["calls"] != \
+            measured["launches"]["flash_attention"]:
+        raise AssertionError("dry-run K3 calls != the label step's "
+                             "launches")
+    return {"pod": pod, "one": row}
+
+
+def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
+    """Phase 10 (after lm_train, whose measured rows it reads)."""
+    t0 = time.time()
+    dryrun_pairs(smi, archs)
+    log(f"[dryrun] pairs at {time.time() - t0:.1f} s")
+    train = dryrun_train(smi, measured["train"])
+    label = dryrun_label(smi, measured["label"])
+    log(f"[dryrun] train and label at {time.time() - t0:.1f} s")
+    return train, label
 
 
 def shape_rows(rows):
@@ -2864,12 +3016,14 @@ def main():
     torch.cuda.synchronize()
     log(f"[phase] whisper ok at {time.time() - t_start:.1f} s")
 
-    n1_rows, n1_err, n1_rel, lm = phase_lm_train(smi,
-                                                 profile=profile_rounds)
+    n1_rows, n1_err, n1_rel, lm, lm_measured = phase_lm_train(
+        smi, profile=profile_rounds)
     for kname in ("flash_attention", "vote_aggregate"):
         launches[kname] += lm[kname]
     torch.cuda.synchronize()
     log(f"[phase] lm_train ok at {time.time() - t_start:.1f} s")
+    phase_dryrun(smi, lm_measured)
+    log(f"[phase] dryrun ok at {time.time() - t_start:.1f} s")
     if profile_rounds:   # last: a profiler session slows later host timing
         for name, fn in whisper_profiles:
             _profiled(name, fn)

@@ -1,7 +1,8 @@
 """Configuration dataclasses: the counterparts of ``repro.configs.base``'s
-``FedKTConfig`` and ``ModelConfig`` (with ``MoEConfig``, the type of one
-of its fields), frozen dataclasses with the same fields and defaults,
-and the block kinds of a layer pattern."""
+``FedKTConfig``, ``ModelConfig`` (with ``MoEConfig``, the type of one
+of its fields), ``TrainConfig`` and ``MeshConfig``, frozen dataclasses
+with the same fields and defaults; the block kinds of a layer pattern;
+and the four input shapes the dry-run prices (``INPUT_SHAPES``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -89,6 +90,11 @@ class ModelConfig:
         return (self.head_dim if self.head_dim
                 else self.d_model // self.num_heads)
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if no block attends over unbounded context (long_500k ok)."""
+        return all(k != ATTN for k in self.pattern)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -149,3 +155,35 @@ class TrainConfig:
     microbatches: int = 1   # gradient-accumulation splits of the batch
     pregather: bool = True
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh shape.  (pod, data, model) once multi_pod else
+    (data, model)."""
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pods
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry-run: ``global_batch`` sequences of
+    ``seq_len`` tokens (a decode step's cache length), of one ``kind``:
+    "train", "prefill" or "decode"."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}

@@ -1,13 +1,15 @@
 """--arch <id> registry (``repro.configs.registry``).  ``get_config(id)``
 returns the full-scale ModelConfig, ``get_smoke(id)`` the reduced
-same-family variant the CPU tests use.  Every arch of the reference is
-ported (``NOT_PORTED`` is empty); an unknown id raises a KeyError."""
+same-family variant the CPU tests use, ``long_context_variant(cfg)``
+the sliding-window variant the dry-run prices at ``long_500k``.  Every
+arch of the reference is ported (``NOT_PORTED`` is empty); an unknown
+id raises a KeyError."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
 
 _MODULES: Dict[str, str] = {
     "phi4-mini-3.8b":        "repro_torch.configs.phi4_mini_3_8b",
@@ -43,3 +45,17 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """Sub-quadratic variant used for the long_500k shape: a dense
+    config gets every ``ATTN`` block as ``ATTN_LOCAL`` with window
+    ``min(window or 4096, 4096)`` and the name suffix "-swa"; a config
+    that is sub-quadratic already comes back unchanged (the same
+    object)."""
+    if cfg.subquadratic:
+        return cfg
+    pattern = tuple(ATTN_LOCAL if k == ATTN else k for k in cfg.pattern)
+    win = cfg.window if cfg.window else 4096
+    return cfg.replace(pattern=pattern, window=min(win, 4096),
+                       name=cfg.name + "-swa")

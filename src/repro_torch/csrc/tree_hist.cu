@@ -182,8 +182,19 @@ extern "C" int tree_hist_launch(const void* xb, const void* node,
   if (C >= 1) {
     const size_t smem =
         sizeof(float) * ((size_t)fw * K * window + (size_t)K * SUB + SUB);
-    cudaError_t err = cudaFuncSetAttribute(
-        chunk_hist, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // opt in to the device's whole per-block shared memory, not this
+    // launch's bytes: plans differ in their bytes, and a thread setting
+    // its own smaller cap between another thread's opt-in and launch
+    // fails that launch (the thread and socket transports launch from a
+    // thread a party)
+    int dev = 0, cap = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          chunk_hist, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)G * C, (F + fw - 1) / fw);
     chunk_hist<<<grid, fw * 32, smem, s>>>(

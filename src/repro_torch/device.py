@@ -17,9 +17,10 @@ DEFAULT = "cuda"
 
 
 def resolve(device=DEFAULT) -> torch.device:
-    """``torch.device`` for ``device`` ("cuda", "cuda:1", "cpu" or a
-    ``torch.device``).  Raises RuntimeError when CUDA is asked for and
-    ``torch.cuda.is_available()`` is false."""
+    """``torch.device`` for ``device`` ("cuda", "cuda:1", "cpu", "meta"
+    or a ``torch.device``).  Raises RuntimeError when CUDA is asked for
+    and ``torch.cuda.is_available()`` is false.  "meta" holds shapes and
+    dtypes only: the dry-run traces steps on it (``launch/dryrun.py``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -27,9 +28,10 @@ def resolve(device=DEFAULT) -> torch.device:
             f"device (torch {torch.__version__}, built for CUDA "
             f"{torch.version.cuda}); pass device=\"cpu\" to run the plain "
             f"PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
-                         f"'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta") or \
+            (dev.type == "meta" and dev.index is not None):
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda', "
+                         f"'cpu' or 'meta'")
     return dev
 
 

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.federation.domain import VoteDomain
 from repro_torch.federation.messages import (PartyUpdate, ShapeDtype,
-                                             TokenLabels)
+                                             TokenLabels, label_wire_bytes)
 from repro_torch.tree_util import SEP, flatten_tree
 
 MAGIC = b"FKT"
@@ -56,13 +56,27 @@ class VersionMismatchError(CodecError):
 
 
 def _host(leaf):
-    """A leaf as something with numpy shape/dtype: tensors are copied to
-    the host, ShapeDtype stand-ins pass through, scalars become arrays."""
+    """A leaf as something with a shape and a dtype: tensors are copied
+    to the host, meta tensors (shapes only) become ShapeDtype stand-ins
+    with their torch dtype, ShapeDtype stand-ins pass through, scalars
+    become arrays."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.is_meta:
+            return ShapeDtype(tuple(leaf.shape), leaf.dtype)
         return leaf.detach().cpu().numpy()
     if isinstance(leaf, ShapeDtype):
         return leaf
     return np.asarray(leaf)
+
+
+def _dtype_info(dtype) -> Tuple[str, int]:
+    """(the header's dtype name, bytes an element) of a numpy or torch
+    dtype: torch.bfloat16 is "bfloat16", as ml_dtypes names it in the
+    reference's frames."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch."), dtype.itemsize
+    dt = np.dtype(dtype)
+    return dt.name, dt.itemsize
 
 
 def _structure(tree, path: List[str]) -> Any:
@@ -93,9 +107,9 @@ def _header(tree, extra: Dict[str, Any] = None) -> Tuple[bytes, list]:
     for p in order:
         leaf = flat[p]
         shape = tuple(int(d) for d in leaf.shape)
-        dtype = np.dtype(leaf.dtype)
-        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-        leaves.append({"p": p, "shape": list(shape), "dtype": dtype.name,
+        name, itemsize = _dtype_info(leaf.dtype)
+        n = int(np.prod(shape, dtype=np.int64)) * itemsize
+        leaves.append({"p": p, "shape": list(shape), "dtype": name,
                        "off": off, "n": n})
         off += n
     header = {"v": 1, "tree": _structure(tree, []), "leaves": leaves,
@@ -119,7 +133,7 @@ def encoded_nbytes(tree, extra_header: Dict[str, Any] = None) -> int:
     (ShapeDtype leaves price a message without its arrays)."""
     hdr, ordered = _header(tree, extra_header)
     payload = sum(int(np.prod(leaf.shape, dtype=np.int64))
-                  * np.dtype(leaf.dtype).itemsize for _, leaf in ordered)
+                  * _dtype_info(leaf.dtype)[1] for _, leaf in ordered)
     return len(_PREFIX) + _LEN.size + len(hdr) + payload + _CRC.size
 
 
@@ -269,3 +283,26 @@ def labels_encoded_nbytes(msg: TokenLabels) -> int:
     """Measured wire size of one TokenLabels message (header +
     payload); ShapeDtype labels price it without an array."""
     return encoded_nbytes({"labels": msg.labels}, _labels_extra(msg))
+
+
+def lm_protocol_bytes(member_state, num_members: int, batch: int,
+                      seq: int) -> Dict[str, int]:
+    """Priced wire cost of the LM-scale one round, per member: its
+    PartyUpdate-framed state upload (once) and the TokenLabels answer
+    for a (batch, seq) public block.  ``member_state`` may be a tree of
+    meta tensors (``Model.init_shapes``) or ShapeDtype leaves: every
+    number is the codec's exact framed size (header included), equal
+    to ``len(encode_*(...))`` of the real message."""
+    upd = PartyUpdate(
+        party_id=0, student_states=[member_state],
+        vote_gaps=ShapeDtype((batch * seq,), np.float32),
+        num_examples=0, meta={"num_teachers": num_members})
+    lbl = TokenLabels(party_id=0,
+                      labels=ShapeDtype((batch, seq), np.int32))
+    return {
+        "members": num_members,
+        "update_bytes_per_member": update_encoded_nbytes(upd),
+        "update_payload_bytes_per_member": upd.wire_bytes(),
+        "label_bytes": labels_encoded_nbytes(lbl),
+        "label_payload_bytes": label_wire_bytes(batch * seq),
+    }

@@ -7,7 +7,11 @@ data lies:
 
   - a CUDA tensor goes to the hand-written kernel (or the kernel
     raises: there is no fallback when a build or launch fails);
-  - a CPU tensor goes to the plain PyTorch version (``ref.py``).
+  - a CPU tensor goes to the plain PyTorch version (``ref.py``);
+  - a meta tensor, where a CUDA tensor would launch a kernel, goes to
+    ``meta.py``: empty outputs of the right shape and dtype, and the
+    kernel's work added to the dry-run's tally.  Where the card takes
+    the plain path (a decode step), so does meta.
 
 The plain paths on the card are the decode steps: attention's (one
 query row, or per-row offsets) and the recurrences' (S == 1), which the
@@ -31,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import tree_hist as _th
 from repro_torch.kernels import vote_aggregate as _va
@@ -68,6 +72,9 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
                                             int(window), float(softcap))
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=int(q_offset))
+    if q.is_meta and q.shape[1] > 1:
+        return meta.attention(q, k, v, causal=causal, window=window,
+                              q_offset=int(q_offset))
     return ref.attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset)
 
@@ -101,6 +108,8 @@ def rglru(x, log_a, h0=None):
     if x.is_cuda and S > 1:
         _no_backward("rglru", x, log_a, h0)
         return _rg.rglru_scan(x, log_a, h0)
+    if x.is_meta and S > 1:
+        return meta.rglru(x, log_a, h0)
     return ref.rglru_scan_ref(x, log_a, h0)
 
 
@@ -121,6 +130,8 @@ def wkv(r, k, v, w, u, s0=None):
     if r.is_cuda and S > 1:
         _no_backward("wkv", r, k, v, w, u, s0)
         return _wk.wkv6(r, k, v, w, u, s0)
+    if r.is_meta and S > 1:
+        return meta.wkv(r, k, v, w, u, s0)
     return ref.wkv6_ref(r, k, v, w, u, s0)
 
 

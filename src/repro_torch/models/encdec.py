@@ -59,12 +59,21 @@ def _sinusoid_f32(S, D):
     return pe
 
 
-@functools.lru_cache(maxsize=None)
 def _sinusoid(S, D, dtype, device):
     """``_sinusoid_f32(S, D)`` cast to ``dtype`` on ``device``, built once
     per (S, D, dtype, device): the decoder's table is sliced at every
-    decode step.  Made outside inference mode, so that a table first
-    built by a serving step can also be read by a training step."""
+    decode step.  On the meta device (a dry-run's trace) an empty table
+    of that shape, made anew at each call, so that no trace finds one
+    that an earlier trace built."""
+    if device.type == "meta":
+        return torch.empty((S, D), dtype=dtype, device=device)
+    return _sinusoid_table(S, D, dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_table(S, D, dtype, device):
+    """Made outside inference mode, so that a table first built by a
+    serving step can also be read by a training step."""
     with torch.inference_mode(False):
         return _sinusoid_f32(S, D).to(dtype).to(device)
 
@@ -117,9 +126,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
 
 
 def init_tree(cfg: ModelConfig, key, device):
-    """A float32 parameter tree drawn from the threefry ``key`` as the
-    reference's ``init_params`` draws it: ``split(key, 4)``; keys[0]
-    split over the encoder layers (each split in two: attn, ffn),
+    """A parameter tree in ``cfg.param_dtype`` drawn from the threefry
+    ``key`` as the reference's ``init_params`` draws it:
+    ``split(key, 4)``; keys[0] split over the encoder layers (each split
+    in two: attn, ffn),
     keys[1] over the decoder layers (each split in three: attn, xattn,
     ffn), keys[2] the embedding, keys[3] unused."""
     ks = prng.split(key, 4)
@@ -138,7 +148,8 @@ def init_tree(cfg: ModelConfig, key, device):
                                                  cfg.d_model), 0.02)},
             "enc": enc, "enc_norm": L._norm_np(cfg), "dec": dec,
             "final_norm": L._norm_np(cfg)}
-    return tree_map(lambda a: torch.from_numpy(a).to(device), tree)
+    dt = L.dtype_of(cfg.param_dtype)
+    return tree_map(lambda a: torch.from_numpy(a).to(device, dt), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -40,11 +40,21 @@ class Model:
         return transformer.init_params(self.cfg, generator, dev)
 
     def init_tree(self, key, device=D.DEFAULT):
-        """A float32 parameter tree from the threefry ``key``, split for
-        split as the reference's ``Model.init(key)``."""
+        """A parameter tree in ``cfg.param_dtype`` from the threefry
+        ``key``, split for split as the reference's ``Model.init(key)``."""
         if self.cfg.is_encoder_decoder:
             return encdec.init_tree(self.cfg, key, D.resolve(device))
         return transformer.init_tree(self.cfg, key, D.resolve(device))
+
+    def init_shapes(self):
+        """``init_tree``'s tree with meta tensors for leaves: shapes and
+        dtypes only (``jax.eval_shape(model.init)``)."""
+        return transformer.init_shapes(self.cfg)
+
+    def cache_shapes(self, batch_size, cache_len, dtype=None):
+        """``init_cache``'s cache with meta tensors for leaves (an
+        encoder-decoder's cross K/V at the encoder's length)."""
+        return self.init_cache(batch_size, cache_len, dtype, device="meta")
 
     def hidden(self, params, batch: Dict[str, Any], *, mode="train",
                cache=None, pos=None, remat=False):

@@ -170,10 +170,17 @@ def _as_tree(named):
 
 
 @functools.lru_cache(maxsize=None)
+def _meta_module(cfg: ModelConfig) -> nn.Module:
+    """``cfg``'s parameter module on the meta device (shapes and dtypes,
+    no data), built once per config."""
+    return new_module(cfg, "meta")
+
+
+@functools.lru_cache(maxsize=None)
 def param_dtypes(cfg: ModelConfig):
     """The dtype of every parameter of ``cfg``'s module, as a tree."""
     return _as_tree((n, p.dtype) for n, p in
-                    new_module(cfg, "meta").named_parameters())
+                    _meta_module(cfg).named_parameters())
 
 
 def tree_of(params: nn.Module):
@@ -235,7 +242,8 @@ def _block_np(cfg, key, kind, use_moe=False, dense_ff=None):
 
 
 def init_tree(cfg: ModelConfig, key, device):
-    """A float32 parameter tree drawn from the threefry ``key`` as the
+    """A parameter tree, each leaf in ``init_dtype`` (float32 in every
+    registered config), drawn from the threefry ``key`` as the
     reference's ``transformer.init_params`` draws it: the same splits
     for the embedding (keys[0]), head block i (keys[1 + i]), every
     period's blocks (keys[1 + fkd] split over the periods, each period
@@ -263,7 +271,39 @@ def init_tree(cfg: ModelConfig, key, device):
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": _normal(keys[-1], (cfg.d_model,
                                                    cfg.vocab_size), 0.02)}
-    return tree_map(lambda a: torch.from_numpy(a).to(device), tree)
+    return _init_tensors(cfg, tree, device)
+
+
+# leaves the reference's init makes in float32 whatever cfg.param_dtype
+# (repro/models/rglru.py: lam; rwkv.py: w0, u)
+FLOAT32_INIT = ("lam", "w0", "u")
+
+
+def init_dtype(cfg: ModelConfig, name) -> torch.dtype:
+    """The dtype the reference's init gives a parameter named ``name``."""
+    return torch.float32 if name in FLOAT32_INIT else \
+        L.dtype_of(cfg.param_dtype)
+
+
+def _init_tensors(cfg, tree, device, name=""):
+    """A tree of numpy draws as tensors on ``device``, each leaf in
+    ``init_dtype``."""
+    if isinstance(tree, dict):
+        return {k: _init_tensors(cfg, v, device, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_init_tensors(cfg, v, device, name) for v in tree]
+    return torch.from_numpy(tree).to(device, init_dtype(cfg, name))
+
+
+def init_shapes(cfg: ModelConfig):
+    """The tree ``init_tree`` returns (a decoder's or an
+    encoder-decoder's), path for path, with every leaf a meta tensor of
+    its shape and dtype: the counterpart of ``jax.eval_shape`` of the
+    reference's init.  Draws no numbers and allocates nothing."""
+    return _as_tree(
+        (n, torch.empty(p.shape, device="meta",
+                        dtype=init_dtype(cfg, n.rsplit(".", 1)[-1])))
+        for n, p in _meta_module(cfg).named_parameters())
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ import torch
 from repro.core import trees as jtrees
 from repro.federation import bindings as jbindings
 from repro_torch.core import trees
+from torch_reference import reference_module
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -38,16 +39,6 @@ ALLOWED = {
     # device instead (ROADMAP, "Rules of the port": Dispatch)
     ("kernels.ops", "CONFIG"), ("kernels.ops", "configure"),
     ("kernels.ops", "resolve_impl"),
-    # ROADMAP §1 item 7.1: the shape names
-    ("configs", "InputShape"), ("configs", "INPUT_SHAPES"),
-    ("configs", "MeshConfig"), ("configs", "long_context_variant"),
-    ("configs.base", "InputShape"), ("configs.base", "INPUT_SHAPES"),
-    ("configs.base", "MeshConfig"),
-    ("configs.registry", "long_context_variant"),
-    # ROADMAP §1 item 7.3: launch/mesh.py, re-exported by launch/
-    ("launch", "make_local_mesh"), ("launch", "make_production_mesh"),
-    # ROADMAP §1 item 7.4: fedkt_dryrun's protocol byte count
-    ("federation.codec", "lm_protocol_bytes"),
 }
 
 
@@ -84,7 +75,7 @@ def _public(mod):
 
 
 def _module(pkg, rel):
-    return importlib.import_module(pkg + ("." + rel if rel else ""))
+    return reference_module(pkg + ("." + rel if rel else ""))
 
 
 @pytest.mark.parametrize("rel", _shared_modules(), ids=lambda r: r or "pkg")
