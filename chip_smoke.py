@@ -12,7 +12,8 @@ non-zero before printing a result):
                 ``src/repro_torch/csrc``, one nvcc each, all started
                 together (-Xptxas -v report printed
                 per kernel, and a summary line of the registers and
-                spills of the wgmma attention and WKV kernels).
+                spills of the wgmma attention kernels, forward and
+                backward, and the WKV kernel).
   2. kernels  : each kernel against its plain PyTorch version on the
                 card, at the main paths' shapes: the vote kernel bit for
                 bit on all five outputs at every shape the rounds give
@@ -156,9 +157,10 @@ non-zero before printing a result):
                 backward, against its plain version at phi4-mini's
                 training shape (B 4, S 512, H 24, KV 8, dh 128, bf16), a
                 gemma2-like one (window 1024 < S 2048, soft-cap 50), a
-                float32 dh-32 one, and whisper-tiny's non-causal (m)
+                float32 dh-32 one, whisper-tiny's non-causal (m)
                 encoder (8, 1500 x 1500) and (n) cross attention (8,
-                128 x 1500: Sq != Skv), identical run to run, timed
+                128 x 1500: Sq != Skv), and a granite-like 48:1 group
+                (1, 1024, dh 128, causal), identical run to run, timed
                 beside its bound and the backward of one SDPA call; then
                 ``launch.train.train_lm`` on phi4-mini-3.8b at full
                 width (bf16 on float32 masters, AdamW, remat, B 4 x S
@@ -295,7 +297,8 @@ def same_bits(a, b):
 
 
 # kernels whose registers and spills get a summary line of their own
-PTXAS_KERNELS = ("flash_attention_wgmma", "wkv6_kernel")
+PTXAS_KERNELS = ("flash_attention_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
+                 "wkv6_kernel")
 
 
 def _kernel_label(mangled):
@@ -2185,10 +2188,11 @@ def lm_backward_rows():
     """N1, the flash-attention backward, against
     ``ref.attention_backward_plain`` on the card at phi4-mini's training
     shape, a gemma2-like one (window shorter than S, soft-cap 50), a
-    float32 dh-32 one, and whisper-tiny's non-causal ones over 1500
+    float32 dh-32 one, whisper-tiny's non-causal ones over 1500
     frames: (m) the encoder (Sq = Skv = 1500) and (n) cross attention
-    (N1b: Sq 128 decoder tokens, Skv 1500): within the forward's
-    tolerances of the largest
+    (N1b: Sq 128 decoder tokens, Skv 1500), and a granite-like 48:1
+    group (one kv head, so the dK/dV grid is 16 CTAs, each walking 48 q
+    heads): within the forward's tolerances of the largest
     |gradient|, identical run to run; kernel, plain and library times
     beside the bound.  The forward's row LSE is held to
     ``ref.attention_plain``'s, and N1's gradients (from K3's o and LSE)
@@ -2209,7 +2213,9 @@ def lm_backward_rows():
         ("m_whisper_encoder", 8, 1500, 1500, 6, 6, 64, torch.bfloat16, 0,
          0.0, False),
         ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, torch.bfloat16, 0, 0.0,
-         False)]
+         False),
+        ("granite_like", 1, 1024, 1024, 48, 1, 128, torch.bfloat16, 0, 0.0,
+         True)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)

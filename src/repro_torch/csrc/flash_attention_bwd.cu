@@ -26,48 +26,93 @@
 // is 0, consistent with the forward's 0 output.
 //
 // What bounds it on the H100: at phi4-mini's training shape (B 4, S 512,
-// H 24, KV 8, dh 128, bf16, causal) the inputs and outputs are about 44
-// MB (13 us at 3.35 TB/s) and the five products 10·B·H·pairs·dh = 16
-// GFLOP, 16 us on the bf16 tensor cores: operations.  This first kernel
-// is right and simple instead: float32 FMAs on the CUDA cores (67 TFLOP/s
-// at best), S and dP recomputed in both passes, so expect it well above
-// its bound (PERF.md has the measured times).  Making it fast (wgmma, a
-// pipelined K/V ring, one pass for S) is later work.
+// H 24, KV 8, dh 128, bf16, causal) the inputs and outputs are about 67
+// MB (0.020 ms at 3.35 TB/s) and the five products 10·B·H·pairs·dh = 16
+// GFLOP (0.016 ms on the bf16 tensor cores): bytes and operations nearly
+// balance.  At whisper's encoder (B 8, 1500 x 1500, 6 heads of 64,
+// non-causal) the products bound it (69 GFLOP, 0.070 ms).  Reaching
+// either needs the tensor cores at Hopper's own rate (wgmma, operands
+// from shared memory) and tiles that land while the last ones are
+// consumed.  With every sum owned by one CTA (none shared across CTAs),
+// S and dP are made in both passes: seven products, not five.  The
+// exponentials (4096 a tile pair in each pass, 16 a clock on an SM's
+// special-function units) and the wgmma chain's latency within one
+// warpgroup are what keep it above that bound (PERF.md has the measured
+// times).
 //
-// Design: three launches, no atomics anywhere, every sum in one fixed
-// order, so the gradients are identical run to run.
-//  1. bwd_dot: D, one warp a (b, s, h) row.
-//  2. bwd_dkdv: one CTA owns one 64-key tile (of ceil(Skv / 64)) of one
-//     kv head of one batch row.  It keeps K and V in shared memory and dK,
-//     dV in registers, and walks every q head of its group and every
-//     64-row query tile (of ceil(Sq / 64)) the mask lets see its keys;
-//     for each it stages Q, dO, lse and D,
-//     computes S and dP (a 16 x 16 thread grid, 4 x 4 scores a thread),
-//     writes P and dS to shared memory and adds P^T dO and dS^T Q.
-//  3. bwd_dq: one CTA owns one 64-row query tile (of ceil(Sq / 64)) of
-//     one q head; it walks the key tiles (of ceil(Skv / 64)) the mask
-//     lets through, recomputes S, P, dP and dS the same way and adds
-//     dS K.
-// Inputs are float32 or bfloat16 (converted to float32 as they are
-// staged); every product accumulates in float32; outputs are in q's type.
+// Design: three launches, no sum shared between CTAs or threads, every
+// sum in one fixed order, so the gradients are identical run to run.
+// Each output tile has one owner CTA.
+//  1. bwd_dot: D, one warp a (b, s, h) row (bytes-bound; both dtypes).
+//  2. dK and dV: one CTA owns one 64-key tile of one kv head of one batch
+//     row and walks every q head of its group, then every 64-row query
+//     tile the mask lets see its keys, in that order.
+//  3. dQ: one CTA owns one 64-row query tile of one q head and walks the
+//     key tiles the mask lets through, in order.
+// Both grids are flat, the tile index slowest, so the CTAs with the most
+// work under a causal mask (key tile 0; the last query tile) start first
+// and the short ones fill the tail.
+//
+// bfloat16 (every training call on the card), two kernels on TMA and
+// wgmma, K3's forward (flash_attention.cu) applied to the five products,
+// with its two wgmma shapes (hopper.cuh): SS m64n64k16 for scores and
+// RS m64n{dh}k16 with B read N-major through the transpose bit.  A CTA
+// is one consumer warpgroup and one producer warp; the producer brings
+// 64-row tiles by TMA through 4-d tensor maps over the (B, S, heads, dh)
+// layout, 128-byte swizzled (64 at dh 32), rows past S zero-filled, into
+// a ring of 2 stages, each on a "full" mbarrier, refilled once every
+// consumer thread has arrived on its "free" one.
+//  - bwd_dkdv_wgmma: K and V land once; the producer streams (Q, dO)
+//    pairs with the 64 rows' lse (in base 2) and D beside them (rows past
+//    Sq: lse +inf, so P is 0, and D 0).  The consumer's 64 accumulator
+//    rows are keys and its columns query rows.  S^T = K Q^T and dP^T = V
+//    dO^T (SS) are issued together; P^T is made from S^T, rounded to bf16
+//    and packed into A fragments as K3 packs P; dV += P^T dO (RS, dO in
+//    V's place) runs on the tensor cores while dS^T = P^T ∘ (dP^T - D) ∘
+//    (1 - t^2) is made in bf16 fragments from the packed P^T; then dK +=
+//    dS^T Q (RS).  A thread holds dK and dV (dh / 2 floats each), S^T and
+//    dP^T (32 each) and P^T's 16 packed pairs (32 under the soft-cap,
+//    which keeps P^T·(1 - t^2) packed beside it): 228 registers at dh
+//    128, one CTA an SM, two at dh <= 64.  The mask is read with (query =
+//    column, key = row) and evaluated only on tiles that cross Skv, the
+//    diagonal or the window's edge.
+//  - bwd_dq_wgmma: K3's forward loop: Q and dO land once, the K and V
+//    tiles stream through the ring; once both have landed S = Q K^T and
+//    dP = dO V^T (SS) are issued together (a wait between the two would
+//    make ptxas serialise every wgmma of the kernel), dS is made in bf16
+//    fragments and dQ += dS K (RS, K in V's place).
+//  P and dS are rounded to bf16 before their products, as K3's forward
+//  rounds P; every product accumulates in float32; outputs are bf16.
+//  The soft-cap is a template argument, so uncapped calls carry no tanh
+//  and no second packed copy of P.  Tried and slower at every main-path
+//  shape: issuing the next tile's scores behind the current dK or dQ
+//  product (ptxas then serialises the wgmmas: too few registers, or
+//  accumulators defined between stages), 128-row owner tiles over two
+//  consumer warpgroups sharing each streamed tile (the two lock-step on
+//  the ring), three CTAs an SM at dh 64, a ring of 3.
+// float32 (the card-vs-CPU parity calls): FMAs on the CUDA cores in full
+// float32, a 16 x 16 thread grid, S and dP in both passes: bwd_dkdv
+// stages Q, dO, lse and D a query tile at a time, writes P and dS to
+// shared memory and adds P^T dO and dS^T Q; bwd_dq adds dS K.
+// A refused launch returns its error: no path stands in for another.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BQ = 64;        // query rows a tile
 constexpr int BK = 64;        // keys a tile
-constexpr int THREADS = 256;  // a 16 x 16 thread grid
-constexpr int R = 4;          // rows (or keys) a thread owns in a tile
+constexpr int THREADS = 256;  // float32: a 16 x 16 thread grid
+constexpr int R = 4;          // float32: rows (or keys) a thread owns
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq,
@@ -78,6 +123,515 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq,
   return ok;
 }
 
+// Whether the mask can hide a pair of query tile [q0, q0 + 64) and key
+// tile [k0, k0 + 64): the tile crosses Skv, the causal diagonal or the
+// window's edge (rows past Sq need no mask: their lse is +inf)
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int Skv,
+                                            int causal, int window) {
+  return k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
+         (window > 0 && k0 <= q0 + BQ - 1 - window);
+}
+
+// The query tiles [start, end) that can see a key of tile [k0, k0 + 64)
+__device__ __forceinline__ void query_tiles(int k0, int Sq, int Skv,
+                                            int causal, int window,
+                                            int* start, int* end) {
+  const int kmax = min(k0 + BK, Skv) - 1;
+  const int q_end = window > 0 ? min(Sq, kmax + window) : Sq;
+  *start = causal ? k0 / BQ : 0;
+  *end = (q_end + BQ - 1) / BQ;
+}
+
+// The key tiles [start, end) that query rows [q0, q0 + 64) can see (the
+// forward's key_tiles at q_offset 0)
+__device__ __forceinline__ void key_tiles(int q0, int Sq, int Skv,
+                                          int causal, int window,
+                                          int* start, int* end) {
+  const int qhi = min(q0 + BQ, Sq) - 1;
+  *end = (Skv + BK - 1) / BK;
+  if (causal) *end = min(*end, qhi / BK + 1);
+  *start = window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / BK : 0;
+}
+
+// ---------------------------------------------------------------------------
+// 1. D = rowsum(dO ∘ O), float32 (B, H, Sq)
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
+            float* __restrict__ Dv, int B, int S, int H, int DH) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * (THREADS / 32) + warp;  // (b, s, h)
+  if (row >= (long)B * S * H) return;
+  const T* po = o + row * DH;
+  const T* pd = dout + row * DH;
+  float acc = 0.f;
+  for (int d = lane; d < DH; d += 32)
+    acc = fmaf(load(po + d), load(pd + d), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = row % H;
+    const long bs = row / H;
+    const int s = bs % S, b = bs / S;
+    Dv[((long)b * H + h) * S + s] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: TMA loads, wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 128 + 32;  // a consumer warpgroup + a producer warp
+constexpr int STAGES = 2;             // the ring
+
+// dK/dV: K, V; STAGES x (Q, dO); STAGES x (lse, D) rows; the barriers
+// (K and V; full and free a stage); slack to align the tiles to 1024
+template <int DH>
+struct KvSmem {
+  static constexpr size_t bytes = 1024 + (size_t)Tile<DH>::TILE *
+                                             (2 + 2 * STAGES) +
+                                  sizeof(float) * 2 * BQ * STAGES +
+                                  8 * (1 + 2 * STAGES);
+};
+
+// dQ: Q, dO; STAGES x (K, V); the barriers (Q and dO; K and V full, K
+// and V free, a stage each); slack
+template <int DH>
+struct QSmem {
+  static constexpr size_t bytes = 1024 + (size_t)Tile<DH>::TILE *
+                                             (2 + 2 * STAGES) +
+                                  8 * (1 + 4 * STAGES);
+};
+
+// The k-step kk's byte offset into a K-major tile (32 bytes a step into
+// its box row; a new box every COLS columns)
+template <int DH>
+__device__ __forceinline__ uint32_t kstep(int kk) {
+  using W = Tile<DH>;
+  return (kk * 16 / W::COLS) * W::BOX + (kk * 16 % W::COLS) * 2;
+}
+
+// acc (64 x 64) = A B^T over DH: both tiles K-major (the scores S, S^T
+// and dP, dP^T)
+template <int DH>
+__device__ __forceinline__ void scores_ss(float (&acc)[32], uint32_t a,
+                                          uint32_t b) {
+  using W = Tile<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n64(acc, sdesc(a + kstep<DH>(kk), 16, 8 * W::SW, W::LAYOUT),
+                 sdesc(b + kstep<DH>(kk), 16, 8 * W::SW, W::LAYOUT));
+}
+
+// acc (64 x DH) += A (64 x 64, bf16 fragments) B, B a (64, DH) tile read
+// N-major: P^T dO, dS^T Q, dS K
+template <int DH>
+__device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+  using W = Tile<DH>;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_pv<DH>(acc, a[kk],
+                 sdesc(b + kk * 16 * W::SW, W::BOX, 8 * W::SW, W::LAYOUT));
+}
+
+// The A fragment slot f (0-3) of k-step kk holds accumulator elements
+// 4j + 2 half + {0, 1} (row g + 8 half, columns 8j + 2t + {0, 1})
+__device__ __forceinline__ int frag_j(int kk, int f) {
+  return 2 * kk + (f >> 1);
+}
+__device__ __forceinline__ int frag_half(int f) { return f & 1; }
+
+// P = 2^(s c2 - lse2) of a raw score v (s = v, or softcap · t under the
+// soft-cap, t = tanh(v · scale / softcap)), and in dcap the cap's
+// derivative 1 - t^2 (1 uncapped)
+template <int CAP>
+__device__ __forceinline__ float prob(float v, float c2, float cap_in,
+                                      float softcap, float lse2,
+                                      float* dcap) {
+  *dcap = 1.f;
+  if (CAP) {
+    const float th = tanh_ex2(v * cap_in);
+    v = softcap * th;
+    *dcap = 1.f - th * th;
+  }
+  return ex2(fmaf(v, c2, -lse2));
+}
+
+template <int DH, int CAP>
+__global__ void __launch_bounds__(WG_THREADS)
+    bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ Dv,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv,
+                   int H, int KV, float scale, int causal, int window,
+                   float softcap) {
+  using W = Tile<DH>;
+  constexpr int DT = DH / 8;  // 8-wide n-tiles of dK, dV
+  extern __shared__ __align__(1024) unsigned char smem_kv[];
+  const uint32_t raw = smem_u32(smem_kv);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + W::TILE;
+  const uint32_t sQ = sV + W::TILE;                // STAGES Q tiles
+  const uint32_t sG = sQ + STAGES * W::TILE;       // STAGES dO tiles
+  const uint32_t sRows = sG + STAGES * W::TILE;    // lse2, D a stage
+  const uint32_t bKV = sRows + sizeof(float) * 2 * BQ * STAGES;
+  const uint32_t bFull = bKV + 8;                  // Q, dO, rows landed
+  const uint32_t bFree = bFull + 8 * STAGES;       // the stage read
+  float* rows = reinterpret_cast<float*>(smem_kv + (sRows - raw));
+
+  // the tile index slowest: key tile 0, which the most query tiles see
+  // under a causal mask, starts first
+  const int kvh = blockIdx.x % KV;
+  const int b = (blockIdx.x / KV) % B;
+  const int k0 = (blockIdx.x / (KV * B)) * BK;
+  const int group = H / KV;
+  int qt_start, qt_end;
+  query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
+  const int per_head = max(qt_end - qt_start, 0);
+  const int n_iter = group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bKV, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bFull + 8 * s, 32);   // the producer warp's lanes
+      mbar_init(bFree + 8 * s, 128);  // the consumer threads
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the roles part here and never meet again
+
+  if (threadIdx.x >= 128) {
+    // The producer warp.  Lane 0 brings K and V once, then each pair's Q
+    // and dO tiles; every lane stages two of the pair's 64 lse (times
+    // log2 e) and D values and arrives on the stage's full barrier.
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(bKV, 2 * W::TILE);
+#pragma unroll
+      for (int c = 0; c < W::NBOX; ++c) {
+        tma_load(sK + c * W::BOX, &tk, bKV, c * W::COLS, kvh, k0, b);
+        tma_load(sV + c * W::BOX, &tv, bKV, c * W::COLS, kvh, k0, b);
+      }
+    }
+    for (int i = 0; i < n_iter; ++i) {
+      const int stage = i % STAGES;
+      const int h = kvh * group + i / per_head;
+      const int q0 = (qt_start + i % per_head) * BQ;
+      if (i >= STAGES) mbar_wait(bFree + 8 * stage, (i / STAGES - 1) & 1);
+      float* lr = rows + stage * 2 * BQ;
+      const size_t row0 = ((size_t)b * H + h) * Sq;
+      for (int r = lane; r < BQ; r += 32) {
+        const int s = q0 + r;
+        lr[r] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
+        lr[BQ + r] = s < Sq ? Dv[row0 + s] : 0.f;
+      }
+      const uint32_t full = bFull + 8 * stage;
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * W::TILE);  // also lane 0's arrival
+#pragma unroll
+        for (int c = 0; c < W::NBOX; ++c) {
+          tma_load(sQ + stage * W::TILE + c * W::BOX, &tq, full,
+                   c * W::COLS, h, q0, b);
+          tma_load(sG + stage * W::TILE + c * W::BOX, &tdo, full,
+                   c * W::COLS, h, q0, b);
+        }
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: accumulator rows are the tile's 64 keys
+  // (r0 + g, half 0; r0 + g + 8, half 1), columns the pair's query rows
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (tid >> 5) * 16;
+  float dK[DH / 2], dV[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dK[i] = dV[i] = 0.f;
+  const float c2 = CAP ? LOG2E : scale * LOG2E;
+  const float cap_in = CAP ? 2.f * LOG2E * scale / softcap : 0.f;
+
+  mbar_wait(bKV, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int stage = i % STAGES;
+    const int q0 = (qt_start + i % per_head) * BQ;
+    const uint32_t tQ = sQ + stage * W::TILE, tG = sG + stage * W::TILE;
+    const float* lr = rows + stage * 2 * BQ;
+    mbar_wait(bFull + 8 * stage, (i / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, issued together
+    float st[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) st[e] = dp[e] = 0.f;
+    fence_regs(st);
+    fence_regs(dp);
+    wgmma_fence();
+    scores_ss<DH>(st, sK, tQ);
+    scores_ss<DH>(dp, sV, tG);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dp);
+
+    // P^T = 2^(s c2 - lse2[query]) (0 where masked), packed to bf16 A
+    // fragments; under the soft-cap also P^T (1 - t^2)
+    const bool masked = tile_masked(q0, k0, Skv, causal, window);
+    uint32_t pa[4][4], pd[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int j = frag_j(kk, f), half = frag_half(f);
+        const int kpos = k0 + r0 + g + 8 * half;
+        float p[2], pc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          float dcap;
+          p[e] = prob<CAP>(st[4 * j + 2 * half + e], c2, cap_in, softcap,
+                           lr[col], &dcap);
+          if (masked && !visible(q0 + col, kpos, Sq, Skv, causal, window))
+            p[e] = 0.f;
+          pc[e] = p[e] * dcap;
+        }
+        pa[kk][f] = pack_bf16(p[0], p[1]);
+        if (CAP) pd[kk][f] = pack_bf16(pc[0], pc[1]);
+      }
+
+    // dV += P^T dO runs while dS^T = P^T (1 - t^2) (dP^T - D[query]) is
+    // made in bf16 A fragments
+    fence_regs(dV);
+    wgmma_fence();
+    product_rs<DH>(dV, pa, tG);
+    wgmma_commit();
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int j = frag_j(kk, f), half = frag_half(f);
+        const uint32_t pp = CAP ? pd[kk][f] : pa[kk][f];
+        const int col = 8 * j + 2 * t;
+        const int e0 = 4 * j + 2 * half;
+        ds[kk][f] = pack_bf16(bf16_lo(pp) * (dp[e0] - lr[BQ + col]),
+                              bf16_hi(pp) * (dp[e0 + 1] - lr[BQ + col + 1]));
+      }
+
+    // dK += dS^T Q
+    fence_regs(dK);
+    wgmma_fence();
+    product_rs<DH>(dK, ds, tQ);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dV);
+    fence_regs(dK);
+    mbar_arrive(bFree + 8 * stage);  // this thread is done with the stage
+  }
+
+  const size_t kv_step = (size_t)KV * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = k0 + r0 + g + 8 * half;
+    if (s < Skv) {
+      const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int e = 4 * d + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * d + 2 * t) =
+            __floats2bfloat162_rn(dK[e] * scale, dK[e + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d + 2 * t) =
+            __floats2bfloat162_rn(dV[e], dV[e + 1]);
+      }
+    }
+  }
+}
+
+template <int DH, int CAP>
+__global__ void __launch_bounds__(WG_THREADS)
+    bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ Dv,
+                 __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv,
+                 int H, int KV, float scale, int causal, int window,
+                 float softcap) {
+  using W = Tile<DH>;
+  constexpr int DT = DH / 8;  // 8-wide n-tiles of dQ
+  extern __shared__ __align__(1024) unsigned char smem_q[];
+  const uint32_t raw = smem_u32(smem_q);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sG = sQ + W::TILE;               // dO
+  const uint32_t sK = sG + W::TILE;               // STAGES K tiles
+  const uint32_t sV = sK + STAGES * W::TILE;      // STAGES V tiles
+  const uint32_t bQ = sV + STAGES * W::TILE;      // Q and dO landed
+  const uint32_t bK = bQ + 8;                     // K landed, a stage
+  const uint32_t bV = bK + 8 * STAGES;            // V landed, a stage
+  const uint32_t bEK = bV + 8 * STAGES;           // K read, a stage
+  const uint32_t bEV = bEK + 8 * STAGES;          // V read, a stage
+
+  // the tile index slowest and reversed: the last query tiles, which see
+  // the most keys under a causal mask, start first
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / (H * B))) * BQ;
+  const int kvh = h / (H / KV);
+  int kt_start, kt_end;
+  key_tiles(q0, Sq, Skv, causal, window, &kt_start, &kt_end);
+  const int n_tiles = kt_end - kt_start;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bQ, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bK + 8 * s, 1);
+      mbar_init(bV + 8 * s, 1);
+      mbar_init(bEK + 8 * s, 128);
+      mbar_init(bEV + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the roles part here and never meet again
+
+  if (threadIdx.x >= 128) {
+    // The producer: one thread keeps the ring full, as in the forward
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bQ, 2 * W::TILE);
+#pragma unroll
+      for (int c = 0; c < W::NBOX; ++c) {
+        tma_load(sQ + c * W::BOX, &tq, bQ, c * W::COLS, h, q0, b);
+        tma_load(sG + c * W::BOX, &tdo, bQ, c * W::COLS, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int stage = j % STAGES;
+        const uint32_t reuse = (j / STAGES - 1) & 1;
+        const int kpos = (kt_start + j) * BK;
+        if (j >= STAGES) mbar_wait(bEK + 8 * stage, reuse);
+        mbar_expect_tx(bK + 8 * stage, W::TILE);
+#pragma unroll
+        for (int c = 0; c < W::NBOX; ++c)
+          tma_load(sK + stage * W::TILE + c * W::BOX, &tk, bK + 8 * stage,
+                   c * W::COLS, kvh, kpos, b);
+        if (j >= STAGES) mbar_wait(bEV + 8 * stage, reuse);
+        mbar_expect_tx(bV + 8 * stage, W::TILE);
+#pragma unroll
+        for (int c = 0; c < W::NBOX; ++c)
+          tma_load(sV + stage * W::TILE + c * W::BOX, &tv, bV + 8 * stage,
+                   c * W::COLS, kvh, kpos, b);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: the tile's 64 query rows, r0 + g (half 0)
+  // and r0 + g + 8 (half 1)
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (tid >> 5) * 16;
+  const size_t row0 = ((size_t)b * H + h) * Sq;
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = q0 + r0 + g + 8 * half;
+    lse2[half] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
+    Dr[half] = s < Sq ? Dv[row0 + s] : 0.f;
+  }
+  float dQ[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dQ[i] = 0.f;
+  const float c2 = CAP ? LOG2E : scale * LOG2E;
+  const float cap_in = CAP ? 2.f * LOG2E * scale / softcap : 0.f;
+
+  mbar_wait(bQ, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (kt_start + i) * BK;
+    const int stage = i % STAGES;
+    const uint32_t parity = (i / STAGES) & 1;
+    const uint32_t tK = sK + stage * W::TILE, tV = sV + stage * W::TILE;
+
+    // S = Q K^T and dP = dO V^T
+    float sc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_wait(bK + 8 * stage, parity);
+    mbar_wait(bV + 8 * stage, parity);
+    wgmma_fence();
+    scores_ss<DH>(sc, sQ, tK);
+    scores_ss<DH>(dp, sG, tV);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive(bEV + 8 * stage);  // this thread is done with V_i
+
+    // dS = P (1 - t^2) (dP - D), P = 2^(s c2 - lse2) (0 where masked),
+    // bf16 A fragments
+    const bool masked = tile_masked(q0, k0, Skv, causal, window);
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int j = frag_j(kk, f), half = frag_half(f);
+        const int qpos = q0 + r0 + g + 8 * half;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * half + e;
+          float dcap;
+          float p = prob<CAP>(sc[idx], c2, cap_in, softcap, lse2[half],
+                              &dcap);
+          if (masked && !visible(qpos, k0 + 8 * j + 2 * t + e, Sq, Skv,
+                                 causal, window))
+            p = 0.f;
+          d[e] = p * dcap * (dp[idx] - Dr[half]);
+        }
+        ds[kk][f] = pack_bf16(d[0], d[1]);
+      }
+
+    // dQ += dS K
+    fence_regs(dQ);
+    wgmma_fence();
+    product_rs<DH>(dQ, ds, tK);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dQ);
+    mbar_arrive(bEK + 8 * stage);  // this thread is done with K_i
+  }
+
+  const size_t q_step = (size_t)H * DH;
+  __nv_bfloat16* qb = dq + (size_t)b * Sq * q_step + (size_t)h * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = q0 + r0 + g + 8 * half;
+    if (s < Sq) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int e = 4 * d + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)s * q_step + 8 * d +
+                                           2 * t) =
+            __floats2bfloat162_rn(dQ[e] * scale, dQ[e + 1] * scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
 // Shared memory of one CTA (both passes): Q and dO tiles (64 query rows),
 // K and V tiles (64 keys), rows padded by one float so that a column walk
 // is free of bank conflicts; P and dS (64 x 64, padded); lse and D of the
@@ -93,15 +647,14 @@ struct Smem {
 };
 
 // Stages rows [r0, r0 + 64) of one head of a (B, S, heads, DH) tensor
-// (S = Sq or Skv) into a padded float tile; rows past S are zeros.
-template <int DH, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* base, int r0,
+// (S = Sq or Skv) into a padded tile; rows past S are zeros.
+template <int DH>
+__device__ __forceinline__ void stage(float* dst, const float* base, int r0,
                                       int S, size_t row_step) {
   for (int i = threadIdx.x; i < 64 * DH; i += THREADS) {
     const int r = i / DH, d = i % DH;
     const int s = r0 + r;
-    dst[r * Smem<DH>::LD + d] =
-        s < S ? load(base + (size_t)s * row_step + d) : 0.f;
+    dst[r * Smem<DH>::LD + d] = s < S ? base[(size_t)s * row_step + d] : 0.f;
   }
 }
 
@@ -177,42 +730,15 @@ __device__ __forceinline__ void stage_rows(float* lse_s, float* D_s,
   }
 }
 
-// ---------------------------------------------------------------------------
-// 1. D = rowsum(dO ∘ O), float32 (B, H, Sq)
-// ---------------------------------------------------------------------------
-template <typename T>
+// dK and dV: a CTA a (key tile, kv head, batch row)
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-    bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
-            float* __restrict__ Dv, int B, int S, int H, int DH) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * (THREADS / 32) + warp;  // (b, s, h)
-  if (row >= (long)B * S * H) return;
-  const T* po = o + row * DH;
-  const T* pd = dout + row * DH;
-  float acc = 0.f;
-  for (int d = lane; d < DH; d += 32)
-    acc = fmaf(load(po + d), load(pd + d), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int h = row % H;
-    const long bs = row / H;
-    const int s = bs % S, b = bs / S;
-    Dv[((long)b * H + h) * S + s] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2. dK and dV: a CTA a (key tile, kv head, batch row)
-// ---------------------------------------------------------------------------
-template <int DH, typename T>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ Dv,
-             T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
-             int KV, float scale, int causal, int window, float softcap) {
+             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+             int H, int KV, float scale, int causal, int window,
+             float softcap) {
   using M = Smem<DH>;
   constexpr int C = DH / 16;  // output columns a thread
   extern __shared__ float smem[];
@@ -237,11 +763,8 @@ __global__ void __launch_bounds__(THREADS)
   stage<DH>(Vs, v + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
             kv_step);
 
-  // the query tiles that can see a key of this tile
-  const int kmax = min(k0 + BK, Skv) - 1;
-  const int qt_start = causal ? k0 / BQ : 0;
-  const int q_end = window > 0 ? min(Sq, kmax + window) : Sq;
-  const int qt_end = (q_end + BQ - 1) / BQ;
+  int qt_start, qt_end;
+  query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
 
   float dK[R][C], dV[R][C];
 #pragma unroll
@@ -251,8 +774,8 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
-    const T* qb = q + (size_t)b * Sq * q_step + (size_t)h * DH;
-    const T* gb = dout + (size_t)b * Sq * q_step + (size_t)h * DH;
+    const float* qb = q + (size_t)b * Sq * q_step + (size_t)h * DH;
+    const float* gb = dout + (size_t)b * Sq * q_step + (size_t)h * DH;
     const size_t row0 = ((size_t)b * H + h) * Sq;
     for (int qt = qt_start; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
@@ -296,23 +819,21 @@ __global__ void __launch_bounds__(THREADS)
       const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        store(dk + off + tx + 16 * c, dK[i][c] * scale);
-        store(dv + off + tx + 16 * c, dV[i][c]);
+        dk[off + tx + 16 * c] = dK[i][c] * scale;
+        dv[off + tx + 16 * c] = dV[i][c];
       }
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// 3. dQ: a CTA a (query tile, q head, batch row)
-// ---------------------------------------------------------------------------
-template <int DH, typename T>
+// dQ: a CTA a (query tile, q head, batch row)
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ Dv,
-           T* __restrict__ dq, int Sq, int Skv, int H, int KV, float scale,
-           int causal, int window, float softcap) {
+           float* __restrict__ dq, int Sq, int Skv, int H, int KV,
+           float scale, int causal, int window, float softcap) {
   using M = Smem<DH>;
   constexpr int C = DH / 16;
   extern __shared__ float smem[];
@@ -330,8 +851,8 @@ __global__ void __launch_bounds__(THREADS)
   const int kvh = h / (H / KV);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t q_step = (size_t)H * DH, kv_step = (size_t)KV * DH;
-  const T* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
-  const T* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
+  const float* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
+  const float* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
 
   stage<DH>(Qs, q + (size_t)b * Sq * q_step + (size_t)h * DH, q0, Sq,
             q_step);
@@ -339,12 +860,8 @@ __global__ void __launch_bounds__(THREADS)
             q_step);
   stage_rows(lse_s, D_s, lse, Dv, q0, Sq, ((size_t)b * H + h) * Sq);
 
-  // the key tiles rows [q0, q0 + 64) can see (the forward's key_tiles)
-  const int qhi = min(q0 + BQ, Sq) - 1;
-  int kt_end = (Skv + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, qhi / BK + 1);
-  const int kt_start =
-      window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / BK : 0;
+  int kt_start, kt_end;
+  key_tiles(q0, Sq, Skv, causal, window, &kt_start, &kt_end);
 
   float dQ[R][C];
 #pragma unroll
@@ -381,69 +898,120 @@ __global__ void __launch_bounds__(THREADS)
     if (s < Sq) {
       const size_t off = ((size_t)b * Sq + s) * q_step + (size_t)h * DH;
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        store(dq + off + tx + 16 * c, dQ[i][c] * scale);
+      for (int c = 0; c < C; ++c) dq[off + tx + 16 * c] = dQ[i][c] * scale;
     }
   }
 }
 
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* Dv, void* dq, void* dk,
-           void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
-           int causal, int window, float softcap, cudaStream_t stream) {
-  const size_t smem = Smem<DH>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq<DH, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+template <typename T>
+int launch_dot(const void* o, const void* dout, float* Dv, int B, int Sq,
+               int H, int DH, cudaStream_t stream) {
   const long rows = (long)B * Sq * H;
-  const int dot_blocks = (int)((rows + THREADS / 32 - 1) / (THREADS / 32));
-  bwd_dot<T><<<dot_blocks, THREADS, 0, stream>>>(
-      (const T*)o, (const T*)dout, Dv, B, Sq, H, DH);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 kv_grid((Skv + BK - 1) / BK, KV, B);
-  bwd_dkdv<DH, T><<<kv_grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, Dv,
-      (T*)dk, (T*)dv, Sq, Skv, H, KV, scale, causal, window, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 q_grid((Sq + BQ - 1) / BQ, H, B);
-  bwd_dq<DH, T><<<q_grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, Dv,
-      (T*)dq, Sq, Skv, H, KV, scale, causal, window, softcap);
+  const int blocks = (int)((rows + THREADS / 32 - 1) / (THREADS / 32));
+  bwd_dot<T><<<blocks, THREADS, 0, stream>>>((const T*)o, (const T*)dout,
+                                             Dv, B, Sq, H, DH);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_dtype(int bf16, const void* q, const void* k, const void* v,
-                 const void* o, const void* dout, const float* lse,
-                 float* Dv, void* dq, void* dk, void* dv, int B, int Sq,
-                 int Skv, int H, int KV, float scale, int causal, int window,
-                 float softcap, cudaStream_t s) {
-  if (bf16)
-    return launch<DH, __nv_bfloat16>(q, k, v, o, dout, lse, Dv, dq, dk, dv,
-                                     B, Sq, Skv, H, KV, scale, causal,
-                                     window, softcap, s);
-  return launch<DH, float>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
-                           Skv, H, KV, scale, causal, window, softcap, s);
+int launch_f32(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* Dv, void* dq,
+               void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+               float scale, int causal, int window, float softcap,
+               cudaStream_t stream) {
+  const size_t smem = Smem<DH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int e = launch_dot<float>(o, dout, Dv, B, Sq, H, DH, stream);
+  if (e != 0) return e;
+  const dim3 kv_grid((Skv + BK - 1) / BK, KV, B);
+  bwd_dkdv<DH><<<kv_grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, Dv, (float*)dk, (float*)dv, Sq, Skv, H, KV, scale, causal,
+      window, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 q_grid((Sq + BQ - 1) / BQ, H, B);
+  bwd_dq<DH><<<q_grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, Dv, (float*)dq, Sq, Skv, H, KV, scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int DH, int CAP>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* Dv, void* dq,
+                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
+  using W = Tile<DH>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
+      !tensor_map(&tk, k, B, Skv, KV, DH, W::COLS, W::SW) ||
+      !tensor_map(&tv, v, B, Skv, KV, DH, W::COLS, W::SW) ||
+      !tensor_map(&tdo, dout, B, Sq, H, DH, W::COLS, W::SW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_wgmma<DH, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)KvSmem<DH>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dq_wgmma<DH, CAP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)QSmem<DH>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  int e = launch_dot<__nv_bfloat16>(o, dout, Dv, B, Sq, H, DH, stream);
+  if (e != 0) return e;
+  const int n_kt = (Skv + BK - 1) / BK, n_qt = (Sq + BQ - 1) / BQ;
+  bwd_dkdv_wgmma<DH, CAP>
+      <<<n_kt * KV * B, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
+          tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+          B, Sq, Skv, H, KV, scale, causal, window, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dq_wgmma<DH, CAP>
+      <<<n_qt * H * B, WG_THREADS, QSmem<DH>::bytes, stream>>>(
+          tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dq, B, Sq, Skv, H, KV,
+          scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+// The two paths: bfloat16 on wgmma (the soft-cap a template argument),
+// float32 on FMAs.
+template <int DH>
+int launch_dh(int bf16, const void* q, const void* k, const void* v,
+              const void* o, const void* dout, const float* lse, float* Dv,
+              void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
+              int KV, float scale, int causal, int window, float softcap,
+              cudaStream_t s) {
+  if (!bf16)
+    return launch_f32<DH>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq, Skv,
+                          H, KV, scale, causal, window, softcap, s);
+  if (softcap > 0.f)
+    return launch_wgmma<DH, 1>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
+                               Skv, H, KV, scale, causal, window, softcap,
+                               s);
+  return launch_wgmma<DH, 0>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
+                             Skv, H, KV, scale, causal, window, softcap, s);
 }
 
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, dh); k, v, dk, dv (B, Skv, KV, dh);
-// contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1).  lse is
-// the forward's float32 (B, H, Sq) row log-sum-exp; Dv a float32 (B, H,
-// Sq) scratch buffer for D.  scale is dh^-0.5 rounded to float32; dh is
-// 32, 64 or 128; a causal call needs Sq == Skv.  Launches three kernels
-// on `stream`; returns the first nonzero cudaGetLastError() (or
-// cudaErrorInvalidValue for another dh, no key at all, or a causal call
-// with Sq != Skv).
+// contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1, 16-byte
+// aligned for TMA).  lse is the forward's float32 (B, H, Sq) row
+// log-sum-exp; Dv a float32 (B, H, Sq) scratch buffer for D.  scale is
+// dh^-0.5 rounded to float32; dh is 32, 64 or 128; a causal call needs
+// Sq == Skv.  Launches three kernels on `stream`; returns the first
+// nonzero cudaGetLastError() (or the error of a shared-memory opt-in, or
+// cudaErrorInvalidValue for another dh, no key at all, a causal call
+// with Sq != Skv, or a tensor map that cannot be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* Dv, void* dq, void* dk,
@@ -456,17 +1024,14 @@ extern "C" int flash_attention_bwd_launch(
   float* D = (float*)Dv;
   switch (dh) {
     case 32:
-      return launch_dtype<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B,
-                              Sq, Skv, H, KV, scale, causal, window,
-                              softcap, s);
+      return launch_dh<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
+                           Skv, H, KV, scale, causal, window, softcap, s);
     case 64:
-      return launch_dtype<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B,
-                              Sq, Skv, H, KV, scale, causal, window,
-                              softcap, s);
+      return launch_dh<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
+                           Skv, H, KV, scale, causal, window, softcap, s);
     case 128:
-      return launch_dtype<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B,
-                               Sq, Skv, H, KV, scale, causal, window,
-                               softcap, s);
+      return launch_dh<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
+                            Skv, H, KV, scale, causal, window, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at
-the repository root, at its first use; the hash is of the source, so an
-edited kernel is rebuilt and a stale library is never loaded.  Nothing
-is built or imported when this module is imported: the CPU tests import
-every module on a host with no ``nvcc``.
+the repository root, at its first use; the hash is of the source and
+of the shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt
+and a stale library is never loaded.  Nothing is built or imported
+when this module is imported: the CPU tests import every module on a
+host with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,10 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -20,7 +20,9 @@ Training: ``return_lse=True`` also returns each row's float32
 log-sum-exp (B, H, Sq), which ``flash_attention_backward`` (the
 hand-written backward, ``csrc/flash_attention_bwd.cu``) takes with q,
 k, v, o and dO to give dQ, dK and dV (Sq = Skv, or Sq != Skv for a
-non-causal cross attention); ``FlashAttention`` is the
+non-causal cross attention): bfloat16 on TMA + wgmma (P and dS rounded
+to bf16 before their products), float32 on FMAs in full float32, the
+launcher choosing by dtype with no fallback; ``FlashAttention`` is the
 ``torch.autograd.Function`` that joins the two, and ``bwd_launches``
 counts the backward's kernel launches (three a call).  The reference has
 no backward kernel: off the TPU it differentiates its xla attention.
@@ -193,8 +195,9 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     Skv).  CUDA tensors, contiguous; q, o, do (B, Sq, H, dh) and k, v
     (B, Skv, KV, dh) of one dtype (float32 or bfloat16); dh at most the
     largest of BWD_HEAD_DIMS (padded to the next one between them).
-    Every product accumulates in float32 in a fixed order (no atomics):
-    the gradients are identical run to run.  The outputs are in q's
+    bfloat16 runs the wgmma kernels, float32 the FMA kernels.  Every
+    product accumulates in float32 in a fixed order (no atomics): the
+    gradients are identical run to run.  The outputs are in q's
     dtype."""
     global bwd_launches
     if q.dim() != 4 or k.dim() != 4:

@@ -68,10 +68,13 @@ def test_forward_non_causal_matches_plain(cuda, dtype, dh, Sq, Skv):
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,dh", [(1, 1500, 1500, 6, 6, 64),
                                               (2, 100, 1500, 6, 6, 64),
                                               (2, 64, 65, 4, 2, 32),
-                                              (2, 130, 70, 4, 1, 32)])
+                                              (2, 130, 70, 4, 1, 32),
+                                              (1, 65, 1500, 6, 6, 64),
+                                              (2, 200, 130, 4, 2, 128)])
 def test_backward_non_causal_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
                                            dh):
-    """N1 at the encoder's Sq = Skv = 1500 and N1b at Sq != Skv."""
+    """N1 at the encoder's Sq = Skv = 1500 and N1b at Sq != Skv, ragged
+    on both sides (a query tile of one row past 64; a key tile of 2)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v, do = _tensors(cuda, B, Sq, Skv, H, KV, dh, dtype, seed=Sq)

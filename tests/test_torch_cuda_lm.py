@@ -33,10 +33,12 @@ def _qkv(cuda, B, S, H, KV, dh, dtype, seed=0):
 
 
 # (B, S, H, KV, window, softcap): MHA, GQA, MQA, windows and caps,
-# ragged S
+# ragged S; a granite-like 48:1 group (one kv head's CTAs walk 48 q
+# heads); a window whose edge cuts a key tile, uncapped
 SHAPES = [(2, 128, 4, 4, 0, 0.0), (2, 200, 6, 2, 0, 0.0),
           (1, 130, 4, 1, 64, 0.0), (2, 150, 4, 2, 0, 50.0),
-          (1, 257, 8, 2, 100, 30.0)]
+          (1, 257, 8, 2, 100, 30.0), (1, 256, 48, 1, 0, 0.0),
+          (2, 320, 8, 4, 90, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -75,6 +77,31 @@ def test_forward_lse_matches_plain(cuda, dtype, dh):
         assert torch.equal(o, o2)      # the LSE changes nothing else
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
         assert float((lse - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_backward_runs_the_dtypes_kernels(cuda, dtype, dh):
+    """bfloat16 runs the TMA + wgmma kernels (bwd_dkdv_wgmma,
+    bwd_dq_wgmma), float32 the FMA kernels (bwd_dkdv, bwd_dq), at the
+    call's head dim, as the profiler sees them; both after bwd_dot."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _qkv(cuda, 2, 128, 4, 2, dh, dtype)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    fa.flash_attention_backward(q, k, v, o, do, lse)   # builds, warms
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_backward(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "bwd_" in e.key]
+    wgmma = dtype == torch.bfloat16
+    assert any("bwd_dot" in n for n in names), names
+    for kernel in ("bwd_dkdv", "bwd_dq"):
+        runs = [n for n in names if kernel in n]
+        assert runs and all(("wgmma" in n) == wgmma and f"<{dh}" in n
+                            for n in runs), names
 
 
 def test_autograd_runs_both_kernels_and_matches_plain(cuda):
