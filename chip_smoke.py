@@ -32,7 +32,8 @@ non-zero before printing a result):
                 gemma2's widths at 6144 positions with window and
                 soft-cap, (c) float32 MQA, (d) recurrentgemma's local
                 attention at head dim 256, (e) float32 at head dim 256,
-                and at the new archs' prefills: (f) stablelm-3b's dh 80,
+                and at the new archs' prefills: (f) stablelm-3b's dh 80
+                (launched at 80) and (f') the same in float32,
                 (g) granite-20b's 48:1 MQA, (h) mixtral-8x7b's 4608
                 positions past its 4096 window, (i) llava's 2 x 3008,
                 (j) deepseek-moe-16b's 8 x 512 bucket, and whisper-tiny's
@@ -127,9 +128,10 @@ non-zero before printing a result):
                 at each factor, equal bit for bit.
   8c. dense_archs: through ``serve_batch`` at full width, granite-20b (52
                 layers, 48 q heads on one kv head) and stablelm-3b (K3
-                at head dim 80, padded to 128) on 4 prompts of 1024
-                tokens, 32 tokens each, and mixtral-8x7b at 16 of its 32
-                layers (a depth cut: 32 do not fit one card) on one
+                at head dim 80, launched at 80; its median prefill and
+                K3 launches on a line of their own) on 4 prompts of
+                1024 tokens, 32 tokens each, and mixtral-8x7b at 16 of
+                its 32 layers (a depth cut: 32 do not fit one card) on one
                 prompt of 4608 tokens, past its 4096-key window; then
                 llava-next-mistral-7b's prefill over 2880 stub patch
                 embeddings + 128 tokens and 8 decode steps at positions
@@ -628,10 +630,10 @@ def phase_attention():
     """Flash attention against ``ref.attention_ref`` at (a) the phi4-mini
     prefill, (b) gemma2-27b's widths, (c) float32 MQA, (d) recurrentgemma's
     local attention (dh 256), (e) float32 at dh 256, (f) stablelm-3b's
-    dh 80 (padded to 128; its bound is the true dh-80 work), (g)
-    granite-20b's 48 q heads on one kv head, (h) mixtral-8x7b's prefill
-    past its 4096-key window, (i) llava's 2880 embeds + 128 tokens
-    (S 3008) and (j) deepseek-moe-16b's
+    dh 80 (launched at 80: five 32-byte-swizzled boxes a tile) and (f')
+    the same in float32, (g) granite-20b's 48 q heads on one kv head,
+    (h) mixtral-8x7b's prefill past its 4096-key window, (i) llava's
+    2880 embeds + 128 tokens (S 3008) and (j) deepseek-moe-16b's
     largest engine bucket, each at the shape its main path launches;
     then whisper-tiny's non-causal calls over 1500 frames (a ragged last
     64-key tile): (k) the encoder's self-attention (Sq = Skv = 1500),
@@ -655,9 +657,11 @@ def phase_attention():
         ("d_recurrentgemma_local", 4, 1024, 10, 1, 256, torch.bfloat16,
          2048, 0.0, True),
         ("e_f32_dh256", 2, 300, 4, 1, 256, torch.float32, 64, 0.0, True),
-        # stablelm-3b's prefill: dh 80, launched padded to 128
+        # stablelm-3b's prefill: dh 80, launched at 80
         ("f_stablelm_dh80", 4, 1024, 32, 32, 80, torch.bfloat16, 0, 0.0,
          True),
+        ("f2_stablelm_dh80_f32", 4, 1024, 32, 32, 80, torch.float32, 0,
+         0.0, True),
         # granite-20b's MQA: 48 q heads on one kv head
         ("g_granite_mqa", 4, 1024, 48, 1, 128, torch.bfloat16, 0, 0.0,
          True),
@@ -1855,7 +1859,14 @@ def phase_dense_archs():
     for cfg, kw in ((get_config("granite-20b"), dict(batch=4)),
                     (get_config("stablelm-3b"), dict(batch=4)),
                     (mixtral, dict(batch=1, prompt_len=4608, gen=8))):
-        _, launches = phase_batch_serving(cfg, reps=3, tag="dense", **kw)
+        m, launches = phase_batch_serving(cfg, reps=3, tag="dense", **kw)
+        if cfg.head_dim_ == 80:   # stablelm-3b: K3 launched at dh 80
+            log("[dense-dh80] " + json.dumps({
+                "arch": cfg.name, "batch": m["batch"],
+                "prompt_len": m["prompt_len"],
+                "prefill_ms_median": m["prefill_ms_median"],
+                "prefill_ms_runs": m["prefill_ms_runs"],
+                "k3_launches": launches["flash_attention"]}))
         total += launches["flash_attention"]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()

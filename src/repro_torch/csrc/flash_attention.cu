@@ -13,8 +13,8 @@
 // Layout: the model's, q/o (B, Sq, H, dh) and k/v (B, Skv, KV, dh),
 // contiguous; the kernel indexes heads by stride (or by a tensor map's
 // head coordinate), so no transpose is made.  Inputs are float32 or
-// bfloat16 (o has q's type); dh is 32, 64, 128 or 256 (recurrentgemma's
-// local attention: 2560 / 10 heads).
+// bfloat16 (o has q's type); dh is 32, 64, 80 (stablelm-3b: 2560 / 32
+// heads), 128 or 256 (recurrentgemma's local attention: 2560 / 10 heads).
 //
 // What bounds it on the H100: at the phi4-mini prefill (b = 8, S = 512,
 // H = 24, KV = 8, dh = 128, bf16) the inputs and output are 67 MB, 0.020
@@ -22,9 +22,12 @@
 // 989 TFLOP/s of the bf16 tensor cores: bytes, barely.  At recurrentgemma's
 // prefill (b = 4, S = 1024, H = 10, KV = 1, dh = 256) the products, 21.5
 // GFLOP, bound it (0.022 ms), as they do at long sequences (gemma2's 6144
-// positions, window 4096).  Reaching either needs the tensor cores at
-// Hopper's own rate (wgmma, operands from shared memory) and tile loads
-// that never leave the cores waiting on device memory.
+// positions, window 4096).  At stablelm-3b's prefill (b = 4, S = 1024,
+// H = KV = 32, dh = 80) the inputs and output are 84 MB, 0.025 ms, and
+// the causal products 21.5 GFLOP, 0.022 ms: bytes, barely, as at phi4.
+// Reaching either needs the tensor cores at Hopper's own rate (wgmma,
+// operands from shared memory) and tile loads that never leave the
+// cores waiting on device memory.
 //
 // Design.  One CTA per (64-row q tile, head, batch row); it loops over
 // the 64-key tiles IN ORDER, which replaces the TPU grid's sequential kv
@@ -43,9 +46,9 @@
 //    tiles by TMA through 4-d tensor maps over the (B, S, heads, dh)
 //    layout (box {<= 64 columns, 1 head, 64 rows, 1}: rows past S are
 //    zero-filled and a box never crosses into the next batch row),
-//    swizzled by 128 bytes (64 at dh 32; a 256-wide row is four boxes),
-//    into a ring of 2 K/V stages; each copy completes on a "full"
-//    mbarrier, and a stage's K (V) is refilled as soon as every consumer
+//    swizzled by 128 bytes (64 at dh 32, 32 at dh 80; a 256-wide row is
+//    four boxes), into a ring of 2 K/V stages; each copy completes on a
+//    "full" mbarrier, and a stage's K (V) is refilled as soon as every consumer
 //    thread has arrived on its "read" mbarrier, so the next tiles' copies
 //    are in flight while the current tile is consumed.  S = Q K^T is
 //    wgmma m64n64k16 with both operands read from shared memory through
@@ -54,7 +57,17 @@
 //    (as the reference's xla path rounds p to v's type), as the A
 //    operand, and V read in its natural (keys, dh) layout through
 //    wgmma's transpose bit.  At dh <= 128 two CTAs share an SM (83 KB of
-//    shared memory each at dh 128).  At dh 256 a consumer thread holds
+//    shared memory each at dh 128).  At dh 80 a 160-byte row is tiled by
+//    no 64- or 128-byte swizzle, so each tile is five boxes of 16 columns
+//    x 64 rows with the 32-byte swizzle (2 KB a box, a 10 KB tile, read
+//    in place: the row stride H x 160 bytes and the head stride 160 meet
+//    TMA's 16-byte rule): Q K^T's k-step kk is box kk, and P V is one
+//    m64n80k16 a 16-key step, V's five boxes one leading-byte-offset
+//    apart.  That is the true dh-80 work, with no pad to 128 and no
+//    slice of the output; a consumer thread holds 40 O accumulators,
+//    and a CTA's 52,296 bytes let three share an SM (the launch bounds
+//    ask for it) to hide the serial Q K^T -> softmax -> P V chain of its
+//    one warpgroup.  At dh 256 a consumer thread holds
 //    128 O accumulators beside S's 32 and P's 16 (about 206 registers),
 //    and the CTA (Q 32 KB + 2 x (K 32 KB + V 32 KB)) has an SM to
 //    itself; two consumer warpgroups sharing each K/V tile (FA3's
@@ -130,10 +143,13 @@ struct Wg : Tile<DH> {
   static constexpr size_t bytes =
       1024 + (size_t)Tile<DH>::TILE * (1 + 2 * STAGES) +
       8 * (1 + 4 * STAGES);
+  // CTAs an SM that the launch bounds ask for: three at dh 80 (3 x 52 KB
+  // of shared memory, at most 136 registers a thread)
+  static constexpr int CTAS = DH == 80 ? 3 : 1;
 };
 
 template <int DH>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(WG_THREADS, Wg<DH>::CTAS)
     flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -237,6 +253,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     const uint32_t parity = (i / STAGES) & 1;
 
     // S = Q K_i^T: both K-major; k-step kk is 32 bytes into its box row
+    // (at dh 80, where a box is 32 bytes wide, box kk itself)
     float sc[NT * 4];
 #pragma unroll
     for (int e = 0; e < NT * 4; ++e) sc[e] = 0.f;
@@ -611,6 +628,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                            q_offset, threads, bytes, s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
+                           H, KV, scale, causal, window, softcap,
+                           q_offset, threads, bytes, s);
+    case 80:
+      return launch_dh<80>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
                            H, KV, scale, causal, window, softcap,
                            q_offset, threads, bytes, s);
     case 128:

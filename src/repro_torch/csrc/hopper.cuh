@@ -15,17 +15,23 @@ namespace {
 
 constexpr int TILE_ROWS = 64;  // rows of every TMA box and wgmma tile
 
-// The shared-memory geometry of one 64-row bf16 tile of head dim DH: the
-// swizzle is 128 bytes, or a dh-32 row's 64; the tile is stored as
-// DH / COLS column blocks of 64 rows x SW bytes (one TMA box each)
+// The shared-memory geometry of one 64-row bf16 tile of head dim DH,
+// stored as NBOX = DH / COLS column blocks of 64 rows x SW bytes (one
+// TMA box each): the swizzle is 128 bytes where DH is a multiple of 64,
+// a dh-32 row's 64, and 32 bytes (boxes of 16 columns, one wgmma k-step
+// each) for any other multiple of 16: stablelm's dh 80 is five 32-byte
+// boxes (kernels/flash_attention.py: tile mirrors this)
 template <int DH>
 struct Tile {
-  static constexpr int SW = DH * 2 >= 128 ? 128 : DH * 2;
+  static_assert(DH % 16 == 0, "a head dim of whole 16-column k-steps");
+  static constexpr int SW = DH % 64 == 0 ? 128 : DH == 32 ? 64 : 32;
   static constexpr int COLS = SW / 2;
   static constexpr int NBOX = DH / COLS;
   static constexpr int BOX = TILE_ROWS * SW;  // bytes of one box
   static constexpr int TILE = TILE_ROWS * DH * 2;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor code
+  // the wgmma descriptor's swizzle code: 1 for 128 bytes, 2 for 64, 3
+  // for 32
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -198,6 +204,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 80, float32) += A (64 x 16, bf16 pairs in registers) B, B
+// in shared memory with N contiguous (descriptor db, transpose bit set):
+// stablelm's dh 80, five 16-column boxes of a 32-byte-swizzled V tile
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, float32) += A (64 x 16, bf16 pairs in registers) B, B
 // in shared memory with N contiguous (descriptor db, transpose bit set)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -291,6 +323,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
                                          uint64_t db) {
   if constexpr (DH == 32) wgmma_rs_n32(d, a, db);
   if constexpr (DH == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (DH == 80) wgmma_rs_n80(d, a, db);
   if constexpr (DH == 128) wgmma_rs_n128(d, a, db);
   if constexpr (DH == 256) wgmma_rs_n256(d, a, db);
 }
@@ -339,8 +372,9 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

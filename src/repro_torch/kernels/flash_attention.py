@@ -27,13 +27,16 @@ launcher choosing by dtype with no fallback; ``FlashAttention`` is the
 counts the backward's kernel launches (three a call).  The reference has
 no backward kernel: off the TPU it differentiates its xla attention.
 
-Head dims between the kernels' own (stablelm's 80) are zero-padded on
-the head axis to the next one (``padded_head_dim``: 80 -> 128) and run
-with the true dim's scale ``dh ** -0.5``: zero columns add nothing to
-q·k, to D = rowsum(dO·O) or to dQ and dK, and the padded output columns
-are sliced away.  That costs the padded dim's work and the pad and
-slice copies, 1.6x the reads at 80 (ROADMAP §2 has the native dh-80
-redesign).
+The forward runs stablelm's head dim 80 natively (``HEAD_DIMS``; the
+bfloat16 tiles are five 32-byte-swizzled boxes of 16 columns, ``tile``).
+A head dim between a kernel's own is zero-padded on the head axis to
+the next one (``padded_head_dim``: the forward's 48 -> 64; the
+backward's 80 -> 128, ``BWD_HEAD_DIMS``) and run with the true dim's
+scale ``dh ** -0.5``: zero columns add nothing to q·k, to D =
+rowsum(dO·O) or to dQ and dK, and the padded output columns are sliced
+away, at the cost of the padded dim's work and the pad and slice
+copies.  ``FlashAttention`` at dh 80 thus joins a native forward to a
+padded backward.
 """
 from __future__ import annotations
 
@@ -51,13 +54,28 @@ bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
 BWD_HEAD_DIMS = (32, 64, 128)
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 BQ = BK = 64       # query rows a CTA, keys a tile
 STAGES = 2         # the wgmma path's K / V ring
 WG_THREADS = 128 + 32  # the wgmma path: a consumer warpgroup + a producer warp
 FMA_THREADS = 256  # the float32 path's 16 x 16 thread grid
 SMEM_MAX = 232_448  # shared memory one CTA may opt into on the H100
+
+
+class Tile(NamedTuple):
+    swizzle: int  # bytes of TMA's (and wgmma's) swizzle: 128, 64 or 32
+    cols: int     # bf16 columns of one box, swizzle / 2
+    boxes: int    # boxes of 64 rows x swizzle bytes a tile, dh / cols
+
+
+def tile(dh):
+    """The shared-memory geometry of a 64-row bfloat16 tile of head dim
+    ``dh`` on the wgmma path (``csrc/hopper.cuh: Tile``): a 128-byte
+    swizzle where dh is a multiple of 64, dh 32's 64-byte row, else (dh
+    80) boxes of 16 columns with the 32-byte swizzle."""
+    swizzle = 128 if dh % 64 == 0 else 64 if dh == 32 else 32
+    return Tile(swizzle, swizzle // 2, dh // (swizzle // 2))
 
 
 class Plan(NamedTuple):
@@ -72,12 +90,15 @@ def plan(dh, dtype):
     """The launch plan at head dim ``dh`` and ``dtype``.  bfloat16 takes
     the wgmma path: a consumer warpgroup of 64 query rows and a producer
     warp a CTA, a Q tile and a ring of STAGES K and V tiles (64 x dh bf16
-    each), 9 barriers, and 1 KB of slack to align the tiles to the
-    128-byte swizzle's 1024-byte period (two CTAs an SM at dh <= 128,
-    one at dh 256).  float32 takes the FMA path: Q, the K tile (reused
-    as P) and the V tile in shared memory, rows padded by one float."""
+    each, ``tile(dh).boxes`` TMA boxes), 9 barriers, and 1 KB of slack
+    to align the tiles to the 128-byte swizzle's 1024-byte period (three
+    CTAs an SM at dh 80, two at the other dh <= 128, one at dh 256).
+    float32 takes the FMA path: Q, the K tile (reused as P) and the V
+    tile in shared memory, rows padded by one float."""
     if dtype == torch.bfloat16:
-        smem = 1024 + BK * dh * 2 * (1 + 2 * STAGES) + 8 * (1 + 4 * STAGES)
+        t = tile(dh)
+        tile_bytes = t.boxes * BK * t.swizzle
+        smem = 1024 + tile_bytes * (1 + 2 * STAGES) + 8 * (1 + 4 * STAGES)
         return Plan("wgmma", BQ, BK, WG_THREADS, smem)
     ld, pld = dh + 1, BK + 1
     smem = 4 * (BQ * ld + max(BK * ld, BQ * pld) + BK * dh)
@@ -137,9 +158,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, return_lse=False):
     """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh); CUDA tensors of one
     dtype (float32 or bfloat16), contiguous, H % KV == 0, dh at most
-    the largest of HEAD_DIMS (a dh between them runs padded to the next
-    one).  ``q_offset`` is an int.  Returns (B, Sq, H, dh) in q's
-    dtype, and with ``return_lse`` also the float32 (B, H, Sq) row
+    the largest of HEAD_DIMS (launched as it is where HEAD_DIMS has it,
+    dh 80 included; a dh between them runs padded to the next one).
+    ``q_offset`` is an int.  Returns (B, Sq, H, dh) in q's dtype, and
+    with ``return_lse`` also the float32 (B, H, Sq) row
     log-sum-exp of the scaled, soft-capped, masked scores (+inf for a
     row that sees no key)."""
     global launches

@@ -11,8 +11,8 @@ build the S x S scores.
 
 Each call adds its work to the active ``Work`` tally (``counting``), by
 the formulas of the kernels' bounds (PERF.md §6), with B the batch, H
-the query heads, dh the true head dim (stablelm's 80, not its padded
-128), S the steps and D the channels:
+the query heads, dh the true head dim (stablelm's 80, which K3 runs
+natively and N1 padded to 128), S the steps and D the channels:
 
   K3 attention forward     4·B·H·pairs·dh FLOPs, pairs = the (query,
                            key) pairs the mask lets through; bytes: q,

@@ -406,15 +406,15 @@ def test_serve_cli_on_the_cpu(arch, path, capsys):
 
 
 def test_head_dim_80_pads_to_128_exactly():
-    """K3 and N1 launch stablelm's head dim 80 at 128: zero columns
-    leave q·k and the output's first 80 columns as they are, given the
-    true dim's scale (here folded into q for the plain version, which
-    takes its scale from the head dim)."""
+    """K3 launches stablelm's head dim 80 as it is; N1 pads it to 128,
+    exactly: zero columns leave q·k and the output's first 80 columns
+    as they are, given the true dim's scale (here folded into q for the
+    plain version, which takes its scale from the head dim)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    assert [fa.padded_head_dim(d) for d in (16, 32, 80, 128, 200, 256,
+    assert [fa.padded_head_dim(d) for d in (16, 32, 48, 80, 128, 200, 256,
                                              257)] == \
-        [32, 32, 128, 128, 256, 256, None]
+        [32, 32, 64, 80, 128, 256, 256, None]
     assert fa.padded_head_dim(80, fa.BWD_HEAD_DIMS) == 128
     assert fa.padded_head_dim(256, fa.BWD_HEAD_DIMS) is None
     g = torch.Generator().manual_seed(0)

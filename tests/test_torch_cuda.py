@@ -226,6 +226,9 @@ ATT_SHAPES = [
     (1, 100, 300, 4, 2, 128, 200),   # chunked prefill: q_offset
     (2, 200, 200, 10, 1, 256, 0),    # recurrentgemma's heads: dh 256, MQA
     (1, 70, 330, 2, 1, 256, 260),    # dh 256 with q_offset
+    (2, 150, 150, 8, 2, 80, 0),      # stablelm's head dim 80, launched
+                                     # at 80 (float32: five output columns
+                                     # a thread; bf16: 32-byte boxes)
 ]
 
 
@@ -280,13 +283,13 @@ WG_CASES = [
 
 
 @pytest.mark.parametrize("case", WG_CASES)
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 def test_flash_attention_wgmma_path(cuda, case, dh):
-    """The bfloat16 path (TMA + wgmma) at head dims 32 to 256, at ragged
-    Sq and Skv, q_offset, window, soft-cap and GQA ratios 1, 3, 8, 10:
-    within 2e-2 of ``ref.attention_ref``, identical run to run, and
-    exactly 0 on rows that see no key (where the naive oracle averages
-    every value)."""
+    """The bfloat16 path (TMA + wgmma) at head dims 32 to 256 (dh 80 on
+    32-byte-swizzled boxes and m64n80k16), at ragged Sq and Skv,
+    q_offset, window, soft-cap and GQA ratios 1, 3, 8, 10: within 2e-2
+    of ``ref.attention_ref``, identical run to run, and exactly 0 on rows
+    that see no key (where the naive oracle averages every value)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     B, Sq, Skv, H, KV, off, window, cap = case

@@ -1,7 +1,9 @@
-"""The MoE slice's archs on the card: flash attention (K3) and its
-backward (N1) at stablelm's head dim 80 (padded to 128 on the head
-axis) and at granite's MQA group (48 q heads on one kv head), the MoE
-layer run to run, and each new smoke's logits against the CPU's.
+"""The MoE slice's archs on the card: flash attention (K3) at
+stablelm's head dim 80 (launched at 80: one device kernel a call) and
+its backward (N1, padded to 128 on the head axis), the two joined by
+``FlashAttention``, K3 at granite's MQA group (48 q heads on one kv
+head), the MoE layer run to run, and each new smoke's logits against
+the CPU's.
 
 Run on a GPU host with
 ``python -m pytest -q -m cuda tests/test_torch_cuda_archs.py``;
@@ -50,7 +52,7 @@ def test_k3_at_head_dim_80_matches_plain(cuda, dtype, B, S, H, KV, window,
                                          softcap):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    assert fa.padded_head_dim(80) == 128
+    assert fa.padded_head_dim(80) == 80     # launched at 80, not padded
     q, k, v, _ = _qkv(cuda, B, S, H, KV, 80, dtype, seed=S)
     kw = dict(causal=True, window=window, softcap=softcap)
     n = fa.launches
@@ -62,11 +64,110 @@ def test_k3_at_head_dim_80_matches_plain(cuda, dtype, B, S, H, KV, window,
     assert got.is_contiguous() and torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
-    # the row LSE of the padded launch is the true dim's
+    # the row LSE, the backward's input
     _, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     _, want_lse = ref.attention_plain(q, k, v, return_lse=True, **kw)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert float((lse - want_lse).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Sq,Skv", [(2, 65), (64, 100), (100, 65),
+                                    (100, 100)])
+def test_k3_at_head_dim_80_non_causal_ragged_keys(cuda, dtype, Sq, Skv):
+    """K3 at dh 80 with no mask over ragged key tiles (65, 100), as
+    whisper's cross attention is held: within the tolerance of
+    ``ref.attention_ref``, identical run to run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = torch.randn((2, Sq, 8, 80), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, Skv, 4, 80), generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=False)
+    again = fa.flash_attention(q, k, v, causal=False)
+    want = ref.attention_ref(q, k, v, causal=False)
+    assert got.shape == q.shape and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+# One bfloat16 dh-80 forward call under torch.profiler, in a process of
+# its own: with this session in the pytest process, the profiler test of
+# tests/test_torch_cuda_lm.py, run later there, saw only one of its
+# three kernels.  Prints {kernel name: calls}.
+PROFILE_ONE_CALL = """
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import flash_attention as fa
+g = torch.Generator(device="cuda").manual_seed(5)
+q, k, v = (torch.randn((2, 256, n, 80), generator=g, device="cuda")
+           .bfloat16() for n in (8, 4, 4))
+fa.flash_attention(q, k, v)                     # builds, warms
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+print(json.dumps({e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}))
+"""
+
+
+def test_k3_at_head_dim_80_runs_one_device_kernel(cuda):
+    """A bfloat16 dh-80 forward call is one device kernel, the dh-80
+    wgmma kernel: no pad of q, k, v and no slice of the output."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", PROFILE_ONE_CALL, str(src)],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    runs = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sum(runs.values()) == 1, runs
+    (name,) = runs
+    assert "flash_attention_wgmma<80>" in name, runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 30.0)])
+def test_flash_attention_autograd_at_head_dim_80(cuda, dtype, window,
+                                                 softcap):
+    """``FlashAttention`` at dh 80, a native forward joined to N1 padded
+    to 128: the output against the plain forward, dq, dk and dv against
+    ``ref.attention_backward_plain`` from the plain forward's own o and
+    LSE within N1's tolerance of the largest |gradient|, one forward
+    and one backward call, identical run to run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v, do = _qkv(cuda, 2, 160, 8, 4, 80, dtype, seed=9)
+    kw = dict(causal=True, window=window, softcap=softcap)
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fa.FlashAttention.apply(*leaves, True, window, softcap)
+        return o.detach(), torch.autograd.grad(o, leaves, do)
+    n = (fa.launches, fa.bwd_launches)
+    o, got = run()
+    assert (fa.launches - n[0], fa.bwd_launches - n[1]) == \
+        (1, fa.BWD_KERNELS)
+    o2, again = run()
+    want_o, want_lse = ref.attention_plain(q, k, v, return_lse=True, **kw)
+    want = ref.attention_backward_plain(q, k, v, want_o, do, want_lse, **kw)
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape and torch.equal(a, b)
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= \
+            _tol(dtype) * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

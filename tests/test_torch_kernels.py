@@ -251,15 +251,15 @@ def test_tree_hist_launch_plan(N, F, K, n, B):
         assert chunk == 256
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_launch_plan(dh, dtype):
     """The attention kernel's launch plan (``flash_attention.plan``):
     every bfloat16 head dim takes the wgmma path (a warpgroup of 64 query
     rows and a producer warp, a 2-stage K/V ring; two CTAs an SM at dh
-    <= 128), float32 the FMA path; the shared memory the launcher asks
-    for stays within what one CTA may opt into on the H100 (232,448
-    bytes), and the threads are whole warps."""
+    <= 128, three at stablelm's dh 80), float32 the FMA path; the shared
+    memory the launcher asks for stays within what one CTA may opt into
+    on the H100 (232,448 bytes), and the threads are whole warps."""
     from repro_torch.kernels import flash_attention as fa
     p = fa.plan(dh, dtype)
     assert p.keys == 64 and p.threads % 32 == 0
@@ -272,11 +272,39 @@ def test_flash_attention_launch_plan(dh, dtype):
         assert p.smem == 1024 + tile * 5 + 72
         if dh <= 128:   # two CTAs an SM
             assert 2 * p.smem <= 228 * 1024
+        if dh == 80:    # three: five 2 KB boxes a tile
+            assert p.smem == 52_296 and 3 * p.smem <= 228 * 1024
     else:
         assert (p.path, p.rows, p.threads) == ("fma", 64, 256)
         # Q, the K tile or the P tile over it, V; rows padded by 1
         assert p.smem == 4 * (64 * (dh + 1) + 64 * max(dh + 1, 65)
                               + 64 * dh)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
+def test_flash_attention_tile_geometry(dh):
+    """The wgmma path's tile geometry (``flash_attention.tile``, the
+    mirror of ``csrc/hopper.cuh: Tile``) at every head dim the forward
+    launches: its boxes cover the row's dh columns exactly, a box's row
+    of bytes fills its swizzle span (a TMA box may not be wider), a
+    k-step of 16 columns never straddles two boxes, a tile keeps the next
+    one on the 1024-byte period the kernel aligns Q to, and the plan's
+    shared memory is that of 5 such tiles."""
+    from repro_torch.kernels import flash_attention as fa
+    assert dh in fa.HEAD_DIMS
+    t = fa.tile(dh)
+    assert t.swizzle in (32, 64, 128)
+    assert t.boxes * t.cols == dh and t.cols * 2 == t.swizzle
+    assert t.cols % 16 == 0                       # whole k-steps a box
+    box = 64 * t.swizzle
+    assert t.boxes * box == 64 * dh * 2           # the whole bf16 tile
+    assert t.boxes * box % 1024 == 0
+    assert fa.plan(dh, torch.bfloat16).smem == \
+        1024 + 5 * t.boxes * box + 72
+    # stablelm's 160-byte row: five 32-byte boxes, no padding to 128
+    if dh == 80:
+        assert t == fa.Tile(swizzle=32, cols=16, boxes=5)
+    assert fa.padded_head_dim(dh) == dh
 
 
 @pytest.mark.parametrize("S", [0, 1, 2, 15, 16, 17, 77, 1000, 1024,
