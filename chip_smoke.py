@@ -6,14 +6,15 @@
 Phases, each failing loudly (a failed check raises and the script exits
 non-zero before printing a result):
 
-  1. device   : the card's name, count, power limit; the six CUDA
+  1. device   : the card's name, count, power limit; the eight CUDA
                 kernel sources (the five TPU kernels' counterparts and
-                the attention backward) built from
+                the backward kernels of attention, the RG-LRU scan and
+                the WKV recurrence) built from
                 ``src/repro_torch/csrc``, one nvcc each, all started
                 together (-Xptxas -v report printed
                 per kernel, and a summary line of the registers and
                 spills of the wgmma attention kernels, forward and
-                backward, and the WKV kernel).
+                backward, and the WKV and recurrence-backward kernels).
   2. kernels  : each kernel against its plain PyTorch version on the
                 card, at the main paths' shapes: the vote kernel bit for
                 bit on all five outputs at every shape the rounds give
@@ -161,37 +162,64 @@ non-zero before printing a result):
                 gemma2-like one (window 1024 < S 2048, soft-cap 50), a
                 float32 dh-32 one, whisper-tiny's non-causal (m)
                 encoder (8, 1500 x 1500) and (n) cross attention (8,
-                128 x 1500: Sq != Skv), and a granite-like 48:1 group
-                (1, 1024, dh 128, causal), identical run to run, timed
-                beside its bound and the backward of one SDPA call; then
+                128 x 1500: Sq != Skv), a granite-like 48:1 group
+                (1, 1024, dh 128, causal), and recurrentgemma's local
+                attention at dh 256 (10:1, window 2048) at (4, 512) and
+                (1, 4096), identical run to run, timed beside its bound
+                and the backward of one SDPA call (an explicit window
+                mask where the window is shorter than S); then
                 ``launch.train.train_lm`` on phi4-mini-3.8b at full
                 width (bf16 on float32 masters, AdamW, remat, B 4 x S
                 512, 8 steps): finite, falling losses, exact K3 / N1
                 launches a step, no K4 / K5; ``make_train_step`` on the
-                card against the CPU at the phi4 and gemma2 smokes in
-                float32 (AdamW losses and first-step gradients, SGD
-                parameters, within 1e-4; AdamW parameters within 1e-4
-                where the first step's gradient fixes the update's sign,
-                within the bound of a free sign elsewhere); ``fedkt_lm`` at L0 and L2
-                card against CPU (>= 99 % equal server labels, equal
-                epsilon, K1 a party partition); 3 full-width phi4-mini
+                card against the CPU at the phi4, gemma2, recurrentgemma
+                and rwkv6 smokes in float32 (AdamW losses and first-step
+                gradients, SGD parameters, within 1e-4; AdamW parameters
+                within 1e-4 where the first step's gradient fixes the
+                update's sign, within the bound of a free sign
+                elsewhere; rwkv6's all within that bound, its smoke's
+                gradients being ten times as sensitive to rounding on
+                the CPU alone: ``ADAMW_SIGN_FREE_ARCHS``);
+                ``fedkt_lm`` at L0 and L2 card against CPU (>= 99 %
+                equal server labels, equal epsilon, K1 a party
+                partition); 3 full-width phi4-mini
                 members' label step with the noisy token vote, K1 at
                 (3, 2048, 200,064) bit for bit against its plain
                 version; the trained parameters saved as a checkpoint
                 in the reference's format and served by ``launch.serve
                 --checkpoint``, streams equal to the in-memory ones.
+                Then the recurrences' backward kernels: N2a (K4's)
+                bit for bit against ``ref.rglru_scan_backward_plain`` at
+                recurrentgemma's train shape (4, 512, 2560), at S 1024,
+                a ragged S 1000 and in float32, from a nonzero h0 with a
+                nonzero dh_last; N2b (K5's) within 2e-2 (bf16) or 1e-5
+                (float32) of each gradient's largest against
+                ``ref.wkv6_backward_plain`` at rwkv6's (4, 512, 64 x 64)
+                from the zero state and from a nonzero one with
+                ds_last, and in float32; each also composed with its
+                forward through its autograd Function, identical run to
+                run, timed (events and a CUDA graph) beside its bound
+                and the plain version.  Then ``train_lm`` on
+                recurrentgemma-2b (26 layers) and rwkv6-7b cut to 12 of
+                its 32 layers (32 layers' masters, gradients and AdamW
+                moments are 120.6 GB) as on phi4: exact K3, N1, K4, N2a,
+                K5 and N2b launches a step from the layer pattern, the
+                first loss within [ln V, ln V + 1.79], the first batch's
+                loss lower after the 8 steps, step ms, tokens/s, peak.
   10. dryrun  : the port's dry-run on the meta device (no kernel
                 launch; host time): one arch per family (phi4-mini,
                 mixtral, recurrentgemma, whisper) x the four input
                 shapes x both production meshes, each pair's dominant
                 term, per-device peak against the card's 80 GB and the
                 seconds of its terms, the skips equal to ``SKIPS``; then
-                lm_train's exact step (phi4-mini, B 4 x S 512, remat,
-                AdamW, float32 masters) on a one-device mesh, predicted
-                beside that phase's measured step ms and peak memory
-                (the params, gradients and AdamW state it predicts may
-                not exceed the measured peak; its K3 and N1 calls must
-                equal the launches the card counted); FedKT's label step
+                lm_train's exact steps (phi4-mini, recurrentgemma-2b,
+                rwkv6-7b's 12-layer cut; B 4 x S 512, remat, AdamW,
+                float32 masters) on a one-device mesh, predicted beside
+                that phase's measured step ms and peak memory (the
+                params, gradients and AdamW state it predicts may not
+                exceed the measured peak; its calls of K3, N1, K4, N2a,
+                K5 and N2b must equal the launches the card counted);
+                FedKT's label step
                 at 16 members (protocol bytes), and at lm_label's 3
                 members and (2, 1024) block beside its measured wall.
   --profile    : device time by kernel and the device's busy share of
@@ -300,7 +328,7 @@ def same_bits(a, b):
 
 # kernels whose registers and spills get a summary line of their own
 PTXAS_KERNELS = ("flash_attention_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
-                 "wkv6_kernel")
+                 "wkv6_kernel", "wkv6_bwd_kernel", "rglru_scan_bwd")
 
 
 def _kernel_label(mangled):
@@ -1315,11 +1343,12 @@ def phase_strategies():
     return rows
 
 
-def _profiled(name, fn):
+def _profiled(name, fn, watch=()):
     """Runs ``fn`` under torch.profiler and logs device time by kernel
     and the device's busy share of the wall time (profiler overhead
     included in the wall; kernels that overlap would count twice, but
-    everything here runs on one stream)."""
+    everything here runs on one stream); and for each kernel whose name
+    holds one of ``watch``, its rank by device time, time and calls."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1341,7 +1370,10 @@ def _profiled(name, fn):
         "run": name, "wall_s": secs, "device_busy_s": busy,
         "busy_share": busy / secs,
         "top": [{"name": k[:60], "device_ms": us / 1e3, "calls": c}
-                for us, k, c in rows[:10]]}))
+                for us, k, c in rows[:10]],
+        "watched": [{"rank": i + 1, "name": k[:80], "device_ms": us / 1e3,
+                     "calls": c} for i, (us, k, c) in enumerate(rows)
+                    if any(w in k for w in watch)]}))
 
 
 def phase_profile(data):
@@ -2094,10 +2126,7 @@ def whisper_train(smi, batch=8, seq=128, steps=8):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     got = _lm_counts()
-    k3, n1 = train_launches(cfg)
-    want = {"flash_attention": k3 * steps,
-            "flash_attention_backward": fa.BWD_KERNELS * n1 * steps,
-            "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
+    want = {k: n * steps for k, n in train_launches(cfg).items()}
     med = float(np.median(step_ms[-6:]))
     row = {"arch": cfg.name, "params": sum(t.numel() for t in
                                            tree_leaves(params)),
@@ -2136,18 +2165,21 @@ def phase_whisper(smi):
 # ---------------------------------------------------------------------------
 # Phase 9: LM training (lm_train)
 # ---------------------------------------------------------------------------
-def sdpa_backward_best(q, k, v, do, want, tol, causal=True):
+def sdpa_backward_best(q, k, v, do, want, tol, causal=True, mask=None,
+                       required=True):
     """The library yardstick of the attention backward: autograd of one
-    ``scaled_dot_product_attention`` call (``is_causal`` = ``causal``)
-    at the same shape, its backward alone (CUDA events over repeated
-    ``autograd.grad`` on one retained graph), on the fastest of SDPA's
-    backends that take the call, each pinned with ``sdpa_kernel``, as
-    ``sdpa_best`` times the forward: (ms, backend, {backend: ms} of
-    every backend that took it).  Each backend's
-    gradients are held to ``want`` (N1's) within ``tol`` of the largest
-    |gradient|; where a backend refuses ``enable_gqa``, k and v are
-    expanded to q's heads and their gradients summed over the group
-    outside the timed call."""
+    ``scaled_dot_product_attention`` call (``is_causal`` = ``causal``,
+    or the explicit boolean ``mask`` (Sq, Skv) where one is given: a
+    sliding window shorter than S) at the same shape, its backward alone
+    (CUDA events over repeated ``autograd.grad`` on one retained graph),
+    on the fastest of SDPA's backends that take the call, each pinned
+    with ``sdpa_kernel``, as ``sdpa_best`` times the forward: (ms,
+    backend, {backend: ms} of every backend that took it).  Each
+    backend's gradients are held to ``want`` (N1's) within ``tol`` of
+    the largest |gradient|; where a backend refuses ``enable_gqa``, k
+    and v are expanded to q's heads and their gradients summed over the
+    group outside the timed call.  Where no backend takes the call it
+    raises, or returns None when not ``required``."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2166,7 +2198,8 @@ def sdpa_backward_best(q, k, v, do, want, tol, causal=True):
             with sdpa_kernel([backend]):
                 try:
                     out = F.scaled_dot_product_attention(
-                        *leaves, is_causal=causal,
+                        *leaves, **({"attn_mask": mask} if mask is not None
+                                    else {"is_causal": causal}),
                         **({} if expand else {"enable_gqa": True}))
                     grads = torch.autograd.grad(out, leaves, g,
                                                 retain_graph=True)
@@ -2190,6 +2223,8 @@ def sdpa_backward_best(q, k, v, do, want, tol, causal=True):
             del out, grads, leaves
             break
     if not times:
+        if not required:
+            return None
         raise AssertionError("no SDPA backend takes the backward")
     label = min(times, key=times.get)
     return times[label], label, times
@@ -2201,11 +2236,15 @@ def lm_backward_rows():
     shape, a gemma2-like one (window shorter than S, soft-cap 50), a
     float32 dh-32 one, whisper-tiny's non-causal ones over 1500
     frames: (m) the encoder (Sq = Skv = 1500) and (n) cross attention
-    (N1b: Sq 128 decoder tokens, Skv 1500), and a granite-like 48:1
-    group (one kv head, so the dK/dV grid is 16 CTAs, each walking 48 q
-    heads): within the forward's tolerances of the largest
+    (N1b: Sq 128 decoder tokens, Skv 1500), a granite-like 48:1 group
+    (one kv head, so the dK/dV grid is 16 CTAs, each walking 48 q
+    heads), and recurrentgemma's local attention at dh 256 (10:1, window
+    2048) at its train shape (4, 512) and at (1, 4096), where the window
+    is shorter than S: within the forward's tolerances of the largest
     |gradient|, identical run to run; kernel, plain and library times
-    beside the bound.  The forward's row LSE is held to
+    beside the bound (SDPA under an explicit window mask where the
+    window is shorter than S, null where no backend takes that).  The
+    forward's row LSE is held to
     ``ref.attention_plain``'s, and N1's gradients (from K3's o and LSE)
     also to the plain backward from the plain forward's own o and LSE,
     so that forward and backward together are held to the plain
@@ -2226,7 +2265,11 @@ def lm_backward_rows():
         ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, torch.bfloat16, 0, 0.0,
          False),
         ("granite_like", 1, 1024, 1024, 48, 1, 128, torch.bfloat16, 0, 0.0,
-         True)]
+         True),
+        ("recurrentgemma_train", 4, 512, 512, 10, 1, 256, torch.bfloat16,
+         2048, 0.0, True),
+        ("recurrentgemma_long", 1, 4096, 4096, 10, 1, 256, torch.bfloat16,
+         2048, 0.0, True)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
@@ -2269,11 +2312,20 @@ def lm_backward_rows():
             err, rel = max(err, e), max(rel, e / scale)
             whole_rel = max(whole_rel, e_whole / s_whole)
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        lib = None if cap or window else \
-            sdpa_backward_best(q, k, v, do, got, tol, causal=causal)
+        # SDPA under is_causal where the window covers S; an explicit
+        # mask where it does not (not every backend takes one)
+        covers = window == 0 or window >= Skv
+        lib_call = f"is_causal={causal}" if covers else "a window mask"
+        mask = None if covers else ref._mask(
+            torch.arange(S, device="cuda"), Skv, causal, window, "cuda")
+        lib = None if cap else sdpa_backward_best(
+            q, k, v, do, got, tol, causal=causal, mask=mask,
+            required=covers)
         del again, want, whole, o_plain, lse_plain
         ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do,
                                                          lse, **kw), reps=10)
+        dev = graph_ms(lambda: fa.flash_attention_backward(
+            q, k, v, o, do, lse, **kw), reps=10)
         plain = cuda_ms(lambda: ref.attention_backward_plain(
             q, k, v, o, do, lse, **kw), reps=3, warmup=1)
         e = q.element_size()
@@ -2289,11 +2341,11 @@ def lm_backward_rows():
                "max_rel_err": rel, "tol": tol,
                "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dt],
                "max_rel_err_vs_plain_forward_backward": whole_rel,
-               "kernel_ms": ms, "plain_ms": plain,
+               "kernel_ms": ms, "graph_ms": dev, "plain_ms": plain,
                "library_ms": None if lib is None else lib[0],
                "library": None if lib is None else
-               f"autograd of SDPA (is_causal={causal}), backward only, "
-               "fastest backend",
+               f"autograd of SDPA ({lib_call}), backward only, fastest "
+               "backend",
                "library_backend": None if lib is None else lib[1],
                "library_variants": None if lib is None else lib[2],
                "kernel_over_library": None if lib is None else ms / lib[0],
@@ -2305,6 +2357,160 @@ def lm_backward_rows():
         del q, k, v, o, lse, do, got
         torch.cuda.empty_cache()
     return rows, worst_abs, worst_rel
+
+
+def rglru_backward_rows():
+    """N2a, the RG-LRU scan's backward, against
+    ``ref.rglru_scan_backward_plain`` bit for bit (dx, dlog_a, dh0) at
+    recurrentgemma-2b's train shape (4 x 512 x 2560, bf16), at S 1024, at
+    a ragged S 1000 and in float32, each from a nonzero h0 with a nonzero
+    dh_last; identical run to run.  Composed with its forward through
+    ``RGLRUScan`` (autograd: K4, then N2a): h, h_last and the gradients
+    equal the plain forward's and the plain backward's bit for bit.
+    Bound: x, log_a, dh read and dx, dlog_a written, h0, dh_last read and
+    dh0 written; 7 operations an element (the carry rebuilt once: exp,
+    multiply, add; the reverse walk's g a, its product with h_{t-1}, a g
+    and + dh).  Returns (rows, the worst absolute error)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases = [("recurrentgemma_train", 4, 512, 2560, torch.bfloat16),
+             ("S1024", 4, 1024, 2560, torch.bfloat16),
+             ("ragged_S1000", 4, 1000, 2560, torch.bfloat16),
+             ("f32_small", 2, 1000, 512, torch.float32)]
+    rows, worst = [], 0.0
+    for label, B, S, D, dt in cases:
+        x, dh = (torch.randn((B, S, D), device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        log_a = (-torch.rand((B, S, D), device="cuda", generator=g)
+                 * 0.5).to(dt)
+        h0, dl = (torch.randn((B, D), device="cuda", generator=g) * 0.5
+                  for _ in range(2))
+        got = rg.rglru_scan_backward(x, log_a, h0, dh, dl)
+        again = rg.rglru_scan_backward(x, log_a, h0, dh, dl)
+        want = ref.rglru_scan_backward_plain(x, log_a, h0, dh, dl)
+        leaves = [t.clone().requires_grad_(True) for t in (x, log_a, h0)]
+        h, hl = rg.RGLRUScan.apply(*leaves)
+        comp = torch.autograd.grad((h, hl), leaves, (dh, dl))
+        want_h, want_hl = ref.rglru_scan_ref(x, log_a, h0)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b, w, c in zip(("dx", "dlog_a", "dh0"), got, again,
+                                    want, comp):
+            if not same_bits(a, b):
+                raise AssertionError(f"N2a {name} differs run to run at "
+                                     f"{label}")
+            e = float((a.float() - w.float()).abs().max())
+            if not (same_bits(a, w) and same_bits(c, w)):
+                raise AssertionError(f"N2a {name} != plain bit for bit at "
+                                     f"{label} (kernel alone or after K4 "
+                                     f"through RGLRUScan): max |err| {e}")
+            err = max(err, e)
+        if not (same_bits(h.detach(), want_h)
+                and same_bits(hl.detach(), want_hl)):
+            raise AssertionError(f"RGLRUScan's forward != plain at {label}")
+        worst = max(worst, err)
+        del leaves, h, hl, comp, again, want, want_h, want_hl
+        ms = cuda_ms(lambda: rg.rglru_scan_backward(x, log_a, h0, dh, dl))
+        dev = graph_ms(lambda: rg.rglru_scan_backward(x, log_a, h0, dh, dl))
+        plain = cuda_ms(lambda: ref.rglru_scan_backward_plain(
+            x, log_a, h0, dh, dl), reps=2, warmup=1)
+        nbytes = x.element_size() * 5 * x.numel() + 4 * 3 * B * D
+        rows.append(_rec_row("rglru_scan_backward", label,
+                             {"B": B, "S": S, "D": D, "graph_ms": dev},
+                             dt, err, 0.0, ms, plain, nbytes, 7 * B * S * D))
+        del x, dh, log_a, got
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def wkv_backward_rows():
+    """N2b, the WKV recurrence's backward, against
+    ``ref.wkv6_backward_plain`` at rwkv6-7b's train shape (4 x 512 x 64
+    heads x 64, bf16) from the zero state, from a nonzero s0 with a
+    nonzero ds_last, and in float32 at (2, 200, 8, 64): each of dr, dk,
+    dv, dw, du, ds0 within 2e-2 (bf16) or 1e-5 (float32) of its largest
+    |gradient|, identical run to run.  Composed with its forward through
+    ``WKV6`` (autograd: K5, then N2b): o and s_last within K5's
+    tolerances of the plain forward's, the gradients within the same
+    tolerance of the plain backward's.  Bound: r, k, v, w, dO read and
+    dr, dk, dv, dw written, u, s0 (and ds_last) read, du and ds0
+    written; 13 float32 operations a state element a step (the states
+    built once, 3; dr, dk, dw 2 each; dv 1; G's update 3).  Returns
+    (rows, the worst absolute error, the worst error relative to the
+    largest |gradient|)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cases = [("rwkv6_train", 4, 512, 64, torch.bfloat16, False),
+             ("rwkv6_train_nonzero_s0", 4, 512, 64, torch.bfloat16, True),
+             ("f32_small", 2, 200, 8, torch.float32, True)]
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+    rows, worst, worst_rel = [], 0.0, 0.0
+    dh = 64
+    for label, B, S, H, dt, nonzero in cases:
+        r, k, v, do = (torch.randn((B, S, H, dh), device="cuda",
+                                   generator=g).mul(0.5).to(dt)
+                       for _ in range(4))
+        w = torch.sigmoid(torch.randn((B, S, H, dh), device="cuda",
+                                      generator=g) + 2.0).to(dt)
+        u = torch.randn((H, dh), device="cuda", generator=g) * 0.1
+        s0 = (torch.randn((B, H, dh, dh), device="cuda", generator=g) * 0.1
+              if nonzero else torch.zeros((B, H, dh, dh), device="cuda"))
+        dsl = (torch.randn((B, H, dh, dh), device="cuda", generator=g)
+               * 0.1 if nonzero else None)
+        got = wk.wkv6_backward(r, k, v, w, u, s0, do, dsl)
+        again = wk.wkv6_backward(r, k, v, w, u, s0, do, dsl)
+        want = ref.wkv6_backward_plain(r, k, v, w, u, s0, do, dsl)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (r, k, v, w, u, s0)]
+        o, sl = wk.WKV6.apply(*leaves)
+        comp = torch.autograd.grad(
+            (o, sl), leaves, (do, torch.zeros_like(sl) if dsl is None
+                              else dsl))
+        want_o, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err, rel = 0.0, 0.0
+        for name, a, b, w_, c in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                                     got, again, want, comp):
+            if not same_bits(a, b):
+                raise AssertionError(f"N2b {name} differs run to run at "
+                                     f"{label}")
+            scale = float(w_.float().abs().max())
+            e = float((a.float() - w_.float()).abs().max())
+            e_comp = float((c.float() - w_.float()).abs().max())
+            if e > tol[dt] * scale or e_comp > tol[dt] * scale:
+                raise AssertionError(
+                    f"N2b {name} != plain at {label}: {e} (after K5 "
+                    f"through WKV6: {e_comp}) > {tol[dt]} x {scale}")
+            err, rel = max(err, e), max(rel, e / scale)
+        ftol = WKV_TOL[dt]
+        if not (torch.allclose(o.detach().float(), want_o.float(),
+                               atol=ftol, rtol=ftol)
+                and torch.allclose(sl.detach(), want_s, atol=ftol,
+                                   rtol=ftol)):
+            raise AssertionError(f"WKV6's forward != plain at {label}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        del leaves, o, sl, comp, again, want, want_o, want_s
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: wk.wkv6_backward(r, k, v, w, u, s0, do, dsl),
+                     reps=10)
+        dev = graph_ms(lambda: wk.wkv6_backward(r, k, v, w, u, s0, do,
+                                                dsl), reps=10)
+        plain = cuda_ms(lambda: ref.wkv6_backward_plain(
+            r, k, v, w, u, s0, do, dsl), reps=1, warmup=1)
+        n_state = 3 if nonzero else 2            # s0, ds0 (and ds_last)
+        nbytes = (r.element_size() * 9 * r.numel() + 4 * 2 * u.numel()
+                  + 4 * n_state * s0.numel())
+        rows.append(_rec_row("wkv6_backward", label,
+                             {"B": B, "S": S, "H": H, "dh": dh,
+                              "chunk": wk.BWD_CHUNK, "graph_ms": dev,
+                              "max_rel_err": rel},
+                             dt, err, tol[dt], ms, plain, nbytes,
+                             13 * B * S * H * dh * dh))
+        del r, k, v, w, do, got
+        torch.cuda.empty_cache()
+    return rows, worst, worst_rel
 
 
 def _lm_modules():
@@ -2320,7 +2526,8 @@ def _zero_lm_counts():
     a main-path run."""
     fa, va, rg, wk = _lm_modules()
     fa.launches = fa.bwd_launches = 0
-    va.launches = rg.launches = wk.launches = 0
+    rg.launches = rg.bwd_launches = wk.launches = wk.bwd_launches = 0
+    va.launches = 0
 
 
 def _lm_counts():
@@ -2329,14 +2536,23 @@ def _lm_counts():
     return {"flash_attention": fa.launches,
             "flash_attention_backward": fa.bwd_launches,
             "vote_aggregate": va.launches, "rglru_scan": rg.launches,
-            "wkv6": wk.launches}
+            "rglru_scan_backward": rg.bwd_launches, "wkv6": wk.launches,
+            "wkv6_backward": wk.bwd_launches}
 
 
 def lm_full_train(cfg, smi, steps=8):
     """``launch.train.train_lm`` on ``cfg`` at full width: bf16 compute
     on float32 masters (random weights from a seeded generator), AdamW,
-    remat, B 4 x S 512, ``steps`` steps, warmup 2, lr 3e-4.  Returns the
-    trained masters."""
+    remat, B 4 x S 512, ``steps`` steps, warmup 2, lr 3e-4.  Exact
+    launches a step (``train_launches``), losses finite, the first about
+    ln(vocab) (near-uniform logits): within [ln V rounded to 0.01, that
+    + 1.79] ([12.21, 14] at phi4-mini's 200,064), and falling: the first
+    batch's loss, taken again after the last step, below its loss at the
+    first step (each step sees a fresh batch of a random bigram process
+    over the whole vocabulary, so the step losses of the recurrent archs
+    move within the batches' spread over 8 steps); for phi4-mini also,
+    as before, the last step's loss below the first.  Returns (the
+    trained masters, the launches, the row)."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenDataset, synthetic
     from repro_torch.launch.train import train_lm
@@ -2358,12 +2574,13 @@ def lm_full_train(cfg, smi, steps=8):
                    log_every=1, verbose=False, device="cuda")
     torch.cuda.synchronize()
     got = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    first = next(iter(TokenDataset(data).batches(4, steps=1)))
+    with torch.no_grad():
+        again = float(model.loss(out["params"], {
+            k: torch.from_numpy(v).cuda() for k, v in first.items()}))
     L = cfg.num_layers
-    from repro_torch.kernels import flash_attention as fa
-    k3, n1 = train_launches(cfg)
-    want = {"flash_attention": k3 * steps,
-            "flash_attention_backward": fa.BWD_KERNELS * n1 * steps,
-            "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
+    want = {k: n * steps for k, n in train_launches(cfg).items()}
     if got != want:
         raise AssertionError(f"train launches {got} != {want}")
     losses = [h["loss"] for h in out["history"]]
@@ -2372,18 +2589,23 @@ def lm_full_train(cfg, smi, steps=8):
     med = float(np.median(step_ms[-6:]))
     row = {"arch": cfg.name, "layers": L, "params": n_params,
            "dtype": cfg.dtype, "B": 4, "S": 512, "steps": steps,
-           "losses": losses, "step_ms": step_ms, "step_ms_median_last6": med,
-           "tokens_per_s": 4 * 512 / med * 1e3,
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "first_batch_loss_after": again,
+           "step_ms": step_ms, "step_ms_median_last6": med,
+           "tokens_per_s": 4 * 512 / med * 1e3, "peak_mem_bytes": peak,
            "launches_per_step": {k: v // steps for k, v in got.items()},
            "card": smi}
     log("[lm-train] " + json.dumps(row))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if not 12.21 <= losses[0] <= 14.0:
+    lo = round(math.log(cfg.vocab_size), 2)
+    hi = round(lo + 1.79, 2)
+    if not lo <= losses[0] <= hi:
         raise AssertionError(f"first loss {losses[0]} outside "
-                             f"[ln(vocab) 12.21, 14]")
-    if not losses[-1] < losses[0]:
+                             f"[ln(vocab) {lo}, {hi}]")
+    if not again < losses[0]:
+        raise AssertionError(f"the first batch's loss did not fall: "
+                             f"{losses[0]} -> {again}")
+    if cfg.name == "phi4-mini-3.8b" and not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
     return out["params"], got, row
 
@@ -2411,15 +2633,47 @@ def adam_free_bound(lrs, b1=0.9, b2=0.999):
 
 
 def train_launches(cfg):
-    """(K3 launches, N1 calls) of one remat train step of ``cfg``: a
-    decoder's every layer is attention (K3 in the forward and again in
-    the recompute); an encoder-decoder adds one K3 and one N1 call an
-    encoder layer (not recomputed), and its decoder layers run two
-    attentions each (self and cross)."""
+    """The kernel launches of one remat train step of ``cfg``, by counter,
+    from its layer pattern (``cfg.layer_kinds``): an attention layer
+    launches K3 twice (the forward and the recompute) and N1 once
+    (``BWD_KERNELS`` kernels); an RG-LRU layer K4 twice and N2a once; an
+    RWKV layer K5 twice and N2b once (its ``BWD_KERNELS``).  An
+    encoder-decoder adds one K3 and one N1 call an encoder layer (not
+    recomputed), and its decoder layers run two attentions each (self and
+    cross)."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, RWKV
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import wkv6 as wk
     if cfg.is_encoder_decoder:
         E, L = cfg.num_encoder_layers, cfg.num_layers
-        return E + 2 * 2 * L, E + 2 * L
-    return 2 * cfg.num_layers, cfg.num_layers
+        k3, n1, rg, rw = E + 2 * 2 * L, E + 2 * L, 0, 0
+    else:
+        kinds = cfg.layer_kinds
+        att = sum(k in (ATTN, ATTN_LOCAL) for k in kinds)
+        rg, rw = kinds.count(RGLRU), kinds.count(RWKV)
+        if att + rg + rw != cfg.num_layers:
+            raise ValueError(f"train_launches: unknown block kinds in "
+                             f"{kinds}")
+        k3, n1 = 2 * att, att
+    return {"flash_attention": k3,
+            "flash_attention_backward": fa.BWD_KERNELS * n1,
+            "vote_aggregate": 0, "rglru_scan": 2 * rg,
+            "rglru_scan_backward": rgs.BWD_KERNELS * rg, "wkv6": 2 * rw,
+            "wkv6_backward": wk.BWD_KERNELS * rw}
+
+
+# Archs whose float32 smoke is too ill-conditioned for the fixed-sign
+# AdamW rule.  The lm-parity line's "cpu_grad_sensitivity" (the CPU's
+# own first-step gradients under a 1e-7 relative perturbation of the
+# init) reads 2.1e-5 of a leaf's largest at rwkv6, 1.5e-6 to 2.8e-6 at
+# every other smoke, and rwkv6's card-CPU gap, 3.0e-5, is of the order
+# of its own sensitivity (in a design call it stayed so with the WKV
+# forward and backward swapped for their plain versions on the card).
+# AdamW's later steps then part on sign-free elements and carry the
+# fixed ones with them: rwkv6's AdamW elements are all held to the
+# sign-free bound.
+ADAMW_SIGN_FREE_ARCHS = ("rwkv6-7b",)
 
 
 def lm_card_vs_cpu(arch, steps=5, cfg=None):
@@ -2442,7 +2696,12 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
     that 1e-4.  With SGD, whose update is linear in the gradient, every
     element is within 1e-4 after the same steps.  The first step's
     gradients are taken outside the counted run; the counts are the
-    AdamW card run's alone."""
+    AdamW card run's alone.  For an arch of ``ADAMW_SIGN_FREE_ARCHS``
+    every AdamW element is held to the sign-free bound (the fixed-sign
+    split is still logged); the line also reads, for every arch, the
+    CPU's own gradient sensitivity: the largest change, relative to each
+    leaf's largest |gradient|, of the first-step gradients when the
+    init is perturbed by 1e-7 of each element, on the CPU alone."""
     from repro_torch import device as D
     from repro_torch import prng
     from repro_torch.configs import TrainConfig, get_smoke
@@ -2497,6 +2756,12 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
                    / max(float(b[n].abs().max()), 1e-30) for n in b)
 
     gc, gh = first_grads("cuda"), first_grads("cpu")
+    noise = torch.Generator().manual_seed(5)
+    clean_init = init
+    init = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+        t.shape, generator=noise)), clean_init)
+    g_noisy = first_grads("cpu")
+    init = clean_init
     torch.cuda.synchronize()
     _zero_lm_counts()
     lc, pc, lrs = train("cuda", "adamw")
@@ -2528,6 +2793,9 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
                 b["free_worst"] = max(b["free_worst"], float(
                     diff[~fixed].max()) / (free + tol))
     chosen = by_rule["floor_1e-2"]
+    sign_free = arch in ADAMW_SIGN_FREE_ARCHS
+    all_worst = max(float((pc[n] - ph[n]).abs().max())
+                    / (free + 1e-4 * float(ph[n].abs().max())) for n in ph)
     row = {"arch": arch, "steps": steps, "losses_card": lc,
            "losses_cpu": lh, "max_loss_rel_err": loss_err,
            "max_grad_rel_err_step1": rel(gc, gh),
@@ -2538,18 +2806,19 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
            "adamw_free_bound": free,
            "adamw_free_worst_over_bound": chosen["free_worst"],
            "adamw_by_rule": by_rule,
+           "adamw_all_sign_free": sign_free,
+           "adamw_all_worst_over_bound": all_worst,
+           "cpu_grad_sensitivity": rel(g_noisy, gh),
            "params": n_params,
            "sgd_max_param_rel_err": rel(sgd_card, sgd_cpu)}
     log("[lm-parity] " + json.dumps(row))
+    adamw_bad = all_worst > 1.0 if sign_free else (
+        chosen["fixed_beyond"] or chosen["free_worst"] > 1.0)
     if loss_err > 1e-4 or row["max_grad_rel_err_step1"] > 1e-4 or \
-            row["sgd_max_param_rel_err"] > 1e-4 or chosen["fixed_beyond"] \
-            or chosen["free_worst"] > 1.0:
+            row["sgd_max_param_rel_err"] > 1e-4 or adamw_bad:
         raise AssertionError(f"card != CPU training at {arch}: {row}")
     # each step a forward and its recompute (remat) and a backward a layer
-    k3, n1 = train_launches(cfg)
-    want = {"flash_attention": k3 * steps,
-            "flash_attention_backward": fa.BWD_KERNELS * n1 * steps,
-            "vote_aggregate": 0, "rglru_scan": 0, "wkv6": 0}
+    want = {k: n * steps for k, n in train_launches(cfg).items()}
     if counts != want:
         raise AssertionError(f"card training launches {counts} != {want}")
     return counts
@@ -2645,7 +2914,8 @@ def lm_label_step(cfg, smi, members=3, gamma=0.1):
     got = _lm_counts()
     want = {"flash_attention": members * cfg.num_layers,
             "flash_attention_backward": 0, "vote_aggregate": 1,
-            "rglru_scan": 0, "wkv6": 0}
+            "rglru_scan": 0, "rglru_scan_backward": 0, "wkv6": 0,
+            "wkv6_backward": 0}
     if got != want:
         raise AssertionError(f"label step launches {got} != {want}")
     preds = learner.predict_stacked(bank, X)
@@ -2717,9 +2987,16 @@ def lm_checkpoint_serve(cfg, params, smi, prompt_len=256):
     return counts
 
 
+# the LM path's kernels, as the profiler names them (their rank is logged)
+LM_KERNEL_NAMES = ("flash_attention_wgmma", "bwd_dot", "bwd_dkdv", "bwd_dq",
+                   "rglru_scan_tma", "rglru_scan_direct", "rglru_scan_bwd",
+                   "wkv6_kernel", "wkv6_bwd")
+
+
 def lm_profile_steps(cfg, params, steps=2):
     """``--profile``: where a full-width train step's time goes (one
-    warm step, then ``steps`` profiled), from the trained masters."""
+    warm step, then ``steps`` profiled), from the trained masters; the
+    LM kernels' ranks among the step's device costs."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core.distill import make_train_step
     from repro_torch.data import TokenDataset, synthetic
@@ -2738,17 +3015,33 @@ def lm_profile_steps(cfg, params, steps=2):
         for b in batches[1:]:
             step(params, state, b)
 
-    _profiled(f"lm_train_{cfg.name}_x{steps}", run)
+    _profiled(f"lm_train_{cfg.name}_L{cfg.num_layers}_x{steps}", run,
+              watch=LM_KERNEL_NAMES)
+
+
+RWKV_TRAIN_LAYERS = 12   # rwkv6-7b's cut: 32 layers' masters, gradients
+                         # and AdamW moments alone are 120.6 GB, 12's 50.6
+
+
+def recurrent_train_configs():
+    """The recurrent archs lm_train trains at full width:
+    recurrentgemma-2b whole (26 layers) and rwkv6-7b cut to
+    ``RWKV_TRAIN_LAYERS`` of its 32."""
+    from repro_torch.configs import get_config
+    return (get_config("recurrentgemma-2b"),
+            get_config("rwkv6-7b").replace(num_layers=RWKV_TRAIN_LAYERS))
 
 
 def phase_lm_train(smi, profile=False):
     """The LM training path (phase lm_train), in order: N1 against its
-    plain version; full-width phi4-mini training; card vs CPU training
-    at smoke width; the LM FedKT flow at L0 and L2; the full-width label
-    step and its token vote through K1; checkpoint to serve.  Returns
-    (N1 rows, N1 worst absolute error, N1 worst error relative to the
-    largest |gradient|, the main path's launches, the measured rows of
-    the full-width train and label steps)."""
+    plain version (dh 256 included); full-width phi4-mini training; card
+    vs CPU training at smoke width (phi4, gemma2, recurrentgemma, rwkv6);
+    the LM FedKT flow at L0 and L2; the full-width label step and its
+    token vote through K1; checkpoint to serve; then N2a and N2b against
+    their plain versions, and recurrentgemma-2b and rwkv6-7b (its cut)
+    trained at full width.  Returns (the backward rows {"n1", "n2a",
+    "n2b"}, their worst errors, the main path's launches, the measured
+    rows of the full-width train and label steps)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     rows, err, rel = lm_backward_rows()
@@ -2757,7 +3050,8 @@ def phase_lm_train(smi, profile=False):
     params, counts, train_row = lm_full_train(phi4, smi)
     runs = [counts]
     log(f"[lm_train] full-width training at {time.time() - t0:.1f} s")
-    for arch in ("phi4-mini-3.8b", "gemma2-27b"):
+    for arch in ("phi4-mini-3.8b", "gemma2-27b", "recurrentgemma-2b",
+                 "rwkv6-7b"):
         runs.append(lm_card_vs_cpu(arch))
     log(f"[lm_train] card vs CPU at {time.time() - t0:.1f} s")
     runs.append(lm_fedkt("L0")[1])
@@ -2768,19 +3062,31 @@ def phase_lm_train(smi, profile=False):
     torch.cuda.empty_cache()
     log(f"[lm_train] label step at {time.time() - t0:.1f} s")
     runs.append(lm_checkpoint_serve(phi4, params, smi))
-    # the main path's launches: the sum of the runs above, each counted
-    # from 0 just before it and read just after, so that no launch made
-    # to compare a kernel with its plain version is in it
-    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    log("[lm_train] launches " + json.dumps(launches))
+    log(f"[lm_train] checkpoint serve at {time.time() - t0:.1f} s")
     if profile:     # last: a profiler session slows later host timing
         lm_profile_steps(phi4, params)
         log(f"[lm_train] profile at {time.time() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
-    log(f"[lm_train] checkpoint serve at {time.time() - t0:.1f} s")
-    return rows, err, rel, launches, {"train": train_row,
-                                      "label": label_row}
+    n2a, n2a_err = rglru_backward_rows()
+    n2b, n2b_err, n2b_rel = wkv_backward_rows()
+    log(f"[lm_train] N2 rows at {time.time() - t0:.1f} s")
+    measured = {"train": train_row, "label": label_row}
+    for cfg in recurrent_train_configs():
+        rec_params, rec_counts, measured[cfg.name] = lm_full_train(cfg, smi)
+        runs.append(rec_counts)
+        del rec_params
+        torch.cuda.empty_cache()
+        log(f"[lm_train] {cfg.name} training at {time.time() - t0:.1f} s")
+    # the main path's launches: the sum of the runs above, each counted
+    # from 0 just before it and read just after, so that no launch made
+    # to compare a kernel with its plain version is in it
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    log("[lm_train] launches " + json.dumps(launches))
+    backward = {"n1": rows, "n2a": n2a, "n2b": n2b}
+    errors = {"n1": (err, rel), "n2a": (n2a_err, 0.0),
+              "n2b": (n2b_err, n2b_rel)}
+    return backward, errors, launches, measured
 
 
 # one arch per family: the whole 10 x 4 x 2 matrix takes ~150 s of host
@@ -2826,18 +3132,21 @@ def dryrun_pairs(smi, archs=DRYRUN_ARCHS):
         raise AssertionError(f"dry-run skips {skipped} != SKIPS {want}")
 
 
-def dryrun_train(smi, measured):
-    """lm_train's exact step on a one-device mesh, predicted beside the
-    phase's measured row.  Raises if the params, gradients and AdamW
-    state it predicts exceed the measured peak, or if its K3 / N1 calls
-    differ from the launches the card counted."""
-    from repro_torch.configs import TrainConfig, get_config
+def dryrun_train(smi, measured, cfg):
+    """lm_train's exact step of ``cfg`` on a one-device mesh, predicted
+    beside the phase's measured row.  Raises if the params, gradients
+    and AdamW state it predicts exceed the measured peak, or if the
+    calls it predicts of any kernel (K3, N1, K4, N2a, K5, N2b: each
+    call's launches as the wrappers count them) differ from the
+    launches the card counted a step."""
+    from repro_torch.configs import TrainConfig
     from repro_torch.configs.base import InputShape
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.launch import analysis, dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import Model
-    cfg = get_config("phi4-mini-3.8b")
     # lm_full_train's step: B 4 x S 512, remat, AdamW, float32 masters
     tcfg = TrainConfig(batch_size=4, seq_len=512, steps=8, warmup_steps=2,
                        learning_rate=3e-4)
@@ -2846,7 +3155,12 @@ def dryrun_train(smi, measured):
     n = analysis.count_params(Model(cfg).init_shapes(), exclude_embed=False)
     state = 4 * 4 * n          # float32 params, gradients, mu and nu
     calls = rec["kernels"]
-    row = {"arch": cfg.name, "B": 4, "S": 512,
+    per_call = {"flash_attention_backward": fa.BWD_KERNELS,
+                "rglru_scan_backward": rgs.BWD_KERNELS,
+                "wkv6_backward": wk.BWD_KERNELS}
+    predicted = {k: per_call.get(k, 1) * v["calls"]
+                 for k, v in calls.items()}
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "B": 4, "S": 512,
            "predicted": {k: rec[k] for k in (
                "t_compute", "t_memory", "flops_per_device",
                "bytes_per_device", "resident_bytes",
@@ -2854,9 +3168,12 @@ def dryrun_train(smi, measured):
            "predicted_params_grads_adamw_bytes": state,
            "predicted_kernel_calls": {k: v["calls"]
                                       for k, v in calls.items()},
+           "predicted_launches_per_step": predicted,
            "measured_step_ms_median_last6":
                measured["step_ms_median_last6"],
            "measured_peak_mem_bytes": measured["peak_mem_bytes"],
+           "predicted_peak_over_measured":
+               rec["peak_memory_bytes"] / measured["peak_mem_bytes"],
            "measured_launches_per_step": measured["launches_per_step"],
            "card": smi}
     log("[dryrun-train] " + json.dumps(row))
@@ -2864,12 +3181,10 @@ def dryrun_train(smi, measured):
         raise AssertionError(f"predicted resident state {state} B exceeds "
                              f"the measured peak "
                              f"{measured['peak_mem_bytes']} B")
-    got = measured["launches_per_step"]
-    if (calls["flash_attention"]["calls"] != got["flash_attention"] or
-            fa.BWD_KERNELS * calls["flash_attention_backward"]["calls"]
-            != got["flash_attention_backward"]):
-        raise AssertionError(f"dry-run kernel calls {calls} != the card's "
-                             f"launches a step {got}")
+    got = {k: v for k, v in measured["launches_per_step"].items() if v}
+    if predicted != got:
+        raise AssertionError(f"dry-run kernel launches {predicted} != the "
+                             f"card's launches a step {got} at {cfg.name}")
     return row
 
 
@@ -2912,11 +3227,17 @@ def dryrun_label(smi, measured):
 
 
 def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
-    """Phase 10 (after lm_train, whose measured rows it reads)."""
+    """Phase 10 (after lm_train, whose measured rows it reads): every
+    pair of ``archs``, then the train step of phi4-mini, recurrentgemma
+    and rwkv6's cut and the label step beside their measured rows."""
+    from repro_torch.configs import get_config
     t0 = time.time()
     dryrun_pairs(smi, archs)
     log(f"[dryrun] pairs at {time.time() - t0:.1f} s")
-    train = dryrun_train(smi, measured["train"])
+    train = [dryrun_train(smi, measured["train"],
+                          get_config("phi4-mini-3.8b"))]
+    for cfg in recurrent_train_configs():
+        train.append(dryrun_train(smi, measured[cfg.name], cfg))
     label = dryrun_label(smi, measured["label"])
     log(f"[dryrun] train and label at {time.time() - t0:.1f} s")
     return train, label
@@ -3033,9 +3354,10 @@ def main():
     torch.cuda.synchronize()
     log(f"[phase] whisper ok at {time.time() - t_start:.1f} s")
 
-    n1_rows, n1_err, n1_rel, lm, lm_measured = phase_lm_train(
+    bwd_rows, bwd_err, lm, lm_measured = phase_lm_train(
         smi, profile=profile_rounds)
-    for kname in ("flash_attention", "vote_aggregate"):
+    for kname in ("flash_attention", "vote_aggregate", "rglru_scan",
+                  "wkv6"):
         launches[kname] += lm[kname]
     torch.cuda.synchronize()
     log(f"[phase] lm_train ok at {time.time() - t_start:.1f} s")
@@ -3051,7 +3373,11 @@ def main():
     h = hist_rows[0]
     a = att_rows[0]
     rg, wk = rg_rows[0], wk_rows[0]
+    n1_rows = bwd_rows["n1"]
     n1 = n1_rows[0]
+    (n1_err, n1_rel), (n2a_err, _), (n2b_err, n2b_rel) = (
+        bwd_err[k] for k in ("n1", "n2a", "n2b"))
+    n2a, n2b = bwd_rows["n2a"][0], bwd_rows["n2b"][0]
     kernels = [
         {"name": "vote_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/vote_aggregate.cu",
@@ -3102,6 +3428,26 @@ def main():
          "plain_ms": n1["plain_ms"], "bound_ms": n1["bound_ms"],
          "bound_by": n1["bound_by"], "library_ms": n1["library_ms"],
          "shapes": shape_rows(n1_rows)},
+        # N2a and N2b have no TPU kernel either: the reference trains the
+        # recurrences through autodiff of its xla scan (ops.py:154) and
+        # of its chunked step loop (ops.py:215)
+        {"name": "rglru_scan_backward", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ops.py:154",
+         "tpu_kernel": None,
+         "launches": lm["rglru_scan_backward"], "max_abs_err": n2a_err,
+         "ms": n2a["kernel_ms"], "plain_ms": n2a["plain_ms"],
+         "bound_ms": n2a["bound_ms"], "bound_by": n2a["bound_by"],
+         "library_ms": None, "shapes": shape_rows(bwd_rows["n2a"])},
+        {"name": "wkv6_backward", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+         "replaces": "src/repro/kernels/ops.py:215",
+         "tpu_kernel": None,
+         "launches": lm["wkv6_backward"], "max_abs_err": n2b_err,
+         "max_rel_err": n2b_rel,
+         "ms": n2b["kernel_ms"], "plain_ms": n2b["plain_ms"],
+         "bound_ms": n2b["bound_ms"], "bound_by": n2b["bound_by"],
+         "library_ms": None, "shapes": shape_rows(bwd_rows["n2b"])},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

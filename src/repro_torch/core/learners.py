@@ -293,9 +293,10 @@ class LMLearner:
     here.  Construct with ``data_seed=cfg.seed`` for the student and
     final roles and the default 0 for teachers.
 
-    On the card the attention layers train through the flash kernel and
-    its hand-written backward; a recurrent arch raises in ``fit`` (its
-    kernels have no backward yet) and trains on the CPU.
+    On the card every layer trains through hand-written kernels both
+    ways: attention through the flash kernel and its backward (N1), the
+    RG-LRU and RWKV recurrences through their scan kernels and their
+    backward kernels (N2a, N2b).
     """
     model: Any                    # models.Model
     tcfg: Any                     # configs.TrainConfig

@@ -81,6 +81,17 @@
 //    dP = dO V^T (SS) are issued together (a wait between the two would
 //    make ptxas serialise every wgmma of the kernel), dS is made in bf16
 //    fragments and dQ += dS K (RS, K in V's place).
+//  At dh 256 (recurrentgemma's local attention) a thread could not hold
+//  dK and dV (128 floats each) beside S^T and dP^T, so each output tile
+//  has two owner CTAs, one a 128-column half (Out<DH>): both load the
+//  whole 64 x 256 tiles (32 KB each: K, V and a ring of two Q, dO pairs
+//  is 198,696 bytes, one CTA an SM), remake S^T and dP^T over all 256
+//  columns and run the RS products on their half only (m64n128k16).  dQ
+//  splits the same way (a dQ half a CTA, K and V streamed whole, 197,704
+//  bytes).  In full-dh products that is six in the dK/dV pass and five
+//  in the dQ pass, where single owners would run four and three, at dh
+//  128's registers.
+//  Float32 stops at dh 128 (its padded float tiles would not fit).
 //  P and dS are rounded to bf16 before their products, as K3's forward
 //  rounds P; every product accumulates in float32; outputs are bf16.
 //  The soft-cap is a template argument, so uncapped calls carry no tanh
@@ -224,17 +235,30 @@ __device__ __forceinline__ void scores_ss(float (&acc)[32], uint32_t a,
                  sdesc(b + kstep<DH>(kk), 16, 8 * W::SW, W::LAYOUT));
 }
 
-// acc (64 x DH) += A (64 x 64, bf16 fragments) B, B a (64, DH) tile read
-// N-major: P^T dO, dS^T Q, dS K
+// The output columns a CTA owns: all of dh up to 128; at dh 256 a half,
+// so that dK and dV (or dQ) stay 64 floats a thread each, as at 128, and
+// two CTAs share a tile's outputs, each remaking S and dP over the full
+// dh (the kernels' tiles of Q, K, V, dO stay whole)
 template <int DH>
-__device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
+struct Out {
+  static constexpr int N = DH > 128 ? 128 : DH;
+  static constexpr int SPLIT = DH / N;
+};
+
+// acc (64 x N) += A (64 x 64, bf16 fragments) B, B the N columns from
+// column block `half` of a (64, DH) tile, read N-major: P^T dO, dS^T Q,
+// dS K
+template <int DH>
+__device__ __forceinline__ void product_rs(float (&acc)[Out<DH>::N / 2],
                                            const uint32_t (&a)[4][4],
-                                           uint32_t b) {
+                                           uint32_t b, int half) {
   using W = Tile<DH>;
+  const uint32_t cols = b + half * (Out<DH>::N / W::COLS) * W::BOX;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<DH>(acc, a[kk],
-                 sdesc(b + kk * 16 * W::SW, W::BOX, 8 * W::SW, W::LAYOUT));
+    wgmma_pv<Out<DH>::N>(
+        acc, a[kk], sdesc(cols + kk * 16 * W::SW, W::BOX, 8 * W::SW,
+                          W::LAYOUT));
 }
 
 // The A fragment slot f (0-3) of k-step kk holds accumulator elements
@@ -273,7 +297,8 @@ __global__ void __launch_bounds__(WG_THREADS)
                    int H, int KV, float scale, int causal, int window,
                    float softcap) {
   using W = Tile<DH>;
-  constexpr int DT = DH / 8;  // 8-wide n-tiles of dK, dV
+  constexpr int NO = Out<DH>::N;  // the dK, dV columns this CTA owns
+  constexpr int DT = NO / 8;      // their 8-wide n-tiles
   extern __shared__ __align__(1024) unsigned char smem_kv[];
   const uint32_t raw = smem_u32(smem_kv);
   const uint32_t sK = (raw + 1023u) & ~1023u;
@@ -287,10 +312,12 @@ __global__ void __launch_bounds__(WG_THREADS)
   float* rows = reinterpret_cast<float*>(smem_kv + (sRows - raw));
 
   // the tile index slowest: key tile 0, which the most query tiles see
-  // under a causal mask, starts first
-  const int kvh = blockIdx.x % KV;
-  const int b = (blockIdx.x / KV) % B;
-  const int k0 = (blockIdx.x / (KV * B)) * BK;
+  // under a causal mask, starts first; the column half fastest
+  const int half = blockIdx.x % Out<DH>::SPLIT;
+  const int cta = blockIdx.x / Out<DH>::SPLIT;
+  const int kvh = cta % KV;
+  const int b = (cta / KV) % B;
+  const int k0 = (cta / (KV * B)) * BK;
   const int group = H / KV;
   int qt_start, qt_end;
   query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
@@ -355,9 +382,9 @@ __global__ void __launch_bounds__(WG_THREADS)
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = (tid >> 5) * 16;
-  float dK[DH / 2], dV[DH / 2];
+  float dK[NO / 2], dV[NO / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dK[i] = dV[i] = 0.f;
+  for (int i = 0; i < NO / 2; ++i) dK[i] = dV[i] = 0.f;
   const float c2 = CAP ? LOG2E : scale * LOG2E;
   const float cap_in = CAP ? 2.f * LOG2E * scale / softcap : 0.f;
 
@@ -391,14 +418,14 @@ __global__ void __launch_bounds__(WG_THREADS)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const int j = frag_j(kk, f), half = frag_half(f);
-        const int kpos = k0 + r0 + g + 8 * half;
+        const int j = frag_j(kk, f), hf = frag_half(f);
+        const int kpos = k0 + r0 + g + 8 * hf;
         float p[2], pc[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + 2 * t + e;
           float dcap;
-          p[e] = prob<CAP>(st[4 * j + 2 * half + e], c2, cap_in, softcap,
+          p[e] = prob<CAP>(st[4 * j + 2 * hf + e], c2, cap_in, softcap,
                            lr[col], &dcap);
           if (masked && !visible(q0 + col, kpos, Sq, Skv, causal, window))
             p[e] = 0.f;
@@ -412,17 +439,17 @@ __global__ void __launch_bounds__(WG_THREADS)
     // made in bf16 A fragments
     fence_regs(dV);
     wgmma_fence();
-    product_rs<DH>(dV, pa, tG);
+    product_rs<DH>(dV, pa, tG, half);
     wgmma_commit();
     uint32_t ds[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const int j = frag_j(kk, f), half = frag_half(f);
+        const int j = frag_j(kk, f), hf = frag_half(f);
         const uint32_t pp = CAP ? pd[kk][f] : pa[kk][f];
         const int col = 8 * j + 2 * t;
-        const int e0 = 4 * j + 2 * half;
+        const int e0 = 4 * j + 2 * hf;
         ds[kk][f] = pack_bf16(bf16_lo(pp) * (dp[e0] - lr[BQ + col]),
                               bf16_hi(pp) * (dp[e0 + 1] - lr[BQ + col + 1]));
       }
@@ -430,7 +457,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     // dK += dS^T Q
     fence_regs(dK);
     wgmma_fence();
-    product_rs<DH>(dK, ds, tQ);
+    product_rs<DH>(dK, ds, tQ, half);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dV);
@@ -440,13 +467,14 @@ __global__ void __launch_bounds__(WG_THREADS)
 
   const size_t kv_step = (size_t)KV * DH;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = k0 + r0 + g + 8 * half;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = k0 + r0 + g + 8 * hf;
     if (s < Skv) {
-      const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH;
+      const size_t off = ((size_t)b * Skv + s) * kv_step +
+                         (size_t)kvh * DH + half * NO;
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
-        const int e = 4 * d + 2 * half;
+        const int e = 4 * d + 2 * hf;
         *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * d + 2 * t) =
             __floats2bfloat162_rn(dK[e] * scale, dK[e + 1] * scale);
         *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d + 2 * t) =
@@ -467,7 +495,8 @@ __global__ void __launch_bounds__(WG_THREADS)
                  int H, int KV, float scale, int causal, int window,
                  float softcap) {
   using W = Tile<DH>;
-  constexpr int DT = DH / 8;  // 8-wide n-tiles of dQ
+  constexpr int NO = Out<DH>::N;  // the dQ columns this CTA owns
+  constexpr int DT = NO / 8;      // their 8-wide n-tiles
   extern __shared__ __align__(1024) unsigned char smem_q[];
   const uint32_t raw = smem_u32(smem_q);
   const uint32_t sQ = (raw + 1023u) & ~1023u;
@@ -481,11 +510,14 @@ __global__ void __launch_bounds__(WG_THREADS)
   const uint32_t bEV = bEK + 8 * STAGES;          // V read, a stage
 
   // the tile index slowest and reversed: the last query tiles, which see
-  // the most keys under a causal mask, start first
+  // the most keys under a causal mask, start first; the column half
+  // fastest
   const int n_qt = (Sq + BQ - 1) / BQ;
-  const int h = blockIdx.x % H;
-  const int b = (blockIdx.x / H) % B;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x / (H * B))) * BQ;
+  const int half = blockIdx.x % Out<DH>::SPLIT;
+  const int cta = blockIdx.x / Out<DH>::SPLIT;
+  const int h = cta % H;
+  const int b = (cta / H) % B;
+  const int q0 = (n_qt - 1 - cta / (H * B)) * BQ;
   const int kvh = h / (H / KV);
   int kt_start, kt_end;
   key_tiles(q0, Sq, Skv, causal, window, &kt_start, &kt_end);
@@ -542,14 +574,14 @@ __global__ void __launch_bounds__(WG_THREADS)
   const size_t row0 = ((size_t)b * H + h) * Sq;
   float lse2[2], Dr[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = q0 + r0 + g + 8 * half;
-    lse2[half] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
-    Dr[half] = s < Sq ? Dv[row0 + s] : 0.f;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = q0 + r0 + g + 8 * hf;
+    lse2[hf] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
+    Dr[hf] = s < Sq ? Dv[row0 + s] : 0.f;
   }
-  float dQ[DH / 2];
+  float dQ[NO / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dQ[i] = 0.f;
+  for (int i = 0; i < NO / 2; ++i) dQ[i] = 0.f;
   const float c2 = CAP ? LOG2E : scale * LOG2E;
   const float cap_in = CAP ? 2.f * LOG2E * scale / softcap : 0.f;
 
@@ -585,19 +617,19 @@ __global__ void __launch_bounds__(WG_THREADS)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const int j = frag_j(kk, f), half = frag_half(f);
-        const int qpos = q0 + r0 + g + 8 * half;
+        const int j = frag_j(kk, f), hf = frag_half(f);
+        const int qpos = q0 + r0 + g + 8 * hf;
         float d[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int idx = 4 * j + 2 * half + e;
+          const int idx = 4 * j + 2 * hf + e;
           float dcap;
-          float p = prob<CAP>(sc[idx], c2, cap_in, softcap, lse2[half],
+          float p = prob<CAP>(sc[idx], c2, cap_in, softcap, lse2[hf],
                               &dcap);
           if (masked && !visible(qpos, k0 + 8 * j + 2 * t + e, Sq, Skv,
                                  causal, window))
             p = 0.f;
-          d[e] = p * dcap * (dp[idx] - Dr[half]);
+          d[e] = p * dcap * (dp[idx] - Dr[hf]);
         }
         ds[kk][f] = pack_bf16(d[0], d[1]);
       }
@@ -605,7 +637,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     // dQ += dS K
     fence_regs(dQ);
     wgmma_fence();
-    product_rs<DH>(dQ, ds, tK);
+    product_rs<DH>(dQ, ds, tK, half);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dQ);
@@ -613,14 +645,15 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 
   const size_t q_step = (size_t)H * DH;
-  __nv_bfloat16* qb = dq + (size_t)b * Sq * q_step + (size_t)h * DH;
+  __nv_bfloat16* qb =
+      dq + (size_t)b * Sq * q_step + (size_t)h * DH + half * NO;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = q0 + r0 + g + 8 * half;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = q0 + r0 + g + 8 * hf;
     if (s < Sq) {
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
-        const int e = 4 * d + 2 * half;
+        const int e = 4 * d + 2 * hf;
         *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)s * q_step + 8 * d +
                                            2 * t) =
             __floats2bfloat162_rn(dQ[e] * scale, dQ[e + 1] * scale);
@@ -969,14 +1002,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   int e = launch_dot<__nv_bfloat16>(o, dout, Dv, B, Sq, H, DH, stream);
   if (e != 0) return e;
   const int n_kt = (Skv + BK - 1) / BK, n_qt = (Sq + BQ - 1) / BQ;
+  constexpr int SPLIT = Out<DH>::SPLIT;
   bwd_dkdv_wgmma<DH, CAP>
-      <<<n_kt * KV * B, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
+      <<<n_kt * KV * B * SPLIT, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
           tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
           B, Sq, Skv, H, KV, scale, causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd_dq_wgmma<DH, CAP>
-      <<<n_qt * H * B, WG_THREADS, QSmem<DH>::bytes, stream>>>(
+      <<<n_qt * H * B * SPLIT, WG_THREADS, QSmem<DH>::bytes, stream>>>(
           tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dq, B, Sq, Skv, H, KV,
           scale, causal, window, softcap);
   return (int)cudaGetLastError();
@@ -984,15 +1018,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
 
 // The two paths: bfloat16 on wgmma (the soft-cap a template argument),
 // float32 on FMAs.
+// float32 stops at dh 128: its tiles of 64 x 256 floats would not fit a
+// CTA's shared memory, and no main path trains at float32 dh 256
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, float* Dv,
               void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
               int KV, float scale, int causal, int window, float softcap,
               cudaStream_t s) {
-  if (!bf16)
-    return launch_f32<DH>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq, Skv,
-                          H, KV, scale, causal, window, softcap, s);
+  if (!bf16) {
+    if constexpr (DH > 128) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      return launch_f32<DH>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
+                            Skv, H, KV, scale, causal, window, softcap, s);
+    }
+  }
   if (softcap > 0.f)
     return launch_wgmma<DH, 1>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
                                Skv, H, KV, scale, causal, window, softcap,
@@ -1007,10 +1048,11 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 // contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1, 16-byte
 // aligned for TMA).  lse is the forward's float32 (B, H, Sq) row
 // log-sum-exp; Dv a float32 (B, H, Sq) scratch buffer for D.  scale is
-// dh^-0.5 rounded to float32; dh is 32, 64 or 128; a causal call needs
-// Sq == Skv.  Launches three kernels on `stream`; returns the first
-// nonzero cudaGetLastError() (or the error of a shared-memory opt-in, or
-// cudaErrorInvalidValue for another dh, no key at all, a causal call
+// dh^-0.5 rounded to float32; dh is 32, 64 or 128, or 256 in bfloat16;
+// a causal call needs Sq == Skv.  Launches three kernels on `stream`;
+// returns the first nonzero cudaGetLastError() (or the error of a
+// shared-memory opt-in, or cudaErrorInvalidValue for another dh or
+// float32 at 256, no key at all, a causal call
 // with Sq != Skv, or a tensor map that cannot be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -1031,6 +1073,9 @@ extern "C" int flash_attention_bwd_launch(
                            Skv, H, KV, scale, causal, window, softcap, s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
+                            Skv, H, KV, scale, causal, window, softcap, s);
+    case 256:
+      return launch_dh<256>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                             Skv, H, KV, scale, causal, window, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;

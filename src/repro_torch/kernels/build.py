@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 KERNELS = ("vote_aggregate", "tree_hist", "flash_attention",
-           "flash_attention_bwd", "rglru_scan", "wkv6")
+           "flash_attention_bwd", "rglru_scan", "rglru_scan_bwd", "wkv6",
+           "wkv6_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # several host threads launch kernels in one process (the thread and

@@ -31,7 +31,8 @@ The forward runs stablelm's head dim 80 natively (``HEAD_DIMS``; the
 bfloat16 tiles are five 32-byte-swizzled boxes of 16 columns, ``tile``).
 A head dim between a kernel's own is zero-padded on the head axis to
 the next one (``padded_head_dim``: the forward's 48 -> 64; the
-backward's 80 -> 128, ``BWD_HEAD_DIMS``) and run with the true dim's
+backward's 80 -> 128, ``BWD_HEAD_DIMS``, which holds 256 for bfloat16:
+recurrentgemma's local attention trains at dh 256) and run with the true dim's
 scale ``dh ** -0.5``: zero columns add nothing to q·k, to D =
 rowsum(dO·O) or to dQ and dK, and the padded output columns are sliced
 away, at the cost of the padded dim's work and the pad and slice
@@ -52,7 +53,8 @@ launches = 0
 NEG_INF = -1e30    # a masked score's running-max floor (csrc: NEG_INF)
 bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64, 128, 256)   # 256 in bfloat16 only
+BWD_F32_MAX_DH = 128
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -216,8 +218,10 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     = Skv, training) or, with ``causal=False``, cross attention (Sq !=
     Skv).  CUDA tensors, contiguous; q, o, do (B, Sq, H, dh) and k, v
     (B, Skv, KV, dh) of one dtype (float32 or bfloat16); dh at most the
-    largest of BWD_HEAD_DIMS (padded to the next one between them).
-    bfloat16 runs the wgmma kernels, float32 the FMA kernels.  Every
+    largest of BWD_HEAD_DIMS (padded to the next one between them; dh
+    above 128 in bfloat16 only).  bfloat16 runs the wgmma kernels (at dh
+    256 two CTAs a tile, one a half of the output columns), float32 the
+    FMA kernels.  Every
     product accumulates in float32 in a fixed order (no atomics): the
     gradients are identical run to run.  The outputs are in q's
     dtype."""
@@ -235,6 +239,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
         raise ValueError(f"flash_attention_backward: head dim {dh} above "
                          f"{BWD_HEAD_DIMS[-1]} (the attention archs' "
                          f"training widths and their smokes)")
+    if q.dtype == torch.float32 and dp > BWD_F32_MAX_DH:
+        raise ValueError(f"flash_attention_backward: float32 runs head dims "
+                         f"up to {BWD_F32_MAX_DH} (its FMA kernels' tiles "
+                         f"would not fit shared memory at {dp}); dh {dh} "
+                         f"trains in bfloat16")
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention_backward: {H} heads do not split "
                          f"over {KV} kv heads")

@@ -25,14 +25,30 @@ natively and N1 padded to 128), S the steps and D the channels:
   K5 WKV                   6 FLOPs a state element a step; r, k, v, w,
                            u, s0 read, o, s_last written
 
-The recurrences' backward kernels do not exist yet (ROADMAP §2, N2):
-on the card a training call of ``rglru`` or ``wkv`` raises, but the
-reference trains these archs, so their dry-run prices a first-order
-backward: a reverse scan of 5 FLOPs an element for K4 (the carried
-gradient's multiply-add, exp(log_a), and dlog_a's two multiplies), and
-12 FLOPs a state element a step for K5 (the forward's 6 again for the
-recomputed state, 6 for the state gradient and dr, dk, dv, dw); bytes
-again each input read and each output written once.
+The recurrences' backward kernels (N2) are priced as built, recompute
+and checkpoint workspace included (``csrc/rglru_scan_bwd.cu``,
+``csrc/wkv6_bwd.cu``):
+
+  N2a RG-LRU backward      10 FLOPs an element: the checkpoint walk's
+                           3, the chunk rebuild's 3, and the reverse
+                           walk's 4 (g·a, its product with h_{t-1}, a·g
+                           and + dh); x and log_a read twice, dh read,
+                           dx and dlog_a written, h0, dh_last read, dh0
+                           written, and the float32 checkpoints (B,
+                           ceil(S / 16), D) written once and read once
+  N2b WKV backward         16 FLOPs a state element a step: the
+                           checkpoint walk's 3, the chunk rebuild's 3
+                           and dr's 2, then dk's 2, dw's 2, dv's 1 and
+                           G's update 3 (the O(dh) terms a step are left
+                           out); k, v, w read in the checkpoint walk,
+                           r, k, v, w, dO in the backward walk, dr, dk,
+                           dv, dw written; u, s0, ds_last read, du, ds0
+                           written; the du partials (B, H, dh) and the
+                           checkpoints (B, H, ceil(S / 8), dh, dh)
+                           written once and read once
+
+A call is one ``calls``; N2b launches two kernels a call (the walk, then
+du's sum over the batch), as N1 launches three.
 """
 from __future__ import annotations
 
@@ -43,6 +59,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import wkv6 as _wk
 
 
 @dataclass
@@ -150,22 +169,31 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0):
 # ---------------------------------------------------------------------------
 # K4
 # ---------------------------------------------------------------------------
+def _opt_bytes(t):
+    return 0 if t is None else _nbytes(t)
+
+
 class _RGLRU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, log_a, h0):
+        ctx.set_materialize_grads(False)
         h = x.new_empty(x.shape)
         h_last = h0.new_empty(h0.shape, dtype=torch.float32)
         _add("rglru_scan", 3 * x.numel(), _nbytes(x, log_a, h0, h, h_last))
-        ctx.save_for_backward(log_a, h, h0)
+        ctx.save_for_backward(x, log_a, h0)
         return h, h_last
 
     @staticmethod
     def backward(ctx, dh, dh_last):
-        log_a, h, h0 = ctx.saved_tensors
-        dx, dlog_a, dh0 = h.new_empty(h.shape), \
+        x, log_a, h0 = ctx.saved_tensors
+        B, S, D = x.shape
+        dx, dlog_a, dh0 = x.new_empty(x.shape), \
             log_a.new_empty(log_a.shape), h0.new_empty(h0.shape)
-        _add("rglru_scan_backward", 5 * h.numel(),
-             _nbytes(dh, dh_last, log_a, h, h0, dx, dlog_a, dh0))
+        ckpt = 4 * B * -(-S // _rg.CHECKPOINT_STEPS) * D
+        dh_bytes = _nbytes(x)                    # dh: x's shape and dtype
+        _add("rglru_scan_backward", 10 * x.numel(),
+             2 * _nbytes(x, log_a) + dh_bytes + _nbytes(dx, dlog_a, h0, dh0)
+             + _opt_bytes(dh_last) + 2 * ckpt)
         return dx, dlog_a, dh0
 
 
@@ -186,6 +214,7 @@ def _wkv_state_steps(r):
 class _WKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
         o = r.new_empty(r.shape)
         s_last = s0.new_empty(s0.shape, dtype=torch.float32)
         _add("wkv6", 6 * _wkv_state_steps(r),
@@ -196,9 +225,12 @@ class _WKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, ds_last):
         r, k, v, w, u, s0 = ctx.saved_tensors
+        B, S, H, dh = r.shape
         grads = tuple(t.new_empty(t.shape) for t in (r, k, v, w, u, s0))
-        _add("wkv6_backward", 12 * _wkv_state_steps(r),
-             _nbytes(r, k, v, w, u, s0, do, ds_last, *grads))
+        ckpt = 4 * B * H * -(-S // _wk.BWD_CHUNK) * dh * dh
+        _add("wkv6_backward", 16 * _wkv_state_steps(r),
+             8 * _nbytes(r) + _nbytes(u, s0) + _opt_bytes(ds_last)
+             + _nbytes(*grads) + 2 * 4 * B * H * dh + 2 * ckpt)
         return grads
 
 

@@ -20,15 +20,20 @@ reference also computes outside its kernels (``repro/kernels/ops.py``
 plain version on the card, call ``ref`` directly: nothing here runs a
 plain version in place of a kernel on a CUDA tensor.
 
-Gradients: a CUDA attention call that needs one (grad mode on and an
-input that requires it) runs ``flash_attention.FlashAttention``, the
-forward kernel and the hand-written backward: at q_offset 0, over Sq =
-Skv, or over Sq != Skv when non-causal (an encoder-decoder's cross
-attention).  The recurrence kernels
-have no backward yet (ROADMAP §2, N2), so a CUDA ``rglru`` or ``wkv``
-call that needs a gradient raises rather than return a tensor that
-would silently cut it; on the CPU the plain versions stay
-differentiable.
+Gradients: a CUDA call that needs one (grad mode on and an input that
+requires it) runs a ``torch.autograd.Function`` that joins the forward
+kernel to a hand-written backward kernel:
+
+  - attention, ``flash_attention.FlashAttention`` (N1): at q_offset 0,
+    over Sq = Skv, or over Sq != Skv when non-causal (an
+    encoder-decoder's cross attention);
+  - the RG-LRU scan, ``rglru_scan.RGLRUScan`` (N2a), and the WKV
+    recurrence, ``wkv6.WKV6`` (N2b), for a prefill (S > 1); their
+    decode step stays on the plain formula, differentiable as it is.
+
+The reference has no backward kernel: off the TPU it differentiates its
+xla paths.  On the CPU the plain versions are differentiated by
+autograd.
 """
 from __future__ import annotations
 
@@ -83,15 +88,6 @@ def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _no_backward(name, *tensors):
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP §2, N2: "
-            f"the K4/K5 backward kernels), so a training call on the card "
-            f"would cut the gradient here; train recurrent archs on the CPU "
-            f"or run this call without gradients")
-
-
 # ---------------------------------------------------------------------------
 # RG-LRU recurrence
 # ---------------------------------------------------------------------------
@@ -99,14 +95,16 @@ def rglru(x, log_a, h0=None):
     """h_t = exp(log_a_t) * h_{t-1} + x_t.  x, log_a: (B, S, D) of one
     dtype; h0: (B, D) float32 or None (zeros).  Returns (h (B, S, D) in
     x's dtype, h_last (B, D) float32).  On a CUDA tensor a prefill
-    (S > 1) launches the scan kernel; the decode step (S == 1) takes the
+    (S > 1) launches the scan kernel (under grad through ``RGLRUScan``,
+    whose backward is N2a); the decode step (S == 1) takes the
     plain formula, as in the reference.  A CPU tensor takes the plain
     path."""
     B, S, D = x.shape
     if h0 is None:
         h0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
     if x.is_cuda and S > 1:
-        _no_backward("rglru", x, log_a, h0)
+        if _needs_grad(x, log_a, h0):
+            return _rg.RGLRUScan.apply(x, log_a, h0)
         return _rg.rglru_scan(x, log_a, h0)
     if x.is_meta and S > 1:
         return meta.rglru(x, log_a, h0)
@@ -120,7 +118,8 @@ def wkv(r, k, v, w, u, s0=None):
     """RWKV-6 recurrence.  r, k, v, w: (B, S, H, dh) of one dtype; u:
     (H, dh); s0: (B, H, dh, dh) float32 or None (zeros).  Returns (o (B,
     S, H, dh) in r's dtype, s_last (B, H, dh, dh) float32).  On a CUDA
-    tensor a prefill (S > 1) launches the WKV kernel; the decode step
+    tensor a prefill (S > 1) launches the WKV kernel (under grad through
+    ``WKV6``, whose backward is N2b); the decode step
     takes the plain formula, as in the reference.  A CPU tensor takes
     the plain path."""
     B, S, H, dh = r.shape
@@ -128,7 +127,8 @@ def wkv(r, k, v, w, u, s0=None):
         s0 = torch.zeros((B, H, dh, dh), dtype=torch.float32,
                          device=r.device)
     if r.is_cuda and S > 1:
-        _no_backward("wkv", r, k, v, w, u, s0)
+        if _needs_grad(r, k, v, w, u, s0):
+            return _wk.WKV6.apply(r, k, v, w, u, s0)
         return _wk.wkv6(r, k, v, w, u, s0)
     if r.is_meta and S > 1:
         return meta.wkv(r, k, v, w, u, s0)

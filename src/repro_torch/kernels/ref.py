@@ -152,6 +152,40 @@ def rglru_scan_ref(x, log_a, h0=None):
     return hs.to(x.dtype), h
 
 
+def rglru_scan_backward_plain(x, log_a, h0, dh, dh_last=None):
+    """The gradients (dx, dlog_a, dh0) of ``rglru_scan_ref(x, log_a, h0)``
+    given the gradients ``dh`` of h (x's dtype) and ``dh_last`` of h_last
+    (float32, or None for zeros), step by step in float32.
+
+    With a_t = exp(log_a_t) and h_{-1} = h0, the float32 carry is
+    rebuilt as the forward builds it; then, walking back from
+    g_{S-1} = dh_{S-1} + dh_last:
+
+        dx_t = g_t;   dlog_a_t = (g_t a_t) h_{t-1};
+        g_{t-1} = dh_{t-1} + a_t g_t;   dh0 = a_0 g_0
+
+    each product and sum rounded on its own (the order K4's backward
+    kernel keeps, so that it equals this bit for bit on the card).
+    Returns dx and dlog_a in x's and log_a's dtypes, dh0 float32."""
+    B, S, D = x.shape
+    xf, af, dhf = x.float(), log_a.float(), dh.float()
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    prev = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        prev[:, t] = h
+        h = torch.exp(af[:, t]) * h + xf[:, t]
+    g = dhf[:, S - 1] if dh_last is None else dhf[:, S - 1] + dh_last.float()
+    dx = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    dla = torch.empty_like(dx)
+    for t in range(S - 1, -1, -1):
+        a = torch.exp(af[:, t])
+        dx[:, t] = g
+        dla[:, t] = g * a * prev[:, t]
+        g = dhf[:, t - 1] + a * g if t else a * g
+    return dx.to(x.dtype), dla.to(log_a.dtype), g
+
+
 # ---------------------------------------------------------------------------
 # RWKV-6 WKV recurrence
 # ---------------------------------------------------------------------------
@@ -178,6 +212,58 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         o[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv)
         s = wf[:, t, :, :, None] * s + kv
     return o.to(r.dtype), s
+
+
+def wkv6_backward_plain(r, k, v, w, u, s0, do, ds_last=None):
+    """The gradients (dr, dk, dv, dw, du, ds0) of ``wkv6_ref(r, k, v, w,
+    u, s0)`` given the gradients ``do`` of o and ``ds_last`` of s_last
+    (float32, or None for zeros), step by step in float32.
+
+    With S_t the state after step t (S_{-1} = s0), G_t = dL/dS_t
+    (G_{S-1} = ds_last) and, per head, i over the key and j over the
+    value dimension:
+
+        dr_t = S_{t-1} do_t + u * k_t (v_t . do_t)
+        dk_t = G_t v_t + u * r_t (v_t . do_t)
+        dv_t = G_t^T k_t + (sum_i r_t u k_t) do_t
+        dw_t = rowsum(G_t * S_{t-1})
+        G_{t-1} = diag(w_t) G_t + r_t do_t^T;   ds0 = G_{-1}
+        du = sum over b and t of r_t * k_t (v_t . do_t)
+
+    The forward states are rebuilt from s0 as ``wkv6_ref`` builds them
+    (never from S_t by dividing by w_t).  Returns dr, dk, dv, dw in the
+    inputs' dtype, du in u's, ds0 float32."""
+    B, S, H, dh = r.shape
+    rf, kf, vf, wf, gf = (t.float() for t in (r, k, v, w, do))
+    uf = u.float()                                         # (H, dh)
+    s = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    prev = torch.empty((B, S, H, dh, dh), dtype=torch.float32,
+                       device=r.device)
+    for t in range(S):
+        prev[:, t] = s
+        s = wf[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :,
+                                                                  None, :]
+    G = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
+         if ds_last is None else ds_last.float().clone())
+    vdo = (vf * gf).sum(-1, keepdim=True)                  # (B, S, H, 1)
+    beta = (rf * uf * kf).sum(-1, keepdim=True)            # (B, S, H, 1)
+    grads = [torch.empty((B, S, H, dh), dtype=torch.float32,
+                         device=r.device) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    for t in range(S - 1, -1, -1):
+        sp = prev[:, t]
+        dr[:, t] = (torch.einsum("bhij,bhj->bhi", sp, gf[:, t])
+                    + uf * kf[:, t] * vdo[:, t])
+        dk[:, t] = (torch.einsum("bhij,bhj->bhi", G, vf[:, t])
+                    + uf * rf[:, t] * vdo[:, t])
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", G, kf[:, t])
+                    + beta[:, t] * gf[:, t])
+        dw[:, t] = (G * sp).sum(-1)
+        G = wf[:, t, :, :, None] * G + rf[:, t, :, :, None] * gf[:, t, :,
+                                                                 None, :]
+    du = (rf * kf * vdo).sum((0, 1))
+    return (*(x.to(r.dtype) for x in grads), du.to(u.dtype), G)
 
 
 def vote_aggregate_ref(preds, num_classes, noise=None):

@@ -15,6 +15,16 @@ tensors only; ``ops.rglru`` runs the plain version
 
 ``launches`` counts the kernel launches this process made, so a run
 can show that its prefills went through the kernel.
+
+Training: ``rglru_scan_backward`` runs the hand-written backward
+(``csrc/rglru_scan_bwd.cu``, N2a): from x, log_a, h0 and the upstream
+gradients it rebuilds the float32 carry (checkpointed every
+``CHECKPOINT_STEPS`` steps into a workspace it allocates) and walks the
+gradient back, equal to ``ref.rglru_scan_backward_plain`` bit for bit;
+``bwd_launches`` counts its launches.  ``RGLRUScan`` is the
+``torch.autograd.Function`` that joins the two kernels; ``ops.rglru``
+takes it for a CUDA prefill that needs a gradient.  The reference has
+no backward kernel: off the TPU it differentiates its xla scan.
 """
 from __future__ import annotations
 
@@ -25,6 +35,9 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+bwd_launches = 0
+BWD_KERNELS = 1         # a backward call launches one kernel
+CHECKPOINT_STEPS = 16   # steps between the backward's float32 carries
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -35,6 +48,13 @@ _I = ctypes.c_int
 def _lib():
     fn = build.load("rglru_scan").rglru_scan_launch
     fn.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def _bwd_lib():
+    fn = build.load("rglru_scan_bwd").rglru_scan_bwd_launch
+    fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
@@ -80,3 +100,69 @@ def rglru_scan(x, log_a, h0):
     with build.COUNT_LOCK:
         launches += 1
     return h, h_last
+
+
+def rglru_scan_backward(x, log_a, h0, dh, dh_last=None):
+    """The gradients (dx, dlog_a, dh0) of ``rglru_scan(x, log_a, h0)``
+    given ``dh`` (B, S, D) in x's dtype, the gradient of h, and
+    ``dh_last`` (B, D) float32 or None (zeros), the gradient of h_last.
+    CUDA tensors, contiguous, S >= 1.  dx and dlog_a come in x's dtype,
+    dh0 float32."""
+    global bwd_launches
+    if x.dim() != 3:
+        raise ValueError(f"rglru_scan_backward: x must be (B, S, D), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"rglru_scan_backward: dtype {x.dtype} not in "
+                        f"{DTYPES}")
+    B, S, D = x.shape
+    if S < 1:
+        raise ValueError("rglru_scan_backward: S must be at least 1")
+    dev = x.device
+    _check(x, "x", (B, S, D), x.dtype, dev)
+    _check(log_a, "log_a", (B, S, D), x.dtype, dev)
+    _check(h0, "h0", (B, D), torch.float32, dev)
+    _check(dh, "dh", (B, S, D), x.dtype, dev)
+    if dh_last is not None:
+        _check(dh_last, "dh_last", (B, D), torch.float32, dev)
+    dx, dla = torch.empty_like(x), torch.empty_like(log_a)
+    dh0 = torch.empty((B, D), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((B, -(-S // CHECKPOINT_STEPS), D),
+                       dtype=torch.float32, device=dev)
+    fn = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), log_a.data_ptr(), h0.data_ptr(),
+                 dh.data_ptr(), None if dh_last is None else
+                 dh_last.data_ptr(), dx.data_ptr(), dla.data_ptr(),
+                 dh0.data_ptr(), ckpt.data_ptr(), B, S, D,
+                 int(x.dtype == torch.bfloat16), CHECKPOINT_STEPS, stream)
+    build.check(err, "rglru_scan_backward")
+    with build.COUNT_LOCK:
+        bwd_launches += BWD_KERNELS
+    return dx, dla, dh0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with a gradient: the forward kernel, then
+    ``rglru_scan_backward``, which rebuilds the float32 carry from the
+    saved inputs (nothing of the forward's outputs is kept)."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, log_a, h0)
+        return rglru_scan(x, log_a, h0)
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        if not any(ctx.needs_input_grad):
+            return None, None, None
+        x, log_a, h0 = ctx.saved_tensors
+        dh = torch.zeros_like(x) if dh is None else dh.contiguous()
+        dx, dla, dh0 = rglru_scan_backward(
+            x, log_a, h0, dh,
+            None if dh_last is None else dh_last.contiguous())
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dla if need[1] else None,
+                dh0 if need[2] else None)

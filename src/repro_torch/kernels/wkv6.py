@@ -13,6 +13,20 @@ configs).  CUDA tensors only; ``ops.wkv`` runs the plain version
 ``launches`` counts the kernel launches this process made, so a run
 can show that its prefills went through the kernel.  ``plan`` is the
 launch's plan, which the CUDA launcher checks against its own.
+
+Training: ``wkv6_backward`` runs the hand-written backward
+(``csrc/wkv6_bwd.cu``, N2b): one CTA a (batch, head) walks forward,
+writing the state every ``BWD_CHUNK`` steps to a float32 checkpoint
+workspace the wrapper allocates, then back chunk by chunk, rebuilding
+each chunk's states from its checkpoint (its threads and shared memory
+are the .cu's alone); its gradients are held to
+``ref.wkv6_backward_plain``.  ``bwd_launches`` counts its kernel
+launches (``BWD_KERNELS`` a call: the walk, then du's fixed-order sum
+over the batch).
+``WKV6`` is the ``torch.autograd.Function`` that joins forward and
+backward; ``ops.wkv`` takes it for a CUDA prefill that needs a
+gradient.  The reference has no backward kernel: off the TPU it
+differentiates its xla recurrence.
 """
 from __future__ import annotations
 
@@ -24,6 +38,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+bwd_launches = 0
+BWD_KERNELS = 2     # a backward call: the walk, then du's sum over b
 
 HEAD_DIM = 64
 DTYPES = (torch.float32, torch.bfloat16)
@@ -57,8 +73,18 @@ def plan(S):
                 -(-S // CHUNK), smem)
 
 
+BWD_CHUNK = 8   # the backward's steps between float32 checkpoints
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _bwd_lib():
+    fn = build.load("wkv6_bwd").wkv6_bwd_launch
+    fn.argtypes = [_P] * 16 + [_I] * 6 + [_P]
+    fn.restype = _I
+    return fn
 
 
 def _lib():
@@ -117,3 +143,75 @@ def wkv6(r, k, v, w, u, s0):
     with build.COUNT_LOCK:
         launches += 1
     return o, s_last
+
+
+def wkv6_backward(r, k, v, w, u, s0, do, ds_last=None):
+    """The gradients (dr, dk, dv, dw, du, ds0) of ``wkv6(r, k, v, w, u,
+    s0)`` given ``do`` (B, S, H, dh) in r's dtype, the gradient of o,
+    and ``ds_last`` (B, H, dh, dh) float32 or None (zeros), the gradient
+    of s_last.  CUDA tensors as ``wkv6`` takes them, S >= 1.  dr, dk,
+    dv, dw come in r's dtype, du and ds0 float32."""
+    global bwd_launches
+    if r.dim() != 4:
+        raise ValueError(f"wkv6_backward: r must be (B, S, H, dh), got "
+                         f"{tuple(r.shape)}")
+    if r.dtype not in DTYPES:
+        raise TypeError(f"wkv6_backward: dtype {r.dtype} not in {DTYPES}")
+    B, S, H, dh = r.shape
+    if dh != HEAD_DIM:
+        raise ValueError(f"wkv6_backward: head dim {dh} != {HEAD_DIM}")
+    if S < 1:
+        raise ValueError("wkv6_backward: S must be at least 1")
+    dev = r.device
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("do", do)):
+        _check(t, name, (B, S, H, dh), r.dtype, dev)
+    _check(u, "u", (H, dh), torch.float32, dev)
+    _check(s0, "s0", (B, H, dh, dh), torch.float32, dev)
+    if ds_last is not None:
+        _check(ds_last, "ds_last", (B, H, dh, dh), torch.float32, dev)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((H, dh), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
+    du_part = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((B, H, -(-S // BWD_CHUNK), dh, dh),
+                       dtype=torch.float32, device=dev)
+    fn = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), s0.data_ptr(), do.data_ptr(),
+                 None if ds_last is None else ds_last.data_ptr(),
+                 dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                 du.data_ptr(), ds0.data_ptr(), du_part.data_ptr(),
+                 ckpt.data_ptr(), B, S, H, dh,
+                 int(r.dtype == torch.bfloat16), BWD_CHUNK, stream)
+    build.check(err, "wkv6_backward")
+    with build.COUNT_LOCK:
+        bwd_launches += BWD_KERNELS
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKV6(torch.autograd.Function):
+    """The WKV recurrence with a gradient: the forward kernel, then
+    ``wkv6_backward``, which rebuilds the states from the saved inputs
+    (nothing of the forward's outputs is kept).  Only the gradients
+    ``ctx.needs_input_grad`` asks for are returned; the backward runs
+    when any is asked."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return wkv6(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, do, ds_last):
+        if not any(ctx.needs_input_grad):
+            return (None,) * 6
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.contiguous()
+        grads = wkv6_backward(
+            r, k, v, w, u, s0, do,
+            None if ds_last is None else ds_last.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))

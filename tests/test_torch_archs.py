@@ -416,7 +416,8 @@ def test_head_dim_80_pads_to_128_exactly():
                                              257)] == \
         [32, 32, 64, 80, 128, 256, 256, None]
     assert fa.padded_head_dim(80, fa.BWD_HEAD_DIMS) == 128
-    assert fa.padded_head_dim(256, fa.BWD_HEAD_DIMS) is None
+    assert fa.padded_head_dim(256, fa.BWD_HEAD_DIMS) == 256
+    assert fa.padded_head_dim(257, fa.BWD_HEAD_DIMS) is None
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((2, 40, n, 80), generator=g) for n in (4, 2, 2))
     want = ref.attention_plain(q, k, v, causal=True, window=16)

@@ -1,6 +1,8 @@
 """The LM training path on the card: the flash-attention backward kernel
-against its plain version, the forward's row log-sum-exp, launch counts
-of a train step, and the recurrent archs' refusal to train.
+(N1, dh 256 included) against its plain version, the forward's row
+log-sum-exp, launch counts of a train step, the recurrences' backward
+kernels (N2a, N2b) against theirs, and the recurrent smokes fitting on
+the card.
 
 Run on a GPU host with
 ``python -m pytest -q -m cuda tests/test_torch_cuda_lm.py``; elsewhere
@@ -9,7 +11,10 @@ Tolerances: gradients within 2e-2 of the largest |gradient| in bfloat16
 and 2e-5 in float32 of ``ref.attention_backward_plain`` on the same
 inputs (the forward's tolerances), identical run to run; the LSE within
 1e-5 (float32) and 1e-2 (bfloat16, where P is rounded inside the
-kernel but not in the plain version).
+kernel but not in the plain version).  N2a equals
+``ref.rglru_scan_backward_plain`` bit for bit; N2b is within 2e-2
+(bfloat16) or 1e-5 (float32) of each output's largest |gradient| of
+``ref.wkv6_backward_plain``.
 """
 import numpy as np
 import pytest
@@ -161,27 +166,143 @@ def test_train_step_launch_counts(cuda):
     assert np.isfinite(float(m["loss"]))
 
 
-def test_recurrence_kernels_raise_under_grad(cuda):
-    from repro_torch.kernels import ops
-    x = torch.randn(1, 8, 32, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="N2"):
-        ops.rglru(x, -torch.rand(1, 8, 32, device=cuda))
-    r, k, v, w = (torch.randn(1, 8, 2, 64, device=cuda) for _ in range(4))
-    r.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="N2"):
-        ops.wkv(r, k, v, torch.sigmoid(w), torch.randn(2, 64, device=cuda))
-    with torch.no_grad():               # serving is unaffected
-        ops.rglru(x, -torch.rand(1, 8, 32, device=cuda))
+# (B, S, D, nonzero h0 and dh_last): recurrentgemma's width, a ragged S,
+# a D that is not a multiple of 32
+RGLRU_SHAPES = [(2, 128, 2560, True), (2, 1000, 256, True),
+                (3, 33, 40, False), (1, 1, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,D,nonzero", RGLRU_SHAPES)
+def test_rglru_backward_kernel_equals_plain(cuda, dtype, B, S, D, nonzero):
+    """N2a equals ``ref.rglru_scan_backward_plain`` bit for bit (dx,
+    dlog_a, dh0), identical run to run; and through ``ops.rglru`` under
+    grad (K4, then N2a) the gradients are the plain ones too."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    x, dh = (torch.randn((B, S, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    la = (-torch.rand((B, S, D), generator=g, device=cuda) * 2).to(dtype)
+    h0, dl = ((torch.randn((B, D), generator=g, device=cuda), torch.randn(
+        (B, D), generator=g, device=cuda)) if nonzero
+        else (torch.zeros((B, D), device=cuda), None))
+    got = rg.rglru_scan_backward(x, la, h0, dh, dl)
+    again = rg.rglru_scan_backward(x, la, h0, dh, dl)
+    want = ref.rglru_scan_backward_plain(x, la, h0, dh, dl)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == w.dtype and torch.equal(a, b) and torch.equal(a, w)
+    if S > 1:
+        leaves = [t.clone().requires_grad_(True) for t in (x, la)]
+        before = (rg.launches, rg.bwd_launches)
+        h, hl = ops.rglru(*leaves, h0)
+        outs, grads = ((h,), (dh,)) if dl is None else ((h, hl), (dh, dl))
+        comp = torch.autograd.grad(outs, leaves, grads)
+        assert (rg.launches - before[0], rg.bwd_launches - before[1]) == \
+            (1, 1)
+        for a, w in zip(comp, want):
+            assert torch.equal(a, w)
+
+
+# (B, S, H, nonzero s0 and ds_last): rwkv6's 64 heads, ragged S
+WKV_SHAPES = [(2, 128, 64, True), (1, 200, 8, False), (2, 37, 4, True),
+              (1, 9, 2, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,nonzero", WKV_SHAPES)
+def test_wkv6_backward_kernel_matches_plain(cuda, dtype, B, S, H, nonzero):
+    """N2b within 2e-2 (bf16) or 1e-5 (float32) of each output's largest
+    |gradient| from ``ref.wkv6_backward_plain`` (dr, dk, dv, dw, du,
+    ds0: the same float32 recurrence summed in another order; bf16
+    gradients rounded once), identical run to run; and through
+    ``ops.wkv`` under grad (K5, then N2b) within the same bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    dh = 64
+    r, k, v, do = (torch.randn((B, S, H, dh), generator=g, device=cuda)
+                   .mul(0.5).to(dtype) for _ in range(4))
+    w = torch.rand((B, S, H, dh), generator=g, device=cuda).mul(0.9).add(
+        0.05).to(dtype)
+    u = torch.randn((H, dh), generator=g, device=cuda) * 0.3
+    s0 = (torch.randn((B, H, dh, dh), generator=g, device=cuda) * 0.2
+          if nonzero else torch.zeros((B, H, dh, dh), device=cuda))
+    dsl = (torch.randn((B, H, dh, dh), generator=g, device=cuda)
+           if nonzero else None)
+    got = wk.wkv6_backward(r, k, v, w, u, s0, do, dsl)
+    again = wk.wkv6_backward(r, k, v, w, u, s0, do, dsl)
+    want = ref.wkv6_backward_plain(r, k, v, w, u, s0, do, dsl)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    before = (wk.launches, wk.bwd_launches)
+    o, sl = ops.wkv(*leaves)
+    outs, grads = ((o,), (do,)) if dsl is None else ((o, sl), (do, dsl))
+    comp = torch.autograd.grad(outs, leaves, grads)
+    torch.cuda.synchronize()
+    assert (wk.launches - before[0], wk.bwd_launches - before[1]) == \
+        (1, wk.BWD_KERNELS)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for a, b, c, w_ in zip(got, again, comp, want):
+        assert a.dtype == w_.dtype and torch.equal(a, b)
+        scale = float(w_.float().abs().max())
+        assert float((a.float() - w_.float()).abs().max()) <= tol * scale
+        assert float((c.float() - w_.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("B,S,H,KV,window,softcap", SHAPES)
+def test_backward_kernel_at_dh256_matches_plain(cuda, B, S, H, KV, window,
+                                                softcap):
+    """N1 at recurrentgemma's head dim 256 in bfloat16 (two CTAs a tile,
+    one a half of the output columns), within 2e-2 of the largest
+    |gradient| of ``ref.attention_backward_plain``, identical run to
+    run, through windows, caps and MQA; float32 at 256 is refused."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v, do = _qkv(cuda, B, S, H, KV, 256, torch.bfloat16, seed=S + H)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= 2e-2 * scale
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention_backward(qf, kf, vf, of, dof, lse, **kw)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
-def test_cuda_lm_learner_on_recurrent_arch_raises_in_fit(cuda, arch):
+def test_cuda_lm_learner_fits_recurrent_arch(cuda, arch):
+    """A recurrent smoke fits on the card through ``LMLearner.fit``: its
+    RG-LRU / RWKV layers run K4 / K5 and their backward kernels (N2a,
+    N2b) each step, as ``chip_smoke.train_launches`` counts them, and
+    the loss stays finite."""
+    import chip_smoke
     from repro_torch.configs import TrainConfig, get_smoke
     from repro_torch.core.learners import LMLearner
     from repro_torch.data import synthetic
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import Model
-    learner = LMLearner(Model(get_smoke(arch)),
-                        TrainConfig(batch_size=2, steps=1), device="cuda")
+    from repro_torch.tree_util import tree_leaves
+    cfg = get_smoke(arch)
+    steps = 2
+    learner = LMLearner(Model(cfg), TrainConfig(batch_size=2, steps=steps),
+                        device="cuda")
     seqs = synthetic.tokens(n_seqs=8, seq_len=17, vocab=512)["train"]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        learner.fit(None, seqs)
+    before = (rg.launches, rg.bwd_launches, wk.launches, wk.bwd_launches)
+    state = learner.fit(None, seqs)
+    torch.cuda.synchronize()
+    want = chip_smoke.train_launches(cfg)
+    got = (rg.launches - before[0], rg.bwd_launches - before[1],
+           wk.launches - before[2], wk.bwd_launches - before[3])
+    assert got == tuple(steps * want[k] for k in (
+        "rglru_scan", "rglru_scan_backward", "wkv6", "wkv6_backward"))
+    assert max(got[1], got[3]) > 0
+    assert all(torch.isfinite(t).all() for t in tree_leaves(state))

@@ -401,10 +401,51 @@ def test_meta_recurrences():
             (want.shape, want.dtype)
     assert work.by_kernel["rglru_scan"]["calls"] == 2
     assert work.by_kernel["rglru_scan"]["flops"] == 2 * 3 * x.numel()
-    assert work.by_kernel["rglru_scan_backward"]["flops"] == 5 * x.numel()
+    # N2a as built: 10 FLOPs an element; x and log_a read twice, dh
+    # read, dx, dlog_a written, h0 read, dh0 written, and the float32
+    # checkpoints of every 16th carry written and read (12 steps: one)
+    assert work.by_kernel["rglru_scan_backward"] == {
+        "calls": 1, "flops": 10 * x.numel(),
+        "bytes": 2 * 7 * x.numel() + 4 * 2 * B * Dm + 2 * 4 * B * 1 * Dm}
     assert work.by_kernel["wkv6"] == {
         "calls": 1, "flops": 6 * B * S * H * dh * dh,
         "bytes": 4 * (5 * r.numel() + u.numel() + 2 * B * H * dh * dh)}
+    # N2b as built: 16 FLOPs a state element a step; 8 reads of r's size
+    # (k, v, w, then r, k, v, w, dO), 4 writes, u and s0 read, du and
+    # ds0 written, du's partials and the checkpoints of every 8th state
+    # (12 steps: two) written and read
+    work = meta.Work()
+    with meta.counting(work):
+        leaves = [t.to("meta").requires_grad_(True) for t in (r, k, v, w, u)]
+        torch.autograd.grad(ops.wkv(*leaves)[0].sum(), leaves)
+    assert work.by_kernel["wkv6_backward"] == {
+        "calls": 1, "flops": 16 * B * S * H * dh * dh,
+        "bytes": 4 * (12 * r.numel() + 2 * u.numel() + 2 * B * H * dh * dh
+                      + 2 * B * H * dh + 2 * B * H * 2 * dh * dh)}
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_chip_smoke_train_launches_match_the_dry_run(arch):
+    """chip_smoke's ``train_launches`` (read from the layer pattern) and
+    the dry-run's predicted calls of K3, N1, K4, N2a, K5 and N2b agree
+    for the recurrent smokes' train step: ``dryrun_train`` raises where
+    they differ, as it does on the card against the counted launches."""
+    import chip_smoke
+    cfg = get_smoke(arch)
+    want = chip_smoke.train_launches(cfg)
+    row = chip_smoke.dryrun_train("cpu", {
+        "step_ms_median_last6": 1.0, "peak_mem_bytes": 1 << 40,
+        "launches_per_step": want}, cfg)
+    assert row["predicted_launches_per_step"] == {
+        k: v for k, v in want.items() if v}
+    kinds = cfg.layer_kinds
+    if arch == "rwkv6-7b":
+        assert want["wkv6"] == 2 * len(kinds)
+        assert want["wkv6_backward"] == 2 * len(kinds)
+    else:
+        assert want["rglru_scan"] == 2 * kinds.count("rglru")
+        assert want["rglru_scan_backward"] == kinds.count("rglru")
+        assert want["flash_attention"] == 2 * kinds.count("attn_local")
 
 
 # ---------------------------------------------------------------------------

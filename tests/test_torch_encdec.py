@@ -396,5 +396,9 @@ def test_chip_smoke_whisper_phases_on_cpu():
                                         cfg=cfg, prompt_len=20, gen=3,
                                         tag="arch-parity")
     assert row["matched_whole"] == 3 and row["max_diff"] == 0.0
-    assert chip_smoke.train_launches(get_config("whisper-tiny")) == (20, 12)
-    assert chip_smoke.train_launches(get_smoke("phi4-mini-3.8b")) == (4, 2)
+    zero = {"vote_aggregate": 0, "rglru_scan": 0, "rglru_scan_backward": 0,
+            "wkv6": 0, "wkv6_backward": 0}
+    assert chip_smoke.train_launches(get_config("whisper-tiny")) == dict(
+        zero, flash_attention=20, flash_attention_backward=3 * 12)
+    assert chip_smoke.train_launches(get_smoke("phi4-mini-3.8b")) == dict(
+        zero, flash_attention=4, flash_attention_backward=3 * 2)

@@ -16,9 +16,12 @@ Tolerances (the same float32 arithmetic summed in another order):
     of autograd of ``attention_plain`` and of ``jax.vjp`` of the
     reference's attention (its xla path, which the reference trains
     through off the TPU).
-The recurrent smokes train on the CPU through the plain recurrences:
-their gradients are held within 1e-4 of each leaf's largest |gradient|
-(the reference's RG-LRU takes an associative scan on the CPU).
+The recurrent smokes' gradients through the plain recurrences (what
+the CPU runs) are held within 1e-4 of each leaf's largest |gradient|
+(the reference's RG-LRU takes an associative scan on the CPU); on the
+card the same layers train through the backward kernels N2a and N2b,
+held to the plain backwards in ``test_torch_recurrent_grad.py`` and
+``test_torch_cuda_lm.py``.
 """
 import dataclasses
 
@@ -146,7 +149,7 @@ def test_chunked_head_matches_reference(S):
 @pytest.mark.parametrize("name", RECURRENT_ARCHS)
 def test_recurrent_grads_on_cpu_match_reference(name):
     """On the CPU the recurrent archs train through the plain
-    recurrences (the card's kernels raise under grad)."""
+    recurrences (the card's run the backward kernels N2a and N2b)."""
     cfg, model, tree, jm, jp, batch = _setup(name, S=48)
     loss, grads = _grads(model, tree, batch, remat=True)
     jloss, jgrads = jax.value_and_grad(
