@@ -251,9 +251,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12         # H100 SXM CUDA cores, float32
-BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16 dense
+# the H100's rates (one owner: the port's roofline, launch/analysis.py)
+from repro_torch.launch.analysis import (FP32_FLOPS, HBM_BW,  # noqa: E402
+                                         PEAK_FLOPS, TF32_FLOPS)
 ADULT_ROWS, ADULT_FEATURES = 48_842, 14
 ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 # K3's row log-sum-exp against the plain version's, absolute (as
@@ -307,11 +307,11 @@ def graph_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
+def bound(nbytes, nops, ops_per_s=FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations over the peak rate for their type (float32 CUDA cores
     unless given)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -328,7 +328,8 @@ def same_bits(a, b):
 
 # kernels whose registers and spills get a summary line of their own
 PTXAS_KERNELS = ("flash_attention_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
-                 "wkv6_kernel", "wkv6_bwd_kernel", "rglru_scan_bwd")
+                 "bwd_dkdv_wg2", "bwd_dq_wg2", "wkv6_kernel",
+                 "wkv6_bwd_chains", "wkv6_bwd_chunk", "rglru_scan_bwd")
 
 
 def _kernel_label(mangled):
@@ -758,8 +759,8 @@ def phase_attention():
         lib_ms = None if fastest is None else fastest[0]
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         nops = 4 * B * H * valid_pairs(S, Skv, causal, window) * dh
-        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
-                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, nops, PEAK_FLOPS
+                           if dt == torch.bfloat16 else FP32_FLOPS)
         row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
                "Skv": Skv, "causal": causal, "H": H, "KV": KV, "dh": dh,
                "launched_dh": fa.padded_head_dim(dh), "dtype": str(dt),
@@ -781,8 +782,9 @@ def phase_attention():
     return rows, worst
 
 
-def _rec_row(kernel, label, shape, dt, err, tol, ms, plain, nbytes, nops):
-    b_ms, b_by = bound(nbytes, nops)
+def _rec_row(kernel, label, shape, dt, err, tol, ms, plain, nbytes, nops,
+             bnd=None):
+    b_ms, b_by = bound(nbytes, nops) if bnd is None else bnd
     row = {"kernel": kernel, "shape": label, **shape, "dtype": str(dt),
            "max_abs_err": err, "tol": tol, "kernel_ms": ms,
            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
@@ -2332,8 +2334,8 @@ def lm_backward_rows():
         nbytes = (e * (3 * q.numel() + 2 * (k.numel() + v.numel())
                        + o.numel()) + 4 * lse.numel())
         nops = 10 * B * H * valid_pairs(S, Skv, causal, window) * dh
-        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S
-                           if dt == torch.bfloat16 else FP32_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, nops, PEAK_FLOPS
+                           if dt == torch.bfloat16 else FP32_FLOPS)
         row = {"kernel": "flash_attention_backward", "shape": label,
                "B": B, "S": S, "Skv": Skv, "causal": causal, "H": H,
                "KV": KV, "dh": dh, "dtype": str(dt),
@@ -2351,6 +2353,9 @@ def lm_backward_rows():
                "kernel_over_library": None if lib is None else ms / lib[0],
                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                "bytes": nbytes, "flop": nops,
+               "head_splits": fa.bwd_head_splits(
+                   B, Skv, KV, H, dh, torch.cuda.get_device_properties(0)
+                   .multi_processor_count),
                "bit_identical_run_to_run": True}
         log("[kernel] " + json.dumps(row))
         rows.append(row)
@@ -2424,6 +2429,32 @@ def rglru_backward_rows():
     return rows, worst
 
 
+def wkv_backward_bound(B, S, H, dh, dt, nonzero):
+    """(bound_ms, bound_by, operations) of N2b at (B, S, H, dh) in ``dt``.
+    Bytes: r, k, v, w, dO read and dr, dk, dv, dw written, u, s0 (and
+    ds_last where ``nonzero``) read, du and ds0 written.  Operations as
+    the chunked design does them on these inputs (C = ``BWD_CHUNK``,
+    padded steps): 10 dh^2 a step for the state-sized products (the two
+    chains', X1, X2, X3) and 2 C dh for A = dO v^T, on the tensor cores
+    in TF32 for bf16 (495 TFLOP/s) and as float32 FMAs for float32 (67),
+    plus 9 (C - 1) dh a step (the intra-chunk terms) and 2 dh^2 a chunk
+    (rowsum(G_c * S_c)) in float32; the two types' times add."""
+    from repro_torch.kernels import wkv6 as wk
+    C = wk.BWD_CHUNK
+    nc = -(-S // C)
+    steps = B * H * nc * C
+    el = 2 if dt == torch.bfloat16 else 4
+    nbytes = (el * 9 * B * S * H * dh + 4 * 2 * H * dh
+              + 4 * (3 if nonzero else 2) * B * H * dh * dh)
+    mm = (10 * dh * dh + 2 * C * dh) * steps
+    fp = 9 * (C - 1) * dh * steps + 2 * dh * dh * B * H * nc
+    t_ops = (mm / (TF32_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+             + fp / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, mm + fp
+
+
 def wkv_backward_rows():
     """N2b, the WKV recurrence's backward, against
     ``ref.wkv6_backward_plain`` at rwkv6-7b's train shape (4 x 512 x 64
@@ -2433,12 +2464,9 @@ def wkv_backward_rows():
     |gradient|, identical run to run.  Composed with its forward through
     ``WKV6`` (autograd: K5, then N2b): o and s_last within K5's
     tolerances of the plain forward's, the gradients within the same
-    tolerance of the plain backward's.  Bound: r, k, v, w, dO read and
-    dr, dk, dv, dw written, u, s0 (and ds_last) read, du and ds0
-    written; 13 float32 operations a state element a step (the states
-    built once, 3; dr, dk, dw 2 each; dv 1; G's update 3).  Returns
-    (rows, the worst absolute error, the worst error relative to the
-    largest |gradient|)."""
+    tolerance of the plain backward's.  Bound: ``wkv_backward_bound``.
+    Returns (rows, the worst absolute error, the worst error relative to
+    the largest |gradient|)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as wk
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -2502,12 +2530,13 @@ def wkv_backward_rows():
         n_state = 3 if nonzero else 2            # s0, ds0 (and ds_last)
         nbytes = (r.element_size() * 9 * r.numel() + 4 * 2 * u.numel()
                   + 4 * n_state * s0.numel())
+        b_ms, b_by, nops = wkv_backward_bound(B, S, H, dh, dt, nonzero)
         rows.append(_rec_row("wkv6_backward", label,
                              {"B": B, "S": S, "H": H, "dh": dh,
                               "chunk": wk.BWD_CHUNK, "graph_ms": dev,
                               "max_rel_err": rel},
-                             dt, err, tol[dt], ms, plain, nbytes,
-                             13 * B * S * H * dh * dh))
+                             dt, err, tol[dt], ms, plain, nbytes, nops,
+                             (b_ms, b_by)))
         del r, k, v, w, do, got
         torch.cuda.empty_cache()
     return rows, worst, worst_rel

@@ -81,16 +81,29 @@
 //    dP = dO V^T (SS) are issued together (a wait between the two would
 //    make ptxas serialise every wgmma of the kernel), dS is made in bf16
 //    fragments and dQ += dS K (RS, K in V's place).
-//  At dh 256 (recurrentgemma's local attention) a thread could not hold
-//  dK and dV (128 floats each) beside S^T and dP^T, so each output tile
-//  has two owner CTAs, one a 128-column half (Out<DH>): both load the
-//  whole 64 x 256 tiles (32 KB each: K, V and a ring of two Q, dO pairs
-//  is 198,696 bytes, one CTA an SM), remake S^T and dP^T over all 256
-//  columns and run the RS products on their half only (m64n128k16).  dQ
-//  splits the same way (a dQ half a CTA, K and V streamed whole, 197,704
-//  bytes).  In full-dh products that is six in the dK/dV pass and five
-//  in the dQ pass, where single owners would run four and three, at dh
-//  128's registers.
+//  At dh 256 (recurrentgemma's local attention) a thread cannot hold dK
+//  and dV (128 floats each) beside S^T and dP^T, so a CTA is two
+//  consumer warpgroups, one a 128-column half of the outputs (Out<DH>),
+//  and no producer warp (thread 0 issues the TMA loads; with 256 threads
+//  a warpgroup keeps 255 registers).  bwd_dkdv_wg2: warpgroup 0 makes S^T
+//  and P^T, warpgroup 1 dP^T and dS^T, each once a pair; P^T (and P^T
+//  (1 - t^2)) and dS^T cross between them as packed bf16 A fragments
+//  through shared memory in fragment order (thread j's values land with
+//  thread j of the other warpgroup), two named barriers a pair; then
+//  each runs dV += P^T dO and dK += dS^T Q on its half (RS m64n128k16).
+//  bwd_dq_wg2 the same with S and dP, P (1 - t^2) and dS crossing, dQ
+//  += dS K a half each.  Four full-dh products a pair in the dK/dV pass
+//  and three in the dQ pass, where two CTAs a tile, a half each, would
+//  make six and five.  recurrentgemma's 10:1 MQA would leave
+//  the dK/dV grid at B x 8 key tiles = 32 CTAs for 132 SMs, key tile 0
+//  walking all 80 (head, query tile) pairs under the causal mask, so the
+//  group's q heads are split over `splits` CTAs as well (kernels/
+//  flash_attention.py: bwd_head_splits, 5 at the train shape: 160 CTAs,
+//  at most 16 pairs a CTA); each split writes float32 partial dK and dV
+//  to a workspace, and the dQ launch's CTAs past its tiles (merge_dkdv)
+//  add them in split order, scale dK and round both to bf16 once.  The
+//  dK/dV launch has ended before the dQ launch starts (one stream), so
+//  the merge needs no flag and no atomic.
 //  Float32 stops at dh 128 (its padded float tiles would not fit).
 //  P and dS are rounded to bf16 before their products, as K3's forward
 //  rounds P; every product accumulates in float32; outputs are bf16.
@@ -235,14 +248,12 @@ __device__ __forceinline__ void scores_ss(float (&acc)[32], uint32_t a,
                  sdesc(b + kstep<DH>(kk), 16, 8 * W::SW, W::LAYOUT));
 }
 
-// The output columns a CTA owns: all of dh up to 128; at dh 256 a half,
-// so that dK and dV (or dQ) stay 64 floats a thread each, as at 128, and
-// two CTAs share a tile's outputs, each remaking S and dP over the full
-// dh (the kernels' tiles of Q, K, V, dO stay whole)
+// The output columns a consumer warpgroup owns: all of dh up to 128; at
+// dh 256 a half (the two warpgroups of bwd_dkdv_wg2 and bwd_dq_wg2), so
+// that dK and dV (or dQ) stay 64 floats a thread each, as at 128
 template <int DH>
 struct Out {
   static constexpr int N = DH > 128 ? 128 : DH;
-  static constexpr int SPLIT = DH / N;
 };
 
 // acc (64 x N) += A (64 x 64, bf16 fragments) B, B the N columns from
@@ -296,8 +307,9 @@ __global__ void __launch_bounds__(WG_THREADS)
                    __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv,
                    int H, int KV, float scale, int causal, int window,
                    float softcap) {
+  static_assert(DH <= 128, "dh 256 runs bwd_dkdv_wg2");
   using W = Tile<DH>;
-  constexpr int NO = Out<DH>::N;  // the dK, dV columns this CTA owns
+  constexpr int NO = DH;          // the dK, dV columns
   constexpr int DT = NO / 8;      // their 8-wide n-tiles
   extern __shared__ __align__(1024) unsigned char smem_kv[];
   const uint32_t raw = smem_u32(smem_kv);
@@ -312,12 +324,10 @@ __global__ void __launch_bounds__(WG_THREADS)
   float* rows = reinterpret_cast<float*>(smem_kv + (sRows - raw));
 
   // the tile index slowest: key tile 0, which the most query tiles see
-  // under a causal mask, starts first; the column half fastest
-  const int half = blockIdx.x % Out<DH>::SPLIT;
-  const int cta = blockIdx.x / Out<DH>::SPLIT;
-  const int kvh = cta % KV;
-  const int b = (cta / KV) % B;
-  const int k0 = (cta / (KV * B)) * BK;
+  // under a causal mask, starts first
+  const int kvh = blockIdx.x % KV;
+  const int b = (blockIdx.x / KV) % B;
+  const int k0 = (blockIdx.x / (KV * B)) * BK;
   const int group = H / KV;
   int qt_start, qt_end;
   query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
@@ -439,7 +449,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     // made in bf16 A fragments
     fence_regs(dV);
     wgmma_fence();
-    product_rs<DH>(dV, pa, tG, half);
+    product_rs<DH>(dV, pa, tG, 0);
     wgmma_commit();
     uint32_t ds[4][4];
 #pragma unroll
@@ -457,7 +467,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     // dK += dS^T Q
     fence_regs(dK);
     wgmma_fence();
-    product_rs<DH>(dK, ds, tQ, half);
+    product_rs<DH>(dK, ds, tQ, 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dV);
@@ -470,8 +480,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   for (int hf = 0; hf < 2; ++hf) {
     const int s = k0 + r0 + g + 8 * hf;
     if (s < Skv) {
-      const size_t off = ((size_t)b * Skv + s) * kv_step +
-                         (size_t)kvh * DH + half * NO;
+      const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH;
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
         const int e = 4 * d + 2 * hf;
@@ -480,6 +489,306 @@ __global__ void __launch_bounds__(WG_THREADS)
         *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d + 2 * t) =
             __floats2bfloat162_rn(dV[e], dV[e + 1]);
       }
+    }
+  }
+}
+
+// dh 256 with two consumer warpgroups a CTA (256 threads; thread 0
+// issues the TMA loads, so that no producer warp takes from the
+// consumers' registers): a pair's S^T = K Q^T (warpgroup 0) and dP^T = V
+// dO^T (warpgroup 1) are made once, P^T (and P^T (1 - t^2)) and dS^T
+// cross between the warpgroups as packed bf16 fragments through shared
+// memory (fragment order: thread j's values land with thread j), and
+// warpgroup w adds dV and dK of columns [128 w, 128 w + 128).  Four
+// full-dh products a pair over the CTA where two CTAs a tile run six.
+constexpr int WG2_THREADS = 256;
+constexpr size_t WG2_EX = 128 * 16 * 4;  // a fragment set: 128 x 16 pairs
+
+template <int CAP>
+struct Wg2Smem {
+  static constexpr size_t bytes =
+      1024 + (size_t)Tile<256>::TILE * (2 + 2 * STAGES) +
+      sizeof(float) * 2 * BQ * STAGES + WG2_EX * (CAP ? 3 : 2) +
+      8 * (1 + STAGES);
+};
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int CAP>
+__global__ void __launch_bounds__(WG2_THREADS)
+    bwd_dkdv_wg2(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ Dv,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv,
+                 int H, int KV, float scale, int causal, int window,
+                 float softcap, int hsplit, float* __restrict__ part) {
+  constexpr int DH = 256;
+  using W = Tile<DH>;
+  constexpr int NO = 128;     // the dK, dV columns a warpgroup owns
+  constexpr int DT = NO / 8;  // their 8-wide n-tiles
+  extern __shared__ __align__(1024) unsigned char smem_w2[];
+  const uint32_t raw = smem_u32(smem_w2);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + W::TILE;
+  const uint32_t sQ = sV + W::TILE;              // STAGES Q tiles
+  const uint32_t sG = sQ + STAGES * W::TILE;     // STAGES dO tiles
+  const uint32_t sRows = sG + STAGES * W::TILE;  // lse2, D a stage
+  const uint32_t sEx = sRows + sizeof(float) * 2 * BQ * STAGES;
+  const uint32_t bKV = sEx + WG2_EX * (CAP ? 3 : 2);
+  const uint32_t bFull = bKV + 8;                // Q, dO landed, a stage
+  float* rows = reinterpret_cast<float*>(smem_w2 + (sRows - raw));
+  uint4* exP = reinterpret_cast<uint4*>(smem_w2 + (sEx - raw));  // P^T
+  uint4* exS = exP + 4 * 128;                                    // dS^T
+  uint4* exD = exS + 4 * 128;  // P^T (1 - t^2), under the soft-cap
+
+  // the tile index slowest (key tile 0 first), the head split fastest
+  const int sp = blockIdx.x % hsplit;
+  const int cta = blockIdx.x / hsplit;
+  const int kvh = cta % KV;
+  const int b = (cta / KV) % B;
+  const int k0 = (cta / (KV * B)) * BK;
+  const int group = H / KV;
+  const int h_lo = sp * group / hsplit, h_hi = (sp + 1) * group / hsplit;
+  int qt_start, qt_end;
+  query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
+  const int per_head = max(qt_end - qt_start, 0);
+  const int n_iter = (h_hi - h_lo) * per_head;
+
+  const int tid = threadIdx.x, wg = tid >> 7, ltid = tid & 127;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (ltid >> 5) * 16;
+  auto pair_h = [&](int i) { return kvh * group + h_lo + i / per_head; };
+  auto pair_q0 = [&](int i) { return (qt_start + i % per_head) * BQ; };
+  // thread 0: pair i's Q and dO tiles into stage i % STAGES
+  auto issue = [&](int i) {
+    const int stage = i % STAGES, h = pair_h(i), q0 = pair_q0(i);
+    const uint32_t full = bFull + 8 * stage;
+    mbar_expect_tx(full, 2 * W::TILE);
+#pragma unroll
+    for (int c = 0; c < W::NBOX; ++c) {
+      tma_load(sQ + stage * W::TILE + c * W::BOX, &tq, full, c * W::COLS, h,
+               q0, b);
+      tma_load(sG + stage * W::TILE + c * W::BOX, &tdo, full, c * W::COLS, h,
+               q0, b);
+    }
+  };
+  // warpgroup 1, thread ltid: pair i's row value, lse times log2 e for
+  // ltid < 64, D above (rows past Sq: +inf and 0), and its slot
+  auto row_val = [&](int i) {
+    const int s = pair_q0(i) + (ltid & 63);
+    const size_t row0 = ((size_t)b * H + pair_h(i)) * Sq;
+    if (ltid < BQ) return s < Sq ? lse[row0 + s] * LOG2E
+                                 : __int_as_float(0x7f800000);
+    return s < Sq ? Dv[row0 + s] : 0.f;
+  };
+  const int slot = (ltid < BQ ? 0 : BQ) + (ltid & 63);
+
+  if (tid == 0) {
+    mbar_init(bKV, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bFull + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_iter > 0) {
+    mbar_expect_tx(bKV, 2 * W::TILE);
+#pragma unroll
+    for (int c = 0; c < W::NBOX; ++c) {
+      tma_load(sK + c * W::BOX, &tk, bKV, c * W::COLS, kvh, k0, b);
+      tma_load(sV + c * W::BOX, &tv, bKV, c * W::COLS, kvh, k0, b);
+    }
+    for (int i = 0; i < min(STAGES, n_iter); ++i) issue(i);
+  }
+  float pre = 0.f;  // the next pair's row value, loaded a pair ahead
+  if (wg == 1 && n_iter > 0) {
+    rows[slot] = row_val(0);
+    if (n_iter > 1) pre = row_val(1);
+  }
+  __syncthreads();
+
+  float dK[NO / 2], dV[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) dK[i] = dV[i] = 0.f;
+  const float c2 = CAP ? LOG2E : scale * LOG2E;
+  const float cap_in = CAP ? 2.f * LOG2E * scale / softcap : 0.f;
+
+  if (n_iter > 0) mbar_wait(bKV, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int stage = i % STAGES;
+    const int q0 = pair_q0(i);
+    const uint32_t tQ = sQ + stage * W::TILE, tG = sG + stage * W::TILE;
+    const float* lr = rows + stage * 2 * BQ;
+    mbar_wait(bFull + 8 * stage, (i / STAGES) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+    scores_ss<DH>(sc, wg ? sV : sK, wg ? tG : tQ);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    uint32_t pa[4][4], pd[4][4], ds[4][4];
+    if (wg == 0) {
+      // P^T = 2^(s c2 - lse2[query]) (0 where masked), packed to bf16 A
+      // fragments, under the soft-cap also P^T (1 - t^2); to the exchange
+      const bool masked = tile_masked(q0, k0, Skv, causal, window);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = frag_j(kk, f), hf = frag_half(f);
+          const int kpos = k0 + r0 + g + 8 * hf;
+          float p[2], pc[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * t + e;
+            float dcap;
+            p[e] = prob<CAP>(sc[4 * j + 2 * hf + e], c2, cap_in, softcap,
+                             lr[col], &dcap);
+            if (masked && !visible(q0 + col, kpos, Sq, Skv, causal, window))
+              p[e] = 0.f;
+            pc[e] = p[e] * dcap;
+          }
+          pa[kk][f] = pack_bf16(p[0], p[1]);
+          if (CAP) pd[kk][f] = pack_bf16(pc[0], pc[1]);
+        }
+        exP[kk * 128 + ltid] =
+            make_uint4(pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]);
+        if (CAP)
+          exD[kk * 128 + ltid] =
+              make_uint4(pd[kk][0], pd[kk][1], pd[kk][2], pd[kk][3]);
+      }
+      // dV (columns 0-127) += P^T dO while warpgroup 1 makes dS^T
+      fence_regs(dV);
+      wgmma_fence();
+      product_rs<DH>(dV, pa, tG, 0);
+      wgmma_commit();
+    }
+    named_sync(1, WG2_THREADS);
+    if (wg == 1) {
+      // dS^T = P^T (1 - t^2) (dP^T - D[query]) in bf16 A fragments, to
+      // the exchange; dV (columns 128-255) += P^T dO
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 x = exP[kk * 128 + ltid];
+        pa[kk][0] = x.x, pa[kk][1] = x.y, pa[kk][2] = x.z, pa[kk][3] = x.w;
+        if (CAP) {
+          const uint4 y = exD[kk * 128 + ltid];
+          pd[kk][0] = y.x, pd[kk][1] = y.y, pd[kk][2] = y.z, pd[kk][3] = y.w;
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = frag_j(kk, f), hf = frag_half(f);
+          const uint32_t pp = CAP ? pd[kk][f] : pa[kk][f];
+          const int col = 8 * j + 2 * t;
+          const int e0 = 4 * j + 2 * hf;
+          ds[kk][f] = pack_bf16(bf16_lo(pp) * (sc[e0] - lr[BQ + col]),
+                                bf16_hi(pp) * (sc[e0 + 1] - lr[BQ + col + 1]));
+        }
+        exS[kk * 128 + ltid] =
+            make_uint4(ds[kk][0], ds[kk][1], ds[kk][2], ds[kk][3]);
+      }
+      fence_regs(dV);
+      wgmma_fence();
+      product_rs<DH>(dV, pa, tG, 1);
+      wgmma_commit();
+    }
+    named_sync(2, WG2_THREADS);
+    if (wg == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 x = exS[kk * 128 + ltid];
+        ds[kk][0] = x.x, ds[kk][1] = x.y, ds[kk][2] = x.z, ds[kk][3] = x.w;
+      }
+    }
+    // dK (the warpgroup's columns) += dS^T Q
+    fence_regs(dK);
+    wgmma_fence();
+    product_rs<DH>(dK, ds, tQ, wg);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dV);
+    fence_regs(dK);
+
+    // pair i + 1's rows in; then, the stage read by both warpgroups,
+    // pair i + STAGES's tiles and pair i + 2's rows on their way
+    if (wg == 1 && i + 1 < n_iter)
+      rows[((i + 1) % STAGES) * 2 * BQ + slot] = pre;
+    __syncthreads();
+    if (tid == 0 && i + STAGES < n_iter) issue(i + STAGES);
+    if (wg == 1 && i + 2 < n_iter) pre = row_val(i + 2);
+  }
+
+  const size_t kv_step = (size_t)KV * DH;
+  const size_t plane = (size_t)B * Skv * kv_step;
+  float* pk = part != nullptr ? part + (size_t)sp * plane : nullptr;
+  float* pv = part != nullptr ? pk + (size_t)hsplit * plane : nullptr;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = k0 + r0 + g + 8 * hf;
+    if (s < Skv) {
+      const size_t off = ((size_t)b * Skv + s) * kv_step +
+                         (size_t)kvh * DH + wg * NO;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int e = 4 * d + 2 * hf;
+        if (part != nullptr) {  // a split's float32 partials, dK unscaled
+          *reinterpret_cast<float2*>(pk + off + 8 * d + 2 * t) =
+              make_float2(dK[e], dK[e + 1]);
+          *reinterpret_cast<float2*>(pv + off + 8 * d + 2 * t) =
+              make_float2(dV[e], dV[e + 1]);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * d + 2 * t) =
+              __floats2bfloat162_rn(dK[e] * scale, dK[e + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d + 2 * t) =
+              __floats2bfloat162_rn(dV[e], dV[e + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Rows of dK and dV a merge CTA sums: MERGE_ROWS (b, s, kv head) rows
+// of DH columns, a float4 of each at a time
+constexpr int MERGE_ROWS = 16;
+
+// dK = scale x (the splits' partials summed in split order), dV the
+// same unscaled, both rounded to bf16 once: rows [MERGE_ROWS m,
+// MERGE_ROWS (m + 1)) of the `rows` (b, s, kv head) rows.  Every element
+// is summed by one thread in one order: identical run to run.
+template <int DH>
+__device__ __forceinline__ void merge_dkdv(const float* __restrict__ part,
+                                           __nv_bfloat16* __restrict__ dk,
+                                           __nv_bfloat16* __restrict__ dv,
+                                           int m, int rows, int hsplit,
+                                           float scale) {
+  const size_t plane = (size_t)rows * DH;
+  for (int e = threadIdx.x; e < MERGE_ROWS * DH / 4; e += blockDim.x) {
+    const int row = m * MERGE_ROWS + e / (DH / 4);
+    if (row >= rows) break;
+    const size_t off = (size_t)row * DH + 4 * (e % (DH / 4));
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const float* src = part + which * hsplit * plane + off;
+      float4 x = *reinterpret_cast<const float4*>(src);
+      for (int sp = 1; sp < hsplit; ++sp) {
+        const float4 y = *reinterpret_cast<const float4*>(src + sp * plane);
+        x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+      }
+      const float f = which == 0 ? scale : 1.f;
+      __nv_bfloat162* dst =
+          reinterpret_cast<__nv_bfloat162*>((which == 0 ? dk : dv) + off);
+      dst[0] = __floats2bfloat162_rn(x.x * f, x.y * f);
+      dst[1] = __floats2bfloat162_rn(x.z * f, x.w * f);
     }
   }
 }
@@ -494,8 +803,9 @@ __global__ void __launch_bounds__(WG_THREADS)
                  __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv,
                  int H, int KV, float scale, int causal, int window,
                  float softcap) {
+  static_assert(DH <= 128, "dh 256 runs bwd_dq_wg2");
   using W = Tile<DH>;
-  constexpr int NO = Out<DH>::N;  // the dQ columns this CTA owns
+  constexpr int NO = DH;          // the dQ columns
   constexpr int DT = NO / 8;      // their 8-wide n-tiles
   extern __shared__ __align__(1024) unsigned char smem_q[];
   const uint32_t raw = smem_u32(smem_q);
@@ -510,14 +820,11 @@ __global__ void __launch_bounds__(WG_THREADS)
   const uint32_t bEV = bEK + 8 * STAGES;          // V read, a stage
 
   // the tile index slowest and reversed: the last query tiles, which see
-  // the most keys under a causal mask, start first; the column half
-  // fastest
+  // the most keys under a causal mask, start first
   const int n_qt = (Sq + BQ - 1) / BQ;
-  const int half = blockIdx.x % Out<DH>::SPLIT;
-  const int cta = blockIdx.x / Out<DH>::SPLIT;
-  const int h = cta % H;
-  const int b = (cta / H) % B;
-  const int q0 = (n_qt - 1 - cta / (H * B)) * BQ;
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int q0 = (n_qt - 1 - blockIdx.x / (H * B)) * BQ;
   const int kvh = h / (H / KV);
   int kt_start, kt_end;
   key_tiles(q0, Sq, Skv, causal, window, &kt_start, &kt_end);
@@ -637,7 +944,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     // dQ += dS K
     fence_regs(dQ);
     wgmma_fence();
-    product_rs<DH>(dQ, ds, tK, half);
+    product_rs<DH>(dQ, ds, tK, 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dQ);
@@ -645,8 +952,209 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 
   const size_t q_step = (size_t)H * DH;
-  __nv_bfloat16* qb =
-      dq + (size_t)b * Sq * q_step + (size_t)h * DH + half * NO;
+  __nv_bfloat16* qb = dq + (size_t)b * Sq * q_step + (size_t)h * DH;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = q0 + r0 + g + 8 * hf;
+    if (s < Sq) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int e = 4 * d + 2 * hf;
+        *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)s * q_step + 8 * d +
+                                           2 * t) =
+            __floats2bfloat162_rn(dQ[e] * scale, dQ[e + 1] * scale);
+      }
+    }
+  }
+}
+
+// dQ at dh 256 with two consumer warpgroups a CTA (thread 0 issues the
+// TMA loads): a key tile's S = Q K^T (warpgroup 0) and dP = dO V^T
+// (warpgroup 1) once; P (1 - t^2) crosses to warpgroup 1 and dS back as
+// packed bf16 fragments; warpgroup w adds dQ's columns [128 w, 128 w +
+// 128).  The CTAs past the dQ tiles merge dK and dV, as in bwd_dq_wgmma.
+constexpr size_t WG2_Q_SMEM =
+    1024 + (size_t)Tile<256>::TILE * (2 + 2 * STAGES) + 2 * WG2_EX +
+    8 * (1 + STAGES);
+
+template <int CAP>
+__global__ void __launch_bounds__(WG2_THREADS)
+    bwd_dq_wg2(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ Dv,
+               __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv, int H,
+               int KV, float scale, int causal, int window, float softcap,
+               int n_dq, int hsplit, const float* __restrict__ part,
+               __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv) {
+  constexpr int DH = 256;
+  using W = Tile<DH>;
+  constexpr int NO = 128;  // the dQ columns a warpgroup owns
+  constexpr int DT = NO / 8;
+  if ((int)blockIdx.x >= n_dq) {  // the CTAs past the dQ tiles
+    merge_dkdv<DH>(part, dk, dv, blockIdx.x - n_dq, B * Skv * KV, hsplit,
+                   scale);
+    return;
+  }
+  extern __shared__ __align__(1024) unsigned char smem_q2[];
+  const uint32_t raw = smem_u32(smem_q2);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sG = sQ + W::TILE;            // dO
+  const uint32_t sK = sG + W::TILE;            // STAGES K tiles
+  const uint32_t sV = sK + STAGES * W::TILE;   // STAGES V tiles
+  const uint32_t sEx = sV + STAGES * W::TILE;  // P (1 - t^2), dS
+  const uint32_t bQ = sEx + 2 * WG2_EX;        // Q and dO landed
+  const uint32_t bFull = bQ + 8;               // K and V landed, a stage
+  uint4* exP = reinterpret_cast<uint4*>(smem_q2 + (sEx - raw));
+  uint4* exS = exP + 4 * 128;
+
+  // the tile index slowest and reversed: the last query tiles, which see
+  // the most keys under a causal mask, start first
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int q0 = (n_qt - 1 - blockIdx.x / (H * B)) * BQ;
+  const int kvh = h / (H / KV);
+  int kt_start, kt_end;
+  key_tiles(q0, Sq, Skv, causal, window, &kt_start, &kt_end);
+  const int n_tiles = kt_end - kt_start;
+
+  const int tid = threadIdx.x, wg = tid >> 7, ltid = tid & 127;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (ltid >> 5) * 16;
+  // thread 0: key tile j's K and V into stage j % STAGES
+  auto issue = [&](int j) {
+    const int stage = j % STAGES, kpos = (kt_start + j) * BK;
+    const uint32_t full = bFull + 8 * stage;
+    mbar_expect_tx(full, 2 * W::TILE);
+#pragma unroll
+    for (int c = 0; c < W::NBOX; ++c) {
+      tma_load(sK + stage * W::TILE + c * W::BOX, &tk, full, c * W::COLS,
+               kvh, kpos, b);
+      tma_load(sV + stage * W::TILE + c * W::BOX, &tv, full, c * W::COLS,
+               kvh, kpos, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bQ, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bFull + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bQ, 2 * W::TILE);
+#pragma unroll
+    for (int c = 0; c < W::NBOX; ++c) {
+      tma_load(sQ + c * W::BOX, &tq, bQ, c * W::COLS, h, q0, b);
+      tma_load(sG + c * W::BOX, &tdo, bQ, c * W::COLS, h, q0, b);
+    }
+    for (int j = 0; j < min(STAGES, n_tiles); ++j) issue(j);
+  }
+
+  // the thread's query rows r0 + g (half 0) and r0 + g + 8 (half 1)
+  const size_t row0 = ((size_t)b * H + h) * Sq;
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = q0 + r0 + g + 8 * hf;
+    lse2[hf] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
+    Dr[hf] = s < Sq ? Dv[row0 + s] : 0.f;
+  }
+  float dQ[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) dQ[i] = 0.f;
+  const float c2 = CAP ? LOG2E : scale * LOG2E;
+  const float cap_in = CAP ? 2.f * LOG2E * scale / softcap : 0.f;
+
+  mbar_wait(bQ, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (kt_start + i) * BK;
+    const int stage = i % STAGES;
+    const uint32_t tK = sK + stage * W::TILE, tV = sV + stage * W::TILE;
+    mbar_wait(bFull + 8 * stage, (i / STAGES) & 1);
+
+    // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1)
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+    scores_ss<DH>(sc, wg ? sG : sQ, wg ? tV : tK);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    uint32_t pd[4][4], ds[4][4];
+    if (wg == 0) {
+      // P (1 - t^2), P = 2^(s c2 - lse2) (0 where masked), to the exchange
+      const bool masked = tile_masked(q0, k0, Skv, causal, window);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = frag_j(kk, f), hf = frag_half(f);
+          const int qpos = q0 + r0 + g + 8 * hf;
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float dcap;
+            float p = prob<CAP>(sc[4 * j + 2 * hf + e], c2, cap_in, softcap,
+                                lse2[hf], &dcap);
+            if (masked && !visible(qpos, k0 + 8 * j + 2 * t + e, Sq, Skv,
+                                   causal, window))
+              p = 0.f;
+            d[e] = p * dcap;
+          }
+          pd[kk][f] = pack_bf16(d[0], d[1]);
+        }
+        exP[kk * 128 + ltid] =
+            make_uint4(pd[kk][0], pd[kk][1], pd[kk][2], pd[kk][3]);
+      }
+    }
+    named_sync(1, WG2_THREADS);
+    if (wg == 1) {
+      // dS = P (1 - t^2) (dP - D), to the exchange; dQ (columns 128-255)
+      // += dS K
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 x = exP[kk * 128 + ltid];
+        pd[kk][0] = x.x, pd[kk][1] = x.y, pd[kk][2] = x.z, pd[kk][3] = x.w;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = frag_j(kk, f), hf = frag_half(f);
+          const int e0 = 4 * j + 2 * hf;
+          ds[kk][f] = pack_bf16(bf16_lo(pd[kk][f]) * (sc[e0] - Dr[hf]),
+                                bf16_hi(pd[kk][f]) * (sc[e0 + 1] - Dr[hf]));
+        }
+        exS[kk * 128 + ltid] =
+            make_uint4(ds[kk][0], ds[kk][1], ds[kk][2], ds[kk][3]);
+      }
+    }
+    named_sync(2, WG2_THREADS);
+    if (wg == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 x = exS[kk * 128 + ltid];
+        ds[kk][0] = x.x, ds[kk][1] = x.y, ds[kk][2] = x.z, ds[kk][3] = x.w;
+      }
+    }
+    // dQ (the warpgroup's columns) += dS K
+    fence_regs(dQ);
+    wgmma_fence();
+    product_rs<DH>(dQ, ds, tK, wg);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dQ);
+    __syncthreads();  // the stage read by both warpgroups
+    if (tid == 0 && i + STAGES < n_tiles) issue(i + STAGES);
+  }
+
+  const size_t q_step = (size_t)H * DH;
+  __nv_bfloat16* qb = dq + (size_t)b * Sq * q_step + (size_t)h * DH + wg * NO;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int s = q0 + r0 + g + 8 * hf;
@@ -983,7 +1491,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* Dv, void* dq,
                  void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
                  float scale, int causal, int window, float softcap,
-                 cudaStream_t stream) {
+                 int hsplit, float* part, cudaStream_t stream) {
   using W = Tile<DH>;
   CUtensorMap tq, tk, tv, tdo;
   if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
@@ -991,28 +1499,56 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
       !tensor_map(&tv, v, B, Skv, KV, DH, W::COLS, W::SW) ||
       !tensor_map(&tdo, dout, B, Sq, H, DH, W::COLS, W::SW))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_wgmma<DH, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)KvSmem<DH>::bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq_wgmma<DH, CAP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)QSmem<DH>::bytes);
-  if (err != cudaSuccess) return (int)err;
   int e = launch_dot<__nv_bfloat16>(o, dout, Dv, B, Sq, H, DH, stream);
   if (e != 0) return e;
   const int n_kt = (Skv + BK - 1) / BK, n_qt = (Sq + BQ - 1) / BQ;
-  constexpr int SPLIT = Out<DH>::SPLIT;
-  bwd_dkdv_wgmma<DH, CAP>
-      <<<n_kt * KV * B * SPLIT, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
-          tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-          B, Sq, Skv, H, KV, scale, causal, window, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bwd_dq_wgmma<DH, CAP>
-      <<<n_qt * H * B * SPLIT, WG_THREADS, QSmem<DH>::bytes, stream>>>(
-          tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dq, B, Sq, Skv, H, KV,
-          scale, causal, window, softcap);
+  cudaError_t err;
+  if constexpr (DH == 256) {
+    // the dK/dV tiles split over hsplit CTAs a group, then the dQ tiles
+    // and the CTAs that merge the splits' dK and dV (the dK/dV launch
+    // has ended before the dQ launch starts: one stream)
+    float* kv_part = hsplit > 1 ? part : nullptr;
+    const int rows = B * Skv * KV;
+    const int n_merge =
+        kv_part != nullptr ? (rows + MERGE_ROWS - 1) / MERGE_ROWS : 0;
+    const int n_dq = n_qt * H * B;
+    if ((err = cudaFuncSetAttribute(
+             bwd_dkdv_wg2<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)Wg2Smem<CAP>::bytes)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             bwd_dq_wg2<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)WG2_Q_SMEM)) != cudaSuccess)
+      return (int)err;
+    bwd_dkdv_wg2<CAP><<<n_kt * KV * B * hsplit, WG2_THREADS,
+                        Wg2Smem<CAP>::bytes, stream>>>(
+        tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, B,
+        Sq, Skv, H, KV, scale, causal, window, softcap, hsplit, kv_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    bwd_dq_wg2<CAP>
+        <<<n_dq + n_merge, WG2_THREADS, WG2_Q_SMEM, stream>>>(
+            tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dq, B, Sq, Skv, H, KV,
+            scale, causal, window, softcap, n_dq, hsplit, kv_part,
+            (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
+  } else {
+    if ((err = cudaFuncSetAttribute(
+             bwd_dkdv_wgmma<DH, CAP>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)KvSmem<DH>::bytes)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             bwd_dq_wgmma<DH, CAP>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)QSmem<DH>::bytes)) != cudaSuccess)
+      return (int)err;
+    bwd_dkdv_wgmma<DH, CAP>
+        <<<n_kt * KV * B, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
+            tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+            B, Sq, Skv, H, KV, scale, causal, window, softcap);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    bwd_dq_wgmma<DH, CAP>
+        <<<n_qt * H * B, WG_THREADS, QSmem<DH>::bytes, stream>>>(
+            tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dq, B, Sq, Skv, H, KV,
+            scale, causal, window, softcap);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1025,7 +1561,7 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, float* Dv,
               void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
               int KV, float scale, int causal, int window, float softcap,
-              cudaStream_t s) {
+              int hsplit, float* part, cudaStream_t s) {
   if (!bf16) {
     if constexpr (DH > 128) {
       return (int)cudaErrorInvalidValue;
@@ -1037,9 +1573,10 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
   if (softcap > 0.f)
     return launch_wgmma<DH, 1>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
                                Skv, H, KV, scale, causal, window, softcap,
-                               s);
+                               hsplit, part, s);
   return launch_wgmma<DH, 0>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
-                             Skv, H, KV, scale, causal, window, softcap, s);
+                             Skv, H, KV, scale, causal, window, softcap,
+                             hsplit, part, s);
 }
 
 }  // namespace
@@ -1049,34 +1586,48 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 // aligned for TMA).  lse is the forward's float32 (B, H, Sq) row
 // log-sum-exp; Dv a float32 (B, H, Sq) scratch buffer for D.  scale is
 // dh^-0.5 rounded to float32; dh is 32, 64 or 128, or 256 in bfloat16;
-// a causal call needs Sq == Skv.  Launches three kernels on `stream`;
-// returns the first nonzero cudaGetLastError() (or the error of a
-// shared-memory opt-in, or cudaErrorInvalidValue for another dh or
-// float32 at 256, no key at all, a causal call
-// with Sq != Skv, or a tensor map that cannot be made).
+// a causal call needs Sq == Skv.  splits is the caller's count of CTAs
+// that share one (batch, kv head, key tile)'s walk over the group's q
+// heads (kernels/flash_attention.py: bwd_head_splits owns it): 1, or
+// at dh 256 up to H / KV, with `part` a float32 workspace of 2 x splits
+// x B x Skv x KV x dh for the partial dK and dV (null at 1).  Launches
+// three kernels on `stream`; returns the first nonzero
+// cudaGetLastError() (or the error of a shared-memory opt-in, or
+// cudaErrorInvalidValue for another dh or float32 at 256, no key at
+// all, a causal call with Sq != Skv, a split count out of range, or a
+// tensor map that cannot be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* Dv, void* dq, void* dk,
     void* dv, int B, int Sq, int Skv, int H, int KV, int dh, int bf16,
-    int causal, int window, float softcap, float scale, void* stream) {
+    int causal, int window, float softcap, float scale, int splits,
+    void* part, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   if (Skv == 0 || (causal && Sq != Skv)) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || KV < 1 || splits > H / KV ||
+      (splits > 1 && (dh != 256 || !bf16 || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* D = (float*)Dv;
+  float* P = (float*)part;
   switch (dh) {
     case 32:
       return launch_dh<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                           Skv, H, KV, scale, causal, window, softcap, s);
+                           Skv, H, KV, scale, causal, window, softcap, 1, P,
+                           s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                           Skv, H, KV, scale, causal, window, softcap, s);
+                           Skv, H, KV, scale, causal, window, softcap, 1, P,
+                           s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                            Skv, H, KV, scale, causal, window, softcap, s);
+                            Skv, H, KV, scale, causal, window, softcap, 1, P,
+                            s);
     case 256:
       return launch_dh<256>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                            Skv, H, KV, scale, causal, window, softcap, s);
+                            Skv, H, KV, scale, causal, window, softcap,
+                            splits, P, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -55,6 +55,7 @@ bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
 BWD_HEAD_DIMS = (32, 64, 128, 256)   # 256 in bfloat16 only
 BWD_F32_MAX_DH = 128
+BWD_SPLIT_DH = 256  # the head dim whose dK/dV walk splits the q heads
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -121,9 +122,24 @@ def _lib():
 
 def _bwd_lib():
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 9 + [_F, _F, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P, _P]
     fn.restype = _I
     return fn
+
+
+def bwd_head_splits(B, Skv, KV, H, dh, sms):
+    """How many CTAs share one (batch, kv head, 64-key tile)'s walk over
+    its group's H / KV q heads in the backward's dK/dV pass, on a card
+    of ``sms`` SMs.  At ``BWD_SPLIT_DH`` (a CTA of two warpgroups a tile,
+    one CTA an SM) enough for one CTA an SM, at most one q head a split:
+    recurrentgemma's train shape (B 4, S 512, 10:1) has 32 tiles and gets
+    5 splits of 2 heads.  Elsewhere 1: the dh <= 128 kernels walk the
+    whole group.  Each split's float32 partial dK and dV are added in
+    split order (``csrc/flash_attention_bwd.cu``: merge_dkdv)."""
+    if dh != BWD_SPLIT_DH:
+        return 1
+    tiles = -(-Skv // BK) * KV * B
+    return max(1, min(H // KV, -(-sms // tiles)))
 
 
 def padded_head_dim(dh, dims=HEAD_DIMS):
@@ -220,8 +236,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     (B, Skv, KV, dh) of one dtype (float32 or bfloat16); dh at most the
     largest of BWD_HEAD_DIMS (padded to the next one between them; dh
     above 128 in bfloat16 only).  bfloat16 runs the wgmma kernels (at dh
-    256 two CTAs a tile, one a half of the output columns), float32 the
-    FMA kernels.  Every
+    256 two warpgroups a CTA, one a half of the output columns, sharing
+    each tile's scores, and the q heads of a group split over
+    ``bwd_head_splits`` CTAs whose partial dK and dV are added in split
+    order), float32 the FMA kernels.
+    Every
     product accumulates in float32 in a fixed order (no atomics): the
     gradients are identical run to run.  The outputs are in q's
     dtype."""
@@ -269,6 +288,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     d_rows = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    splits = bwd_head_splits(
+        B, Skv, KV, H, dp,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = (torch.empty((2, splits, B, Skv, KV, dp), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -276,7 +300,8 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
                  do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H,
                  KV, dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
-                 int(window), float(softcap), dh ** -0.5, stream)
+                 int(window), float(softcap), dh ** -0.5, splits,
+                 None if part is None else part.data_ptr(), stream)
     build.check(err, "flash_attention_backward")
     with build.COUNT_LOCK:
         bwd_launches += BWD_KERNELS

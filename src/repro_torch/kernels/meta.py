@@ -36,19 +36,25 @@ and checkpoint workspace included (``csrc/rglru_scan_bwd.cu``,
                            dx and dlog_a written, h0, dh_last read, dh0
                            written, and the float32 checkpoints (B,
                            ceil(S / 16), D) written once and read once
-  N2b WKV backward         16 FLOPs a state element a step: the
-                           checkpoint walk's 3, the chunk rebuild's 3
-                           and dr's 2, then dk's 2, dw's 2, dv's 1 and
-                           G's update 3 (the O(dh) terms a step are left
-                           out); k, v, w read in the checkpoint walk,
-                           r, k, v, w, dO in the backward walk, dr, dk,
-                           dv, dw written; u, s0, ds_last read, du, ds0
-                           written; the du partials (B, H, dh) and the
-                           checkpoints (B, H, ceil(S / 8), dh, dh)
-                           written once and read once
+  N2b WKV backward         chunks of C = BWD_CHUNK steps, NC = ceil(S /
+                           C) a (b, h), P = NC·C padded steps: 10·dh²
+                           FLOPs a padded step for the five state-sized
+                           products (the two chains', X1, X2, X3), 2·C·dh
+                           a padded step for A = dO vᵀ, 9·(C - 1)·dh a
+                           padded step for the intra-chunk terms (dr's
+                           and dk's Horner walks 3 each, dw's pairs 6,
+                           M 4, dv 2, a (step, later step, channel)),
+                           and 2·dh² a chunk for rowsum(G_c ∘ S_c); k, v,
+                           w read by the state chain, r, w, dO by the
+                           gradient chain, r, k, v, w, dO by the chunks
+                           (11 reads of r's size), dr, dk, dv, dw
+                           written; u, s0, ds_last read, du, ds0
+                           written; the checkpoints (2, B, H, NC, dh,
+                           dh) and du's partials (B, H, NC, dh) written
+                           once and read once
 
-A call is one ``calls``; N2b launches two kernels a call (the walk, then
-du's sum over the batch), as N1 launches three.
+A call is one ``calls``; N2b launches three kernels a call (the chains,
+the chunks, du's sum), as N1 launches three.
 """
 from __future__ import annotations
 
@@ -227,10 +233,16 @@ class _WKV(torch.autograd.Function):
         r, k, v, w, u, s0 = ctx.saved_tensors
         B, S, H, dh = r.shape
         grads = tuple(t.new_empty(t.shape) for t in (r, k, v, w, u, s0))
-        ckpt = 4 * B * H * -(-S // _wk.BWD_CHUNK) * dh * dh
-        _add("wkv6_backward", 16 * _wkv_state_steps(r),
-             8 * _nbytes(r) + _nbytes(u, s0) + _opt_bytes(ds_last)
-             + _nbytes(*grads) + 2 * 4 * B * H * dh + 2 * ckpt)
+        C = _wk.BWD_CHUNK
+        ck_shape, part_shape = _wk.bwd_workspace(B, S, H, dh)
+        nc = part_shape[2]
+        steps = B * H * nc * C                     # padded steps
+        work = 4 * (int(np.prod(ck_shape)) + int(np.prod(part_shape)))
+        _add("wkv6_backward",
+             (10 * dh * dh + 2 * C * dh + 9 * (C - 1) * dh) * steps
+             + 2 * dh * dh * B * H * nc,
+             11 * _nbytes(r) + _nbytes(u, s0) + _opt_bytes(ds_last)
+             + _nbytes(*grads) + 2 * work)
         return grads
 
 

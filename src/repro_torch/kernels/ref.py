@@ -266,6 +266,118 @@ def wkv6_backward_plain(r, k, v, w, u, s0, do, ds_last=None):
     return (*(x.to(r.dtype) for x in grads), du.to(u.dtype), G)
 
 
+def wkv6_backward_chunked_plain(r, k, v, w, u, s0, do, ds_last=None,
+                                chunk=16):
+    """``wkv6_backward_plain``'s gradients by the chunked algebra of the
+    card's backward (``csrc/wkv6_bwd.cu``), in float32; no main path runs
+    it: it states that algebra where the CPU tests can hold it to the
+    step-by-step version and to ``jax.vjp``.
+
+    Steps are cut into chunks of ``chunk`` (the last padded with steps
+    of decay 1 and zero r, k, v, do, which change nothing).  Within a
+    chunk, steps tau = 0 .. C-1 and, per key channel i, the decays
+
+        p[tau] = prod_{m < tau} w_m,   q[tau] = prod_{m > tau} w_m,
+        D[a, b] = prod_{a < m < b} w_m        (a < b; 0 otherwise)
+
+    are running products: nothing is ever divided by a decay (a bf16
+    decay can round to 0).  With S_c the state before the chunk and G_c
+    the state gradient at its end, two sequential chains over chunks
+    give every S_c and G_c:
+
+        S_{c+1} = diag(p[C-1] w_{C-1}) S_c + (k * q)^T v
+        G_{c-1} = diag(p[C-1] w_{C-1}) G_c + (r * p)^T do;   ds0 = G_{-1}
+
+    and, per chunk, with X1 = do S_c^T, X2 = v G_c^T, X3 = (k * q) G_c,
+    A = do v^T (A[t, s] = do_t . v_s) and c0 = rowsum(G_c * S_c):
+
+        dr_t = p_t X1_t + sum_{s<t} D[s,t] k_s A[t,s] + u k_t A[t,t]
+        dk_t = q_t X2_t + sum_{s>t} D[t,s] r_s A[s,t] + u r_t A[t,t]
+        dv_t = X3_t + sum_{s>t} M[t,s] do_s + beta_t do_t,
+               M[t,s] = sum_i D[t,s] k_t r_s,  beta_t = sum_i r_t u k_t
+        dw_t = q_t p_t c0 + q_t sum_{s<t} D[s,t] k_s X2_s
+               + p_t sum_{s>t} D[t,s] r_s X1_s
+               + sum_{s'<t<s} D[s',t] D[t,s] r_s k_s' A[s,s']
+
+    The last term's decay is the product over the pair's interval (s',
+    s) with step t left out: the prefix D[s', t] times the suffix D[t,
+    s].  Returns dr, dk, dv, dw in the inputs' dtype, du in u's, ds0
+    float32, as ``wkv6_backward_plain``."""
+    B, S, H, dh = r.shape
+    C = int(chunk)
+    NC = -(-S // C)
+    pad = (0, 0, 0, 0, 0, NC * C - S)
+
+    def chunks(t, fill=0.0):
+        t = F.pad(t.float(), pad, value=fill)
+        return t.reshape(B, NC, C, H, dh).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, gc = (chunks(t) for t in (r, k, v, do))   # (B, H, NC, C, dh)
+    wc = chunks(w, 1.0)
+    uf = u.float()[None, :, None, None, :]                  # (1, H, 1, 1, dh)
+    p, q = torch.empty_like(wc), torch.empty_like(wc)
+    run = torch.ones_like(wc[..., 0, :])
+    for t in range(C):
+        p[..., t, :] = run
+        run = run * wc[..., t, :]
+    decay = run                                             # (B, H, NC, dh)
+    run = torch.ones_like(run)
+    for t in range(C - 1, -1, -1):
+        q[..., t, :] = run
+        run = run * wc[..., t, :]
+    D = torch.zeros((B, H, NC, C, C, dh), dtype=torch.float32,
+                    device=r.device)
+    for a in range(C):
+        run = torch.ones_like(decay)
+        for b in range(a + 1, C):
+            D[..., a, b, :] = run
+            run = run * wc[..., b, :]
+    kq, rp = kc * q, rc * p
+
+    # the two chains over chunks
+    zeros = torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                        device=r.device)
+    s = zeros if s0 is None else s0.float()
+    Sc = torch.empty((B, H, NC, dh, dh), dtype=torch.float32,
+                     device=r.device)
+    for c in range(NC):
+        Sc[:, :, c] = s
+        s = decay[:, :, c, :, None] * s + torch.einsum(
+            "bhti,bhtj->bhij", kq[:, :, c], vc[:, :, c])
+    g = zeros if ds_last is None else ds_last.float()
+    Gc = torch.empty_like(Sc)
+    for c in range(NC - 1, -1, -1):
+        Gc[:, :, c] = g
+        g = decay[:, :, c, :, None] * g + torch.einsum(
+            "bhti,bhtj->bhij", rp[:, :, c], gc[:, :, c])
+
+    # within each chunk
+    X1 = torch.einsum("bhctj,bhcij->bhcti", gc, Sc)
+    X2 = torch.einsum("bhctj,bhcij->bhcti", vc, Gc)
+    X3 = torch.einsum("bhcti,bhcij->bhctj", kq, Gc)
+    A = torch.einsum("bhcti,bhcsi->bhcts", gc, vc)
+    c0 = (Gc * Sc).sum(-1)                                  # (B, H, NC, dh)
+    vdo = torch.diagonal(A, dim1=-2, dim2=-1)[..., None]    # (..., C, 1)
+    beta = (rc * uf * kc).sum(-1, keepdim=True)
+    dr = (p * X1 + torch.einsum("bhcsti,bhcsi,bhcts->bhcti", D, kc, A)
+          + uf * kc * vdo)
+    dk = (q * X2 + torch.einsum("bhctsi,bhcsi,bhcst->bhcti", D, rc, A)
+          + uf * rc * vdo)
+    M = torch.einsum("bhctsi,bhcti,bhcsi->bhcts", D, kc, rc)
+    dv = X3 + torch.einsum("bhcts,bhcsj->bhctj", M, gc) + beta * gc
+    dw = (q * p * c0[..., None, :]
+          + q * torch.einsum("bhcsti,bhcsi,bhcsi->bhcti", D, kc, X2)
+          + p * torch.einsum("bhctsi,bhcsi,bhcsi->bhcti", D, rc, X1)
+          + torch.einsum("bhcuti,bhctsi,bhcsi,bhcui,bhcsu->bhcti", D, D,
+                         rc, kc, A))
+    du = (rc * kc * vdo).sum((0, 2, 3))
+
+    def back(t):
+        t = t.permute(0, 2, 3, 1, 4).reshape(B, NC * C, H, dh)[:, :S]
+        return t.to(r.dtype)
+    return (*(back(t) for t in (dr, dk, dv, dw)), du.to(u.dtype), g)
+
+
 def vote_aggregate_ref(preds, num_classes, noise=None):
     """Teacher-ensemble max voting (``repro.kernels.ref``).
 

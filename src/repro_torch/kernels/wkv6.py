@@ -15,14 +15,17 @@ can show that its prefills went through the kernel.  ``plan`` is the
 launch's plan, which the CUDA launcher checks against its own.
 
 Training: ``wkv6_backward`` runs the hand-written backward
-(``csrc/wkv6_bwd.cu``, N2b): one CTA a (batch, head) walks forward,
-writing the state every ``BWD_CHUNK`` steps to a float32 checkpoint
-workspace the wrapper allocates, then back chunk by chunk, rebuilding
-each chunk's states from its checkpoint (its threads and shared memory
-are the .cu's alone); its gradients are held to
+(``csrc/wkv6_bwd.cu``, N2b) in the chunked form that
+``ref.wkv6_backward_chunked_plain`` states: two sequential chains a
+(batch, head) write the float32 state before each chunk of
+``BWD_CHUNK`` steps and the state gradient at its end into a workspace
+the wrapper allocates, then a CTA a (batch, head, chunk) takes the
+chunk's gradients from those two on the tensor cores (TF32 in
+bfloat16; FMAs in float32), and du's partials are summed over the batch
+and the chunks in order.  ``BWD_CHUNK`` is the chunk's one owner: the
+launcher takes it as an argument.  Its gradients are held to
 ``ref.wkv6_backward_plain``.  ``bwd_launches`` counts its kernel
-launches (``BWD_KERNELS`` a call: the walk, then du's fixed-order sum
-over the batch).
+launches (``BWD_KERNELS`` a call).
 ``WKV6`` is the ``torch.autograd.Function`` that joins forward and
 backward; ``ops.wkv`` takes it for a CUDA prefill that needs a
 gradient.  The reference has no backward kernel: off the TPU it
@@ -39,7 +42,7 @@ from repro_torch.kernels import build
 
 launches = 0
 bwd_launches = 0
-BWD_KERNELS = 2     # a backward call: the walk, then du's sum over b
+BWD_KERNELS = 3     # a backward call: the chains, the chunks, du's sum
 
 HEAD_DIM = 64
 DTYPES = (torch.float32, torch.bfloat16)
@@ -73,7 +76,16 @@ def plan(S):
                 -(-S // CHUNK), smem)
 
 
-BWD_CHUNK = 8   # the backward's steps between float32 checkpoints
+BWD_CHUNK = 16  # the backward's chunk: steps between float32 checkpoints
+
+
+def bwd_workspace(B, S, H, dh=HEAD_DIM, chunk=BWD_CHUNK):
+    """The float32 workspaces of a backward call: the checkpoints (2, B,
+    H, NC, dh, dh), the state before each of the NC = ceil(S / chunk)
+    chunks and the state gradient at its end, and du's partials (B, H,
+    NC, dh), a (batch, head, chunk) each."""
+    nc = -(-S // chunk)
+    return (2, B, H, nc, dh, dh), (B, H, nc, dh)
 
 
 _P = ctypes.c_void_p
@@ -172,9 +184,9 @@ def wkv6_backward(r, k, v, w, u, s0, do, ds_last=None):
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((H, dh), dtype=torch.float32, device=dev)
     ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
-    du_part = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((B, H, -(-S // BWD_CHUNK), dh, dh),
-                       dtype=torch.float32, device=dev)
+    ck_shape, part_shape = bwd_workspace(B, S, H, dh)
+    ckpt = torch.empty(ck_shape, dtype=torch.float32, device=dev)
+    du_part = torch.empty(part_shape, dtype=torch.float32, device=dev)
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

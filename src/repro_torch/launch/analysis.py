@@ -94,6 +94,8 @@ from repro_torch.sharding.specs import (ROW, _map_with_path, spec_axes,
 from repro_torch.tree_util import flatten_tree
 
 PEAK_FLOPS = 989e12          # bf16 dense / H100 SXM
+TF32_FLOPS = 495e12          # tf32 dense / H100 SXM
+FP32_FLOPS = 67e12           # float32 on the CUDA cores / H100 SXM
 HBM_BW = 3.35e12             # bytes/s / H100 SXM (HBM3)
 HBM_BYTES = 80e9             # bytes / H100
 ICI_BW = 50e9                # bytes/s / device (NDR InfiniBand)

@@ -206,9 +206,12 @@ def test_rglru_backward_kernel_equals_plain(cuda, dtype, B, S, D, nonzero):
             assert torch.equal(a, w)
 
 
-# (B, S, H, nonzero s0 and ds_last): rwkv6's 64 heads, ragged S
+# (B, S, H, nonzero s0 and ds_last): rwkv6's 64 heads and its train
+# shape; S a multiple of the backward's chunk of 16 (16, 128), not one
+# (200, 37, 33), shorter than a chunk (9) and a single step
 WKV_SHAPES = [(2, 128, 64, True), (1, 200, 8, False), (2, 37, 4, True),
-              (1, 9, 2, False)]
+              (1, 9, 2, False), (4, 512, 64, False), (1, 16, 2, True),
+              (1, 33, 1, False), (2, 1, 3, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -242,8 +245,9 @@ def test_wkv6_backward_kernel_matches_plain(cuda, dtype, B, S, H, nonzero):
     outs, grads = ((o,), (do,)) if dsl is None else ((o, sl), (do, dsl))
     comp = torch.autograd.grad(outs, leaves, grads)
     torch.cuda.synchronize()
+    # a single step is a decode step: ops.wkv takes the plain formula
     assert (wk.launches - before[0], wk.bwd_launches - before[1]) == \
-        (1, wk.BWD_KERNELS)
+        ((1, wk.BWD_KERNELS) if S > 1 else (0, 0))
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     for a, b, c, w_ in zip(got, again, comp, want):
         assert a.dtype == w_.dtype and torch.equal(a, b)
@@ -252,13 +256,26 @@ def test_wkv6_backward_kernel_matches_plain(cuda, dtype, B, S, H, nonzero):
         assert float((c.float() - w_.float()).abs().max()) <= tol * scale
 
 
-@pytest.mark.parametrize("B,S,H,KV,window,softcap", SHAPES)
+# dh 256: SHAPES, then recurrentgemma's train shape (4, 512, 10:1,
+# window 2048: 5 head splits of 2), and groups the split count does not
+# divide, at ragged S (bwd_head_splits on 132 SMs: 10:1 at S 1000 in 9
+# splits, 12:2 at S 620 in 4, 20:2 at S 777 in 6, 48:1 at S 256 in 33,
+# SHAPES' last but one)
+SHAPES_256 = SHAPES + [(4, 512, 10, 1, 2048, 0.0), (1, 1000, 10, 1, 300,
+                                                    0.0),
+                       (2, 620, 12, 2, 0, 0.0), (1, 777, 20, 2, 0, 30.0)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,window,softcap", SHAPES_256)
 def test_backward_kernel_at_dh256_matches_plain(cuda, B, S, H, KV, window,
                                                 softcap):
-    """N1 at recurrentgemma's head dim 256 in bfloat16 (two CTAs a tile,
-    one a half of the output columns), within 2e-2 of the largest
-    |gradient| of ``ref.attention_backward_plain``, identical run to
-    run, through windows, caps and MQA; float32 at 256 is refused."""
+    """N1 at recurrentgemma's head dim 256 in bfloat16 (two warpgroups a
+    CTA sharing each tile's scores, one a half of the output columns; the
+    group's q heads split over ``bwd_head_splits`` CTAs and their partial
+    dK and dV added in split order), within 2e-2 of the largest
+    |gradient| of
+    ``ref.attention_backward_plain``, identical run to run, through
+    windows, caps and MQA; float32 at 256 is refused."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v, do = _qkv(cuda, B, S, H, KV, 256, torch.bfloat16, seed=S + H)

@@ -1,5 +1,7 @@
 """The plain backwards of the recurrences (``ref.rglru_scan_backward_plain``,
-``ref.wkv6_backward_plain``) on the CPU against two references:
+``ref.wkv6_backward_plain``, and ``ref.wkv6_backward_chunked_plain``, the
+chunked algebra of the card's WKV backward) on the CPU against two
+references:
 
   - ``jax.vjp`` of the reference's xla recurrences
     (``repro.kernels.ops.rglru`` and ``ops.wkv`` with ``impl="xla"``), the
@@ -127,6 +129,55 @@ def test_wkv6_backward_plain(dtype, B, S, H, dh, s0_on, last_on):
     for name, g, a, j in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
                              auto, jgrads):
         _close(g, a, TOL[dtype], f"{name} vs autograd")
+        _close(g, j, TOL[dtype], f"{name} vs jax.vjp")
+
+
+# (B, S, H, dh, chunk, decay range, nonzero s0, with ds_last): chunks of
+# 4, 8, 16 and 32; S ragged against the chunk, shorter than one, a single
+# step; decays near 0 (some exactly 0) and near 1
+CHUNKED_CASES = [(2, 12, 2, 8, 4, (0.05, 0.999), False, False),
+                 (1, 37, 2, 16, 16, (0.05, 0.999), True, True),
+                 (1, 40, 1, 8, 16, (0.0, 1e-3), True, False),
+                 (1, 33, 2, 8, 8, (0.99, 1.0), False, True),
+                 (2, 5, 1, 8, 16, (0.1, 0.9), True, True),
+                 (1, 1, 2, 8, 16, (0.1, 0.9), True, True),
+                 (1, 70, 1, 8, 32, (0.5, 1.0), True, True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("B,S,H,dh,chunk,decays,s0_on,last_on",
+                         CHUNKED_CASES)
+def test_wkv6_backward_chunked_plain(dtype, B, S, H, dh, chunk, decays,
+                                     s0_on, last_on):
+    """The chunked algebra (chunk-boundary chains, inter-chunk products
+    scaled by prefix and suffix decays, intra-chunk terms by running
+    products, no division) equals the step-by-step plain backward and
+    ``jax.vjp`` of the reference's xla recurrence."""
+    rng = np.random.default_rng(S * 13 + chunk)
+    r, k, v = (_t(rng.normal(size=(B, S, H, dh)).astype(np.float32), dtype)
+               for _ in range(3))
+    w = rng.uniform(*decays, (B, S, H, dh)).astype(np.float32)
+    if decays[0] == 0.0:
+        w[:, ::3, :, ::2] = 0.0
+    w = _t(w, dtype)
+    u = torch.from_numpy(rng.normal(size=(H, dh)).astype(np.float32))
+    s0 = torch.from_numpy(rng.normal(size=(B, H, dh, dh)).astype(
+        np.float32)) if s0_on else torch.zeros((B, H, dh, dh))
+    do = _t(rng.normal(size=(B, S, H, dh)).astype(np.float32), dtype)
+    ds_last = torch.from_numpy(rng.normal(size=(B, H, dh, dh)).astype(
+        np.float32)) if last_on else None
+    got = ref.wkv6_backward_chunked_plain(r, k, v, w, u, s0, do, ds_last,
+                                          chunk=chunk)
+    assert [g.dtype for g in got] == [dtype] * 4 + [torch.float32] * 2
+    want = ref.wkv6_backward_plain(r, k, v, w, u, s0, do, ds_last)
+    _, vjp = jax.vjp(lambda *a: jops.wkv(*a, impl="xla"),
+                     *(_j(t) for t in (r, k, v, w, u, s0)))
+    jgrads = vjp((_j(do), _j(ds_last if last_on
+                             else torch.zeros((B, H, dh, dh)))))
+    for name, g, p, j in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                             want, jgrads):
+        assert g.shape == p.shape, name
+        _close(g, p, TOL[dtype], f"{name} vs the step-by-step plain")
         _close(g, j, TOL[dtype], f"{name} vs jax.vjp")
 
 

@@ -1,35 +1,43 @@
-"""Two trees' builds of the vote (K1), attention (K3), RG-LRU scan (K4)
-and attention backward (N1) kernels, timed in turns on one card.
+"""Two trees' builds of the vote (K1), attention (K3), RG-LRU scan (K4),
+attention backward (N1) and WKV backward (N2b) kernels, timed in turns
+on one card.
 
     python3 tools/kernel_ab.py --parent DIR
 
 DIR is another checkout of this repository (a ``git archive`` of an
 earlier commit, unpacked).  Each tree's ``src/repro_torch/csrc/
-{vote_aggregate,flash_attention,rglru_scan,flash_attention_bwd}.cu`` is
-built with the port's own nvcc command into ``build/kernels/ab/`` and
-called through its C entry point (the same signature in both trees) on
-the same inputs, at the main paths' shapes: K1 at the round's (M 5, T
-6105, U 2, noise) and at the L2 token vote's (M 5, T 1024, U 200,064,
-noise), K3 at (a) the phi4-mini prefill (8 x 512, 24:8, dh 128) and (f)
-the stablelm-3b prefill (4 x 1024, 32:32, dh 80), bf16, causal, K4 at
-the recurrentgemma-2b prefill (4 x 1024 x 2560, bf16), N1 at
-phi4-mini's training shape (B 4, S 512, 24:8, dh 128, causal) and at
-whisper-tiny's (m) encoder (8, 1500 x 1500, 6:6, dh 64) and (n) cross
-attention (8, 128 x 1500), bf16, from this tree's forward (K3) o and
-row log-sum-exp.  A tree whose K3 has no dh-80 kernel (the parent of
-the native dh 80) is called at (f) as its wrapper called it: q, k and v
-zero-padded to dh 128 by ``F.pad``, a launch at 128 with the scale
-80^-0.5, the output sliced back to 80; the profiler's device time of a
-call sums every kernel it runs, so the copies count.  K1 and K4 outputs
-are held bit for bit to the plain version (``kernels/ref.py``); K3's to
-``ref.attention_ref`` within ``chip_smoke.ATT_TOL``; N1's to
-``ref.attention_backward_plain`` within ``chip_smoke.ATT_TOL`` of the
-largest |gradient| (bf16 rounds P and dS before their products, the
-plain version does not); K3 and N1 identical run to run.  Then the
-trees are timed in turns (parent, change, change, parent), each turn's
-mean over 20 launches with preallocated outputs by CUDA events around
-back-to-back calls, around a CUDA graph of the 20 launches, and from
-the profiler's kernel durations; beside each K3 case, one
+{vote_aggregate,flash_attention,rglru_scan,flash_attention_bwd,
+wkv6_bwd}.cu`` is built with the port's own nvcc command into
+``build/kernels/ab/`` and called through its C entry point on the same
+inputs, at the main paths' shapes: K1 at the round's (M 5, T 6105, U 2,
+noise) and at the L2 token vote's (M 5, T 1024, U 200,064, noise), K3 at
+(a) the phi4-mini prefill (8 x 512, 24:8, dh 128) and (f) the
+stablelm-3b prefill (4 x 1024, 32:32, dh 80), bf16, causal, K4 at the
+recurrentgemma-2b prefill (4 x 1024 x 2560, bf16), N1 at phi4-mini's
+training shape (B 4, S 512, 24:8, dh 128, causal), at whisper-tiny's (m)
+encoder (8, 1500 x 1500, 6:6, dh 64) and (n) cross attention (8, 128 x
+1500) and at recurrentgemma-2b's local attention in training (4, 512,
+10:1, dh 256, window 2048), bf16, from this tree's forward (K3) o and
+row log-sum-exp, and N2b at rwkv6-7b's training shape (r, k, v, w, dO
+(4, 512, 64, 64) bf16, zero s0, no ds_last).  A tree whose K3 has no
+dh-80 kernel (the parent of the native dh 80) is called at (f) as its
+wrapper called it: q, k and v zero-padded to dh 128 by ``F.pad``, a
+launch at 128 with the scale 80^-0.5, the output sliced back to 80; the
+profiler's device time of a call sums every kernel it runs, so the
+copies count.  A tree whose N1 entry point takes no head-split count
+(the parent of the dh-256 split) is called with its own signature; a
+tree's N2b is called with its wrapper's ``BWD_CHUNK`` and workspaces
+sized for the smaller chunk.  K1 and K4 outputs are held bit for bit to
+the plain version (``kernels/ref.py``); K3's to ``ref.attention_ref``
+within ``chip_smoke.ATT_TOL``; N1's to ``ref.attention_backward_plain``
+within ``chip_smoke.ATT_TOL`` of the largest |gradient| (bf16 rounds P
+and dS before their products, the plain version does not); N2b's to
+``ref.wkv6_backward_plain`` within 2e-2 of each output's largest
+|gradient|; K3, N1 and N2b identical run to run.  Then the trees are
+timed in turns (parent, change, change, parent), each turn's mean over
+20 launches with preallocated outputs by CUDA events around
+back-to-back calls, around a CUDA graph of the 20 launches, and from the
+profiler's kernel durations; beside each K3 case, one
 ``scaled_dot_product_attention`` call under ``is_causal`` on its
 fastest backend (``chip_smoke.sdpa_best``), beside each N1 case its
 backward (``chip_smoke.sdpa_backward_best``), both by CUDA events.
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -53,12 +62,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import (ATT_TOL, BF16_OPS_PER_S, bound, cuda_ms,  # noqa: E402
-                        graph_ms, same_bits, sdpa_backward_best, sdpa_best)
+from chip_smoke import (ATT_TOL, bound, cuda_ms, graph_ms,  # noqa: E402
+                        same_bits, sdpa_backward_best, sdpa_best,
+                        wkv_backward_bound)
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.launch.analysis import PEAK_FLOPS  # noqa: E402
 
 NAMES = ("vote_aggregate", "flash_attention", "rglru_scan",
-         "flash_attention_bwd")
+         "flash_attention_bwd", "wkv6_bwd")
+# what each tree's entry points take: {tree: {"n1_splits": bool,
+# "wkv_chunk": int}}, filled by build_tree
+SIGNATURES = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -104,11 +118,20 @@ def build_tree(tree: Path, tag: str):
     k3.restype = _I
     rg = libs["rglru_scan"].rglru_scan_launch
     rg.argtypes, rg.restype = [_P] * 5 + [_I] * 4 + [_P], _I
+    csrc = tree / "src" / "repro_torch" / "csrc"
+    splits = "int splits" in (csrc / "flash_attention_bwd.cu").read_text()
     n1 = libs["flash_attention_bwd"].flash_attention_bwd_launch
-    n1.argtypes = [_P] * 10 + [_I] * 9 + [_F] * 2 + [_P]
+    n1.argtypes = [_P] * 10 + [_I] * 9 + [_F] * 2 + (
+        [_I, _P, _P] if splits else [_P])
     n1.restype = _I
+    wk = libs["wkv6_bwd"].wkv6_bwd_launch
+    wk.argtypes, wk.restype = [_P] * 16 + [_I] * 6 + [_P], _I
+    chunk = int(re.search(
+        r"^BWD_CHUNK = (\d+)", (tree / "src" / "repro_torch" / "kernels" /
+                                "wkv6.py").read_text(), re.M).group(1))
+    SIGNATURES[tag] = {"n1_splits": splits, "wkv_chunk": chunk}
     return {"vote_aggregate": va, "flash_attention": k3, "rglru_scan": rg,
-            "flash_attention_bwd": n1}
+            "flash_attention_bwd": n1, "wkv6_bwd": wk}
 
 
 def bit_check(want):
@@ -218,32 +241,42 @@ def attention_case(label, B, S, H, KV, dh, parent_dh, g):
     nops = 4 * B * H * valid_pairs(S, S, True, 0) * dh
     shape = {"shape": label, "B": B, "S": S, "H": H, "KV": KV, "dh": dh,
              "causal": True, "dtype": "bfloat16"}
-    return (shape, call, check, bound(nbytes, nops, BF16_OPS_PER_S),
+    return (shape, call, check, bound(nbytes, nops, PEAK_FLOPS),
             library)
 
 
-def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, g):
+def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, g):
     """N1 at one shape in bf16: inputs from ``g``, o and the row
-    log-sum-exp from this tree's forward kernel, outputs preallocated."""
+    log-sum-exp from this tree's forward kernel, outputs preallocated; a
+    tree that splits the dK/dV walk gets its split count
+    (``bwd_head_splits``) and its partials' workspace."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.meta import valid_pairs
     q, do = (torch.randn((B, Sq, H, dh), device="cuda", generator=g)
              .bfloat16() for _ in range(2))
     k, v = (torch.randn((B, Skv, KV, dh), device="cuda", generator=g)
             .bfloat16() for _ in range(2))
-    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
     d_rows = torch.empty((B, H, Sq), device="cuda")
+    splits = fa.bwd_head_splits(
+        B, Skv, KV, H, dh,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    part = torch.empty((2, splits, B, Skv, KV, dh), device="cuda")
 
     def call(fn, tree):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
-                 *(t.data_ptr() for t in outs), B, Sq, Skv, H, KV, dh, 1,
-                 int(causal), 0, 0.0, dh ** -0.5, stream)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), d_rows.data_ptr(),
+                *(t.data_ptr() for t in outs), B, Sq, Skv, H, KV, dh, 1,
+                int(causal), window, 0.0, dh ** -0.5]
+        if SIGNATURES[tree]["n1_splits"]:
+            args += [splits, part.data_ptr() if splits > 1 else None]
+        err = fn(*args, stream)
         build.check(err, "flash_attention_backward")
         return outs
-    want = ref.attention_backward_plain(q, k, v, o, do, lse, causal=causal)
+    want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
     tol = ATT_TOL[torch.bfloat16]
 
     def check(call, fn, tree):
@@ -259,7 +292,9 @@ def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, g):
         if rel > tol:
             raise AssertionError(f"N1 {label}: {rel} > {tol} of the "
                                  f"largest |gradient|")
-        return {"max_rel_err": rel, "tol": tol, "run_to_run": True}
+        return {"max_rel_err": rel, "tol": tol, "run_to_run": True,
+                "head_splits": splits if SIGNATURES[tree]["n1_splits"]
+                else 1}
 
     def library():
         ms, backend, _ = sdpa_backward_best(q, k, v, do, want, tol,
@@ -267,11 +302,61 @@ def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, g):
         return {"event_ms": ms, "backend": backend}
     nbytes = (2 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + o.numel())
               + 4 * lse.numel())
-    nops = 10 * B * H * valid_pairs(Sq, Skv, causal, 0) * dh
+    nops = 10 * B * H * valid_pairs(Sq, Skv, causal, window) * dh
     shape = {"shape": label, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
-             "KV": KV, "dh": dh, "causal": causal, "dtype": "bfloat16"}
-    return (shape, call, check, bound(nbytes, nops, BF16_OPS_PER_S),
-            library)
+             "KV": KV, "dh": dh, "causal": causal, "window": window,
+             "dtype": "bfloat16"}
+    return shape, call, check, bound(nbytes, nops, PEAK_FLOPS), library
+
+
+def wkv_bwd_case(B, S, H, g):
+    """N2b at one shape in bf16 from the zero state with no ds_last (a
+    train step's call), outputs and workspaces preallocated, each tree
+    called with its own chunk."""
+    dh = 64
+    r, k, v, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
+                   .mul(0.5).bfloat16() for _ in range(4))
+    w = torch.sigmoid(torch.randn((B, S, H, dh), device="cuda", generator=g)
+                      + 2.0).bfloat16()
+    u = torch.randn((H, dh), device="cuda", generator=g) * 0.1
+    s0 = torch.zeros((B, H, dh, dh), device="cuda")
+    grads = [torch.empty_like(r) for _ in range(4)] + [
+        torch.empty((H, dh), device="cuda"), torch.empty_like(s0)]
+    nc = -(-S // min(t["wkv_chunk"] for t in SIGNATURES.values()))
+    du_part = torch.empty((B, H, nc, dh), device="cuda")
+    ckpt = torch.empty((2, B, H, nc, dh, dh), device="cuda")
+
+    def call(fn, tree):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), s0.data_ptr(), do.data_ptr(), None,
+                 *(t.data_ptr() for t in grads), du_part.data_ptr(),
+                 ckpt.data_ptr(), B, S, H, dh, 1,
+                 SIGNATURES[tree]["wkv_chunk"], stream)
+        build.check(err, "wkv6_backward")
+        return grads
+    want = ref.wkv6_backward_plain(r, k, v, w, u, s0, do)
+    tol = 2e-2
+
+    def check(call, fn, tree):
+        got = [t.clone() for t in call(fn, tree)]
+        again = call(fn, tree)
+        torch.cuda.synchronize()
+        rel = 0.0
+        for a, b, w_ in zip(got, again, want):
+            if not same_bits(a, b):
+                raise AssertionError("N2b differs run to run")
+            rel = max(rel, float((a.float() - w_.float()).abs().max()
+                                 / w_.float().abs().max()))
+        if rel > tol:
+            raise AssertionError(f"N2b: {rel} > {tol} of the largest "
+                                 f"|gradient|")
+        return {"max_rel_err": rel, "tol": tol, "run_to_run": True,
+                "chunk": SIGNATURES[tree]["wkv_chunk"]}
+    shape = {"shape": "rwkv6_train", "B": B, "S": S, "H": H, "dh": dh,
+             "dtype": "bfloat16"}
+    return (shape, call, check,
+            wkv_backward_bound(B, S, H, dh, torch.bfloat16, False)[:2], None)
 
 
 def main():
@@ -293,9 +378,13 @@ def main():
                       ("f_stablelm_dh80", 4, 1024, 32, 32, 80, 128))] + [
         ("rglru_scan", rglru_case(4, 1024, 2560, g))] + [
         ("flash_attention_bwd", attention_bwd_case(*shape, g))
-        for shape in (("phi4_train", 4, 512, 512, 24, 8, 128, True),
-                      ("m_whisper_encoder", 8, 1500, 1500, 6, 6, 64, False),
-                      ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, False))]
+        for shape in (("phi4_train", 4, 512, 512, 24, 8, 128, True, 0),
+                      ("m_whisper_encoder", 8, 1500, 1500, 6, 6, 64, False,
+                       0),
+                      ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, False, 0),
+                      ("recurrentgemma_train", 4, 512, 512, 10, 1, 256,
+                       True, 2048))] + [
+        ("wkv6_bwd", wkv_bwd_case(4, 512, 64, g))]
     turns = list(enumerate(("parent", "change", "change", "parent")))
     rows = []
     for name, (shape, call, check, (b_ms, b_by), library) in cases:
