@@ -329,7 +329,8 @@ def same_bits(a, b):
 # kernels whose registers and spills get a summary line of their own
 PTXAS_KERNELS = ("flash_attention_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
                  "bwd_dkdv_wg2", "bwd_dq_wg2", "wkv6_kernel",
-                 "wkv6_bwd_chains", "wkv6_bwd_chunk", "rglru_scan_bwd")
+                 "wkv6_bwd_chains", "wkv6_bwd_chunk", "rglru_scan_bwd_tma",
+                 "rglru_scan_bwd_direct")
 
 
 def _kernel_label(mangled):
@@ -2240,10 +2241,11 @@ def lm_backward_rows():
     frames: (m) the encoder (Sq = Skv = 1500) and (n) cross attention
     (N1b: Sq 128 decoder tokens, Skv 1500), a granite-like 48:1 group
     (one kv head, so the dK/dV grid is 16 CTAs, each walking 48 q
-    heads), and recurrentgemma's local attention at dh 256 (10:1, window
+    heads), recurrentgemma's local attention at dh 256 (10:1, window
     2048) at its train shape (4, 512) and at (1, 4096), where the window
-    is shorter than S: within the forward's tolerances of the largest
-    |gradient|, identical run to run; kernel, plain and library times
+    is shorter than S, and stablelm-3b's train shape at its native head
+    dim 80 (4, 512, MHA 32:32): within the forward's tolerances of the
+    largest |gradient|, identical run to run; kernel, plain and library times
     beside the bound (SDPA under an explicit window mask where the
     window is shorter than S, null where no backend takes that).  The
     forward's row LSE is held to
@@ -2271,7 +2273,9 @@ def lm_backward_rows():
         ("recurrentgemma_train", 4, 512, 512, 10, 1, 256, torch.bfloat16,
          2048, 0.0, True),
         ("recurrentgemma_long", 1, 4096, 4096, 10, 1, 256, torch.bfloat16,
-         2048, 0.0, True)]
+         2048, 0.0, True),
+        ("stablelm_train", 4, 512, 512, 32, 32, 80, torch.bfloat16, 0, 0.0,
+         True)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
@@ -2369,13 +2373,15 @@ def rglru_backward_rows():
     ``ref.rglru_scan_backward_plain`` bit for bit (dx, dlog_a, dh0) at
     recurrentgemma-2b's train shape (4 x 512 x 2560, bf16), at S 1024, at
     a ragged S 1000 and in float32, each from a nonzero h0 with a nonzero
-    dh_last; identical run to run.  Composed with its forward through
-    ``RGLRUScan`` (autograd: K4, then N2a): h, h_last and the gradients
-    equal the plain forward's and the plain backward's bit for bit.
-    Bound: x, log_a, dh read and dx, dlog_a written, h0, dh_last read and
-    dh0 written; 7 operations an element (the carry rebuilt once: exp,
-    multiply, add; the reverse walk's g a, its product with h_{t-1}, a g
-    and + dh).  Returns (rows, the worst absolute error)."""
+    dh_last, from the checkpoints K4 wrote (as training runs it), and the
+    checkpoints themselves bit for bit the plain carries; identical run
+    to run.  Composed with its forward through ``RGLRUScan`` (autograd:
+    K4, then N2a): h, h_last and the gradients equal the plain forward's
+    and the plain backward's bit for bit.  Bound: x, log_a, dh and the
+    checkpoints read, dx, dlog_a written, dh_last read and dh0 written; 7
+    operations an element (the carry rebuilt once: exp, multiply, add;
+    the reverse walk's + dh, g a, its product with h_{t-1}, a g).
+    Returns (rows, the worst absolute error)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     g = torch.Generator(device="cuda").manual_seed(12)
@@ -2391,9 +2397,18 @@ def rglru_backward_rows():
                  * 0.5).to(dt)
         h0, dl = (torch.randn((B, D), device="cuda", generator=g) * 0.5
                   for _ in range(2))
-        got = rg.rglru_scan_backward(x, log_a, h0, dh, dl)
-        again = rg.rglru_scan_backward(x, log_a, h0, dh, dl)
+        _, _, ck = rg.rglru_scan(x, log_a, h0, checkpoints=True)
+        got = rg.rglru_scan_backward(x, log_a, ck, dh, dl)
+        again = rg.rglru_scan_backward(x, log_a, ck, dh, dl)
         want = ref.rglru_scan_backward_plain(x, log_a, h0, dh, dl)
+        carry, want_ck = h0, []
+        for t in range(S):
+            if t % rg.CHECKPOINT_STEPS[dt] == 0:
+                want_ck.append(carry)
+            carry = torch.exp(log_a[:, t].float()) * carry + x[:, t].float()
+        if not same_bits(ck, torch.stack(want_ck, 1)):
+            raise AssertionError(f"K4's checkpoints != the plain carries at "
+                                 f"{label}")
         leaves = [t.clone().requires_grad_(True) for t in (x, log_a, h0)]
         h, hl = rg.RGLRUScan.apply(*leaves)
         comp = torch.autograd.grad((h, hl), leaves, (dh, dl))
@@ -2415,16 +2430,19 @@ def rglru_backward_rows():
                 and same_bits(hl.detach(), want_hl)):
             raise AssertionError(f"RGLRUScan's forward != plain at {label}")
         worst = max(worst, err)
-        del leaves, h, hl, comp, again, want, want_h, want_hl
-        ms = cuda_ms(lambda: rg.rglru_scan_backward(x, log_a, h0, dh, dl))
-        dev = graph_ms(lambda: rg.rglru_scan_backward(x, log_a, h0, dh, dl))
+        del leaves, h, hl, comp, again, want, want_h, want_hl, want_ck
+        ms = cuda_ms(lambda: rg.rglru_scan_backward(x, log_a, ck, dh, dl))
+        dev = graph_ms(lambda: rg.rglru_scan_backward(x, log_a, ck, dh, dl))
         plain = cuda_ms(lambda: ref.rglru_scan_backward_plain(
             x, log_a, h0, dh, dl), reps=2, warmup=1)
-        nbytes = x.element_size() * 5 * x.numel() + 4 * 3 * B * D
+        nbytes = (x.element_size() * 5 * x.numel() + 4 * 2 * B * D
+                  + 4 * ck.numel())
         rows.append(_rec_row("rglru_scan_backward", label,
-                             {"B": B, "S": S, "D": D, "graph_ms": dev},
+                             {"B": B, "S": S, "D": D, "graph_ms": dev,
+                              "checkpoint_steps":
+                                  rg.CHECKPOINT_STEPS[dt]},
                              dt, err, 0.0, ms, plain, nbytes, 7 * B * S * D))
-        del x, dh, log_a, got
+        del x, dh, log_a, got, ck
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -3067,10 +3085,12 @@ def phase_lm_train(smi, profile=False):
     vs CPU training at smoke width (phi4, gemma2, recurrentgemma, rwkv6);
     the LM FedKT flow at L0 and L2; the full-width label step and its
     token vote through K1; checkpoint to serve; then N2a and N2b against
-    their plain versions, and recurrentgemma-2b and rwkv6-7b (its cut)
-    trained at full width.  Returns (the backward rows {"n1", "n2a",
-    "n2b"}, their worst errors, the main path's launches, the measured
-    rows of the full-width train and label steps)."""
+    their plain versions, recurrentgemma-2b and rwkv6-7b (its cut)
+    trained at full width, and, once their parameters are freed,
+    stablelm-3b at full width (N1 at its head dim 80).  Returns (the
+    backward rows {"n1", "n2a", "n2b"}, their worst errors, the main
+    path's launches, the measured rows of the full-width train and label
+    steps)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     rows, err, rel = lm_backward_rows()
@@ -3101,7 +3121,7 @@ def phase_lm_train(smi, profile=False):
     n2b, n2b_err, n2b_rel = wkv_backward_rows()
     log(f"[lm_train] N2 rows at {time.time() - t0:.1f} s")
     measured = {"train": train_row, "label": label_row}
-    for cfg in recurrent_train_configs():
+    for cfg in (*recurrent_train_configs(), get_config("stablelm-3b")):
         rec_params, rec_counts, measured[cfg.name] = lm_full_train(cfg, smi)
         runs.append(rec_counts)
         del rec_params
@@ -3257,15 +3277,16 @@ def dryrun_label(smi, measured):
 
 def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     """Phase 10 (after lm_train, whose measured rows it reads): every
-    pair of ``archs``, then the train step of phi4-mini, recurrentgemma
-    and rwkv6's cut and the label step beside their measured rows."""
+    pair of ``archs``, then the train step of phi4-mini, recurrentgemma,
+    rwkv6's cut and stablelm-3b and the label step beside their measured
+    rows (peak memory and launches a step)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     dryrun_pairs(smi, archs)
     log(f"[dryrun] pairs at {time.time() - t0:.1f} s")
     train = [dryrun_train(smi, measured["train"],
                           get_config("phi4-mini-3.8b"))]
-    for cfg in recurrent_train_configs():
+    for cfg in (*recurrent_train_configs(), get_config("stablelm-3b")):
         train.append(dryrun_train(smi, measured[cfg.name], cfg))
     label = dryrun_label(smi, measured["label"])
     log(f"[dryrun] train and label at {time.time() - t0:.1f} s")

@@ -563,6 +563,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   using W = Wg<DH>;
   if (threads != WG_THREADS || smem != W::bytes)
     return (int)cudaErrorInvalidValue;
+  bind_context();
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
       !tensor_map(&tk, k, B, Skv, KV, DH, W::COLS, W::SW) ||

@@ -43,7 +43,10 @@
 // Design: three launches, no sum shared between CTAs or threads, every
 // sum in one fixed order, so the gradients are identical run to run.
 // Each output tile has one owner CTA.
-//  1. bwd_dot: D, one warp a (b, s, h) row (bytes-bound; both dtypes).
+//  1. D (bytes-bound): in bfloat16 bwd_dot_rows, DH / 8 lanes a (b, s,
+//     h) row, a 16-byte load of o and of dO each, so that a warp's
+//     loads are one contiguous run of rows; in float32 bwd_dot, a warp
+//     a row.
 //  2. dK and dV: one CTA owns one 64-key tile of one kv head of one batch
 //     row and walks every q head of its group, then every 64-row query
 //     tile the mask lets see its keys, in that order.
@@ -59,9 +62,9 @@
 // RS m64n{dh}k16 with B read N-major through the transpose bit.  A CTA
 // is one consumer warpgroup and one producer warp; the producer brings
 // 64-row tiles by TMA through 4-d tensor maps over the (B, S, heads, dh)
-// layout, 128-byte swizzled (64 at dh 32), rows past S zero-filled, into
-// a ring of 2 stages, each on a "full" mbarrier, refilled once every
-// consumer thread has arrived on its "free" one.
+// layout, 128-byte swizzled (64 at dh 32, 32 at dh 80), rows past S
+// zero-filled, into a ring of 2 stages, each on a "full" mbarrier,
+// refilled once every consumer thread has arrived on its "free" one.
 //  - bwd_dkdv_wgmma: K and V land once; the producer streams (Q, dO)
 //    pairs with the 64 rows' lse (in base 2) and D beside them (rows past
 //    Sq: lse +inf, so P is 0, and D 0).  The consumer's 64 accumulator
@@ -104,7 +107,13 @@
 //  add them in split order, scale dK and round both to bf16 once.  The
 //  dK/dV launch has ended before the dQ launch starts (one stream), so
 //  the merge needs no flag and no atomic.
-//  Float32 stops at dh 128 (its padded float tiles would not fit).
+//  At stablelm-3b's dh 80 the tiles are five 16-column boxes with the
+//  32-byte swizzle (Tile<80>, as K3's forward at 80): S^T and dP^T take
+//  five k-steps of 16, one a box, and dV, dK and dQ are m64n80 products
+//  (wgmma_rs_n80), so no head dim is padded; at the MHA 32:32 train
+//  shape the dK/dV grid is 1024 CTAs, so the walk needs no head split.
+//  Float32 runs dh 32, 64 and 128 (the wrapper pads its 80 to 128; its
+//  float tiles would not fit shared memory at 256).
 //  P and dS are rounded to bf16 before their products, as K3's forward
 //  rounds P; every product accumulates in float32; outputs are bf16.
 //  The soft-cap is a template argument, so uncapped calls carry no tanh
@@ -200,6 +209,45 @@ __global__ void __launch_bounds__(THREADS)
     const long bs = row / H;
     const int s = bs % S, b = bs / S;
     Dv[((long)b * H + h) * S + s] = acc;
+  }
+}
+
+// D in bfloat16: L = DH / 8 lanes a row (4 to 32), a warp 32 / L
+// consecutive rows at a time (at dh 80 three rows on 30 lanes), each lane
+// the dot of one 16-byte vector of o and dO; a row's L partial sums are
+// added in lane order by its first lane, through shared memory
+__global__ void __launch_bounds__(THREADS)
+    bwd_dot_rows(const __nv_bfloat16* __restrict__ o,
+                 const __nv_bfloat16* __restrict__ dout,
+                 float* __restrict__ Dv, int B, int S, int H, int DH) {
+  __shared__ float part[THREADS];
+  const int L = DH / 8, per = 32 / L;  // lanes a row, rows a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row =
+      ((long)blockIdx.x * (THREADS / 32) + warp) * per + lane / L;
+  const bool on = lane < per * L && row < (long)B * S * H;  // (b, s, h)
+  float acc = 0.f;
+  if (on) {
+    const uint4 a =
+        reinterpret_cast<const uint4*>(o + row * DH)[lane % L];
+    const uint4 g =
+        reinterpret_cast<const uint4*>(dout + row * DH)[lane % L];
+    const uint32_t ua[4] = {a.x, a.y, a.z, a.w}, ug[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc = fmaf(bf16_lo(ua[j]), bf16_lo(ug[j]), acc);
+      acc = fmaf(bf16_hi(ua[j]), bf16_hi(ug[j]), acc);
+    }
+  }
+  part[threadIdx.x] = acc;
+  __syncwarp();
+  if (on && lane % L == 0) {
+    float sum = 0.f;
+    for (int i = 0; i < L; ++i) sum += part[threadIdx.x + i];
+    const int h = row % H;
+    const long bs = row / H;
+    const int s = bs % S, b = bs / S;
+    Dv[((long)b * H + h) * S + s] = sum;
   }
 }
 
@@ -1493,16 +1541,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  float scale, int causal, int window, float softcap,
                  int hsplit, float* part, cudaStream_t stream) {
   using W = Tile<DH>;
+  bind_context();
   CUtensorMap tq, tk, tv, tdo;
   if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
       !tensor_map(&tk, k, B, Skv, KV, DH, W::COLS, W::SW) ||
       !tensor_map(&tv, v, B, Skv, KV, DH, W::COLS, W::SW) ||
       !tensor_map(&tdo, dout, B, Sq, H, DH, W::COLS, W::SW))
     return (int)cudaErrorInvalidValue;
-  int e = launch_dot<__nv_bfloat16>(o, dout, Dv, B, Sq, H, DH, stream);
-  if (e != 0) return e;
+  const long rows_a_block = (long)(THREADS / 32) * (32 / (DH / 8));
+  bwd_dot_rows<<<(int)(((long)B * Sq * H + rows_a_block - 1) /
+                       rows_a_block),
+                 THREADS, 0, stream>>>((const __nv_bfloat16*)o,
+                                       (const __nv_bfloat16*)dout, Dv, B, Sq,
+                                       H, DH);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int n_kt = (Skv + BK - 1) / BK, n_qt = (Sq + BQ - 1) / BQ;
-  cudaError_t err;
   if constexpr (DH == 256) {
     // the dK/dV tiles split over hsplit CTAs a group, then the dQ tiles
     // and the CTAs that merge the splits' dK and dV (the dK/dV launch
@@ -1555,7 +1609,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
 // The two paths: bfloat16 on wgmma (the soft-cap a template argument),
 // float32 on FMAs.
 // float32 stops at dh 128: its tiles of 64 x 256 floats would not fit a
-// CTA's shared memory, and no main path trains at float32 dh 256
+// CTA's shared memory, and no main path trains at float32 dh 256; nor
+// at float32 dh 80, which the wrapper pads to 128 (kernels/
+// flash_attention.py: BWD_F32_HEAD_DIMS)
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, float* Dv,
@@ -1563,7 +1619,7 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
               int KV, float scale, int causal, int window, float softcap,
               int hsplit, float* part, cudaStream_t s) {
   if (!bf16) {
-    if constexpr (DH > 128) {
+    if constexpr (DH > 128 || DH == 80) {
       return (int)cudaErrorInvalidValue;
     } else {
       return launch_f32<DH>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
@@ -1585,7 +1641,8 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 // contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1, 16-byte
 // aligned for TMA).  lse is the forward's float32 (B, H, Sq) row
 // log-sum-exp; Dv a float32 (B, H, Sq) scratch buffer for D.  scale is
-// dh^-0.5 rounded to float32; dh is 32, 64 or 128, or 256 in bfloat16;
+// dh^-0.5 rounded to float32; dh is 32, 64 or 128, or 80 or 256 in
+// bfloat16;
 // a causal call needs Sq == Skv.  splits is the caller's count of CTAs
 // that share one (batch, kv head, key tile)'s walk over the group's q
 // heads (kernels/flash_attention.py: bwd_head_splits owns it): 1, or
@@ -1593,7 +1650,7 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 // x B x Skv x KV x dh for the partial dK and dV (null at 1).  Launches
 // three kernels on `stream`; returns the first nonzero
 // cudaGetLastError() (or the error of a shared-memory opt-in, or
-// cudaErrorInvalidValue for another dh or float32 at 256, no key at
+// cudaErrorInvalidValue for another dh or float32 at 80 or 256, no key at
 // all, a causal call with Sq != Skv, a split count out of range, or a
 // tensor map that cannot be made).
 extern "C" int flash_attention_bwd_launch(
@@ -1618,6 +1675,10 @@ extern "C" int flash_attention_bwd_launch(
                            s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
+                           Skv, H, KV, scale, causal, window, softcap, 1, P,
+                           s);
+    case 80:
+      return launch_dh<80>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                            Skv, H, KV, scale, causal, window, softcap, 1, P,
                            s);
     case 128:

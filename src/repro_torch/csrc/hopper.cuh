@@ -328,6 +328,17 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
   if constexpr (DH == 256) wgmma_rs_n256(d, a, db);
 }
 
+// Makes the current device's primary context current on the calling
+// thread, which cuTensorMapEncodeTiled needs: a thread that has made no
+// CUDA runtime call yet has none (autograd's backward thread, when a
+// kernel's backward is the first CUDA work it runs), and the encode then
+// fails.  cudaSetDevice binds the primary context and does not wait on
+// the device.
+inline void bind_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
+}
+
 // cuTensorMapEncodeTiled, a driver-API call, found through the runtime
 // so that the library needs no -lcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

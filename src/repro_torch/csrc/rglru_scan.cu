@@ -9,7 +9,9 @@
 //
 // with a float32 carry, and writes every h_t (in x's type) and the last
 // carry h_last (float32, as the reference's off-TPU paths and its model
-// state keep it).
+// state keep it).  For training it can also write the float32 carry
+// before each chunk of CH steps, the checkpoints its backward
+// (csrc/rglru_scan_bwd.cu, N2a) walks back from.
 //
 // What bounds it on the H100: one read of x and log_a and one write of
 // h; at the recurrentgemma-2b prefill (B = 4, S = 1024, D = 2560, bf16)
@@ -208,7 +210,7 @@ __global__ void __launch_bounds__(TD)
                    const __grid_constant__ CUtensorMap ta,
                    const __grid_constant__ CUtensorMap th,
                    const float* __restrict__ h0, float* __restrict__ h_last,
-                   int S, int D) {
+                   float* __restrict__ ckpt, int S, int D) {
   constexpr int CH = Tile<T>::CH;
   constexpr int BOX = CH * TD;  // elements
   // STAGES boxes of x, STAGES of log_a, two of h
@@ -245,6 +247,8 @@ __global__ void __launch_bounds__(TD)
       __syncwarp();
     }
     const int n = S - c * CH;
+    if (ckpt != nullptr && d < D)
+      ckpt[((size_t)b * chunks + c) * D + d] = carry;
     if (n >= CH)
       carry = scan_chunk<T, CH, true>(xs, as, hs, lane, carry, CH);
     else
@@ -268,18 +272,25 @@ template <typename T>
 __global__ void __launch_bounds__(TD)
     rglru_scan_direct(const T* __restrict__ x, const T* __restrict__ log_a,
                       const float* __restrict__ h0, T* __restrict__ h,
-                      float* __restrict__ h_last, int S, int D) {
+                      float* __restrict__ h_last, float* __restrict__ ckpt,
+                      int S, int D) {
+  constexpr int CH = Tile<T>::CH;
   const int d = blockIdx.x * TD + threadIdx.x;
   const int b = blockIdx.y;
   if (d >= D) return;
   const size_t row = (size_t)b * D + d;
   const size_t base = (size_t)b * S * D + d;
+  const int chunks = (S + CH - 1) / CH;
   float carry = h0[row];
+  for (int c = 0; c < chunks; ++c) {
+    if (ckpt != nullptr) ckpt[((size_t)b * chunks + c) * D + d] = carry;
+    const int end = min(S, (c + 1) * CH);
 #pragma unroll 16
-  for (int t = 0; t < S; ++t) {
-    const size_t i = base + (size_t)t * D;
-    carry = step(carry, expf(to_f(log_a[i])), to_f(x[i]));
-    h[i] = from_f<T>(carry);
+    for (int t = c * CH; t < end; ++t) {
+      const size_t i = base + (size_t)t * D;
+      carry = step(carry, expf(to_f(log_a[i])), to_f(x[i]));
+      h[i] = from_f<T>(carry);
+    }
   }
   h_last[row] = carry;
 }
@@ -336,7 +347,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <typename T>
 int launch(const void* x, const void* log_a, const void* h0, void* h,
-           void* h_last, int B, int S, int D, cudaStream_t stream) {
+           void* h_last, void* ckpt, int B, int S, int D,
+           cudaStream_t stream) {
   const dim3 grid((D + TD - 1) / TD, B);
   const bool tma = S > 0 && (sizeof(T) * (size_t)D) % 16 == 0 &&
                    aligned16(x) &&
@@ -344,31 +356,43 @@ int launch(const void* x, const void* log_a, const void* h0, void* h,
   if (!tma) {
     rglru_scan_direct<T><<<grid, TD, 0, stream>>>(
         (const T*)x, (const T*)log_a, (const float*)h0, (T*)h,
-        (float*)h_last, S, D);
+        (float*)h_last, (float*)ckpt, S, D);
     return (int)cudaGetLastError();
   }
+  // the encode needs a current context: a thread that has made no CUDA
+  // runtime call yet (autograd's, recomputing a checkpointed layer) has
+  // none, and cudaSetDevice binds the device's primary one
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
   CUtensorMap tx, ta, th;
   if (!tensor_map<T>(&tx, x, B, S, D) || !tensor_map<T>(&ta, log_a, B, S, D)
       || !tensor_map<T>(&th, h, B, S, D))
     return (int)cudaErrorInvalidValue;
   rglru_scan_tma<T><<<grid, TD, 0, stream>>>(tx, ta, th, (const float*)h0,
-                                             (float*)h_last, S, D);
+                                             (float*)h_last, (float*)ckpt, S,
+                                             D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, log_a, h (B, S, D) contiguous, all float32 (bf16 = 0) or all
-// bfloat16 (bf16 = 1); h0, h_last (B, D) float32.  Launches on `stream`;
-// returns cudaGetLastError() (cudaErrorInvalidValue where a tensor map
-// cannot be made).
+// bfloat16 (bf16 = 1); h0, h_last (B, D) float32; ckpt null, or float32
+// (B, ceil(S / chunk), D) for the carry before each chunk of `chunk`
+// steps (the backward's checkpoints; kernels/rglru_scan.py:
+// CHECKPOINT_STEPS owns the chunk, and it must be this kernel's box: 64
+// bfloat16 or 32 float32 steps).  Launches on `stream`; returns
+// cudaGetLastError() (cudaErrorInvalidValue for another chunk, or where
+// a tensor map cannot be made).
 extern "C" int rglru_scan_launch(const void* x, const void* log_a,
                                  const void* h0, void* h, void* h_last,
-                                 int B, int S, int D, int bf16,
-                                 void* stream) {
+                                 void* ckpt, int B, int S, int D, int bf16,
+                                 int chunk, void* stream) {
+  const int built = bf16 ? Tile<__nv_bfloat16>::CH : Tile<float>::CH;
+  if (chunk != built) return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch<__nv_bfloat16>(x, log_a, h0, h, h_last, B, S, D, s);
-  return launch<float>(x, log_a, h0, h, h_last, B, S, D, s);
+    return launch<__nv_bfloat16>(x, log_a, h0, h, h_last, ckpt, B, S, D, s);
+  return launch<float>(x, log_a, h0, h, h_last, ckpt, B, S, D, s);
 }

@@ -27,17 +27,17 @@ launcher choosing by dtype with no fallback; ``FlashAttention`` is the
 counts the backward's kernel launches (three a call).  The reference has
 no backward kernel: off the TPU it differentiates its xla attention.
 
-The forward runs stablelm's head dim 80 natively (``HEAD_DIMS``; the
-bfloat16 tiles are five 32-byte-swizzled boxes of 16 columns, ``tile``).
-A head dim between a kernel's own is zero-padded on the head axis to
-the next one (``padded_head_dim``: the forward's 48 -> 64; the
-backward's 80 -> 128, ``BWD_HEAD_DIMS``, which holds 256 for bfloat16:
-recurrentgemma's local attention trains at dh 256) and run with the true dim's
-scale ``dh ** -0.5``: zero columns add nothing to q·k, to D =
-rowsum(dO·O) or to dQ and dK, and the padded output columns are sliced
-away, at the cost of the padded dim's work and the pad and slice
-copies.  ``FlashAttention`` at dh 80 thus joins a native forward to a
-padded backward.
+Both directions run stablelm's head dim 80 natively in bfloat16
+(``HEAD_DIMS``, ``BWD_HEAD_DIMS``; the tiles are five 32-byte-swizzled
+boxes of 16 columns, ``tile``), and the backward runs recurrentgemma's
+local attention at dh 256 in bfloat16.  A head dim between a kernel's
+own is zero-padded on the head axis to the next one
+(``padded_head_dim``: the forward's 48 -> 64; the float32 backward's 80
+-> 128, ``BWD_F32_HEAD_DIMS``, since only the float32 smokes reach it)
+and run with the true dim's scale ``dh ** -0.5``: zero columns add
+nothing to q·k, to D = rowsum(dO·O) or to dQ and dK, and the padded
+output columns are sliced away, at the cost of the padded dim's work
+and the pad and slice copies.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ launches = 0
 NEG_INF = -1e30    # a masked score's running-max floor (csrc: NEG_INF)
 bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
-BWD_HEAD_DIMS = (32, 64, 128, 256)   # 256 in bfloat16 only
-BWD_F32_MAX_DH = 128
+BWD_HEAD_DIMS = (32, 64, 80, 128, 256)   # bfloat16
+BWD_F32_HEAD_DIMS = (32, 64, 128)        # float32's FMA kernels
 BWD_SPLIT_DH = 256  # the head dim whose dK/dV walk splits the q heads
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
@@ -234,8 +234,9 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     = Skv, training) or, with ``causal=False``, cross attention (Sq !=
     Skv).  CUDA tensors, contiguous; q, o, do (B, Sq, H, dh) and k, v
     (B, Skv, KV, dh) of one dtype (float32 or bfloat16); dh at most the
-    largest of BWD_HEAD_DIMS (padded to the next one between them; dh
-    above 128 in bfloat16 only).  bfloat16 runs the wgmma kernels (at dh
+    largest of the dtype's head dims, ``BWD_HEAD_DIMS`` (bfloat16, dh 80
+    and 256 included) or ``BWD_F32_HEAD_DIMS`` (float32), and padded to
+    the next one between them.  bfloat16 runs the wgmma kernels (at dh
     256 two warpgroups a CTA, one a half of the output columns, sharing
     each tile's scores, and the q heads of a group split over
     ``bwd_head_splits`` CTAs whose partial dK and dV are added in split
@@ -253,16 +254,17 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_backward: dtype {q.dtype} not in "
                         f"{DTYPES}")
-    dp = padded_head_dim(dh, BWD_HEAD_DIMS)
-    if dp is None:
+    if padded_head_dim(dh, BWD_HEAD_DIMS) is None:
         raise ValueError(f"flash_attention_backward: head dim {dh} above "
                          f"{BWD_HEAD_DIMS[-1]} (the attention archs' "
                          f"training widths and their smokes)")
-    if q.dtype == torch.float32 and dp > BWD_F32_MAX_DH:
+    dp = padded_head_dim(dh, BWD_F32_HEAD_DIMS if q.dtype == torch.float32
+                         else BWD_HEAD_DIMS)
+    if dp is None:
         raise ValueError(f"flash_attention_backward: float32 runs head dims "
-                         f"up to {BWD_F32_MAX_DH} (its FMA kernels' tiles "
-                         f"would not fit shared memory at {dp}); dh {dh} "
-                         f"trains in bfloat16")
+                         f"up to {BWD_F32_HEAD_DIMS[-1]} (its FMA kernels' "
+                         f"tiles would not fit shared memory above); dh "
+                         f"{dh} trains in bfloat16")
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention_backward: {H} heads do not split "
                          f"over {KV} kv heads")

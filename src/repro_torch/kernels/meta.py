@@ -11,8 +11,8 @@ build the S x S scores.
 
 Each call adds its work to the active ``Work`` tally (``counting``), by
 the formulas of the kernels' bounds (PERF.md §6), with B the batch, H
-the query heads, dh the true head dim (stablelm's 80, which K3 runs
-natively and N1 padded to 128), S the steps and D the channels:
+the query heads, dh the true head dim (stablelm's 80, which K3 and N1
+run natively in bfloat16), S the steps and D the channels:
 
   K3 attention forward     4·B·H·pairs·dh FLOPs, pairs = the (query,
                            key) pairs the mask lets through; bytes: q,
@@ -21,7 +21,9 @@ natively and N1 padded to 128), S the steps and D the channels:
   N1 attention backward    10·B·H·pairs·dh FLOPs; q, k, v, o, dO and
                            the LSE read, dq, dk, dv written
   K4 RG-LRU scan           3 FLOPs an element; x, log_a, h0 read, h,
-                           h_last written
+                           h_last written, and under grad the float32
+                           checkpoints its backward starts from (B,
+                           ceil(S / CH), D), CH = CHECKPOINT_STEPS
   K5 WKV                   6 FLOPs a state element a step; r, k, v, w,
                            u, s0 read, o, s_last written
 
@@ -29,13 +31,13 @@ The recurrences' backward kernels (N2) are priced as built, recompute
 and checkpoint workspace included (``csrc/rglru_scan_bwd.cu``,
 ``csrc/wkv6_bwd.cu``):
 
-  N2a RG-LRU backward      10 FLOPs an element: the checkpoint walk's
-                           3, the chunk rebuild's 3, and the reverse
-                           walk's 4 (g·a, its product with h_{t-1}, a·g
-                           and + dh); x and log_a read twice, dh read,
-                           dx and dlog_a written, h0, dh_last read, dh0
-                           written, and the float32 checkpoints (B,
-                           ceil(S / 16), D) written once and read once
+  N2a RG-LRU backward      7 FLOPs an element: the chunk rebuild's 3
+                           (exp, a·h, + x) and the reverse walk's 4 (+
+                           dh, g·a, its product with h_{t-1}, a·g); x,
+                           log_a and dh read once, dx and dlog_a
+                           written, dh_last read, dh0 written, and K4's
+                           checkpoints read once (``RGLRUScan``, the
+                           only caller under grad)
   N2b WKV backward         chunks of C = BWD_CHUNK steps, NC = ceil(S /
                            C) a (b, h), P = NC·C padded steps: 10·dh²
                            FLOPs a padded step for the five state-sized
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from dataclasses import dataclass, field
 from typing import Dict
 
@@ -179,34 +182,39 @@ def _opt_bytes(t):
     return 0 if t is None else _nbytes(t)
 
 
+def _ckpt_bytes(x):
+    return 4 * math.prod(_rg.checkpoint_shape(*x.shape, x.dtype))
+
+
 class _RGLRU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, log_a, h0):
+    def forward(ctx, x, log_a, h0, checkpoints):
         ctx.set_materialize_grads(False)
         h = x.new_empty(x.shape)
         h_last = h0.new_empty(h0.shape, dtype=torch.float32)
-        _add("rglru_scan", 3 * x.numel(), _nbytes(x, log_a, h0, h, h_last))
+        _add("rglru_scan", 3 * x.numel(), _nbytes(x, log_a, h0, h, h_last)
+             + (_ckpt_bytes(x) if checkpoints else 0))
         ctx.save_for_backward(x, log_a, h0)
         return h, h_last
 
     @staticmethod
     def backward(ctx, dh, dh_last):
         x, log_a, h0 = ctx.saved_tensors
-        B, S, D = x.shape
         dx, dlog_a, dh0 = x.new_empty(x.shape), \
             log_a.new_empty(log_a.shape), h0.new_empty(h0.shape)
-        ckpt = 4 * B * -(-S // _rg.CHECKPOINT_STEPS) * D
         dh_bytes = _nbytes(x)                    # dh: x's shape and dtype
-        _add("rglru_scan_backward", 10 * x.numel(),
-             2 * _nbytes(x, log_a) + dh_bytes + _nbytes(dx, dlog_a, h0, dh0)
-             + _opt_bytes(dh_last) + 2 * ckpt)
-        return dx, dlog_a, dh0
+        _add("rglru_scan_backward", 7 * x.numel(),
+             _nbytes(x, log_a, dx, dlog_a, dh0) + dh_bytes
+             + _opt_bytes(dh_last) + _ckpt_bytes(x))
+        return dx, dlog_a, dh0, None
 
 
-def rglru(x, log_a, h0):
+def rglru(x, log_a, h0, checkpoints=False):
     """K4 on meta tensors (S > 1): (h in x's dtype, h_last float32);
-    differentiable."""
-    return _RGLRU.apply(x, log_a, h0)
+    differentiable.  ``checkpoints``: the call is under grad, so K4
+    also writes its backward's checkpoints (as ``RGLRUScan`` does on the
+    card)."""
+    return _RGLRU.apply(x, log_a, h0, checkpoints)
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,8 @@ def rglru(x, log_a, h0=None):
             return _rg.RGLRUScan.apply(x, log_a, h0)
         return _rg.rglru_scan(x, log_a, h0)
     if x.is_meta and S > 1:
-        return meta.rglru(x, log_a, h0)
+        return meta.rglru(x, log_a, h0,
+                          checkpoints=_needs_grad(x, log_a, h0))
     return ref.rglru_scan_ref(x, log_a, h0)
 
 

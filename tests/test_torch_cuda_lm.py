@@ -1,5 +1,5 @@
 """The LM training path on the card: the flash-attention backward kernel
-(N1, dh 256 included) against its plain version, the forward's row
+(N1, dh 80 and 256 included) against its plain version, the forward's row
 log-sum-exp, launch counts of a train step, the recurrences' backward
 kernels (N2a, N2b) against theirs, and the recurrent smokes fitting on
 the card.
@@ -167,18 +167,25 @@ def test_train_step_launch_counts(cuda):
 
 
 # (B, S, D, nonzero h0 and dh_last): recurrentgemma's width, a ragged S,
-# a D that is not a multiple of 32
+# a D that is not a multiple of 32; recurrentgemma-2b's train shape, S
+# 1024, a ragged S 1000 and the float32 row of chip_smoke (2, 1000,
+# 512); a D whose rows are not a multiple of 16 bytes (the per-element
+# path)
 RGLRU_SHAPES = [(2, 128, 2560, True), (2, 1000, 256, True),
-                (3, 33, 40, False), (1, 1, 64, True)]
+                (3, 33, 40, False), (1, 1, 64, True),
+                (4, 512, 2560, True), (4, 1024, 2560, True),
+                (4, 1000, 2560, True), (2, 1000, 512, True),
+                (2, 130, 33, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,D,nonzero", RGLRU_SHAPES)
 def test_rglru_backward_kernel_equals_plain(cuda, dtype, B, S, D, nonzero):
-    """N2a equals ``ref.rglru_scan_backward_plain`` bit for bit (dx,
-    dlog_a, dh0), identical run to run; and through ``ops.rglru`` under
-    grad (K4, then N2a) the gradients are the plain ones too."""
+    """N2a from K4's checkpoints equals ``ref.rglru_scan_backward_plain``
+    bit for bit (dx, dlog_a, dh0), identical run to run; and through
+    ``ops.rglru`` under grad (K4, then N2a) the gradients are the plain
+    ones too."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as rg
     g = torch.Generator(device=cuda).manual_seed(S + D)
@@ -188,8 +195,9 @@ def test_rglru_backward_kernel_equals_plain(cuda, dtype, B, S, D, nonzero):
     h0, dl = ((torch.randn((B, D), generator=g, device=cuda), torch.randn(
         (B, D), generator=g, device=cuda)) if nonzero
         else (torch.zeros((B, D), device=cuda), None))
-    got = rg.rglru_scan_backward(x, la, h0, dh, dl)
-    again = rg.rglru_scan_backward(x, la, h0, dh, dl)
+    _, _, ck = rg.rglru_scan(x, la, h0, checkpoints=True)
+    got = rg.rglru_scan_backward(x, la, ck, dh, dl)
+    again = rg.rglru_scan_backward(x, la, ck, dh, dl)
     want = ref.rglru_scan_backward_plain(x, la, h0, dh, dl)
     torch.cuda.synchronize()
     for a, b, w in zip(got, again, want):
@@ -204,6 +212,39 @@ def test_rglru_backward_kernel_equals_plain(cuda, dtype, B, S, D, nonzero):
             (1, 1)
         for a, w in zip(comp, want):
             assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,D", [(2, 200, 2560), (2, 130, 33),
+                                   (1, 64, 32)])
+def test_rglru_checkpoints_are_the_carries(cuda, dtype, B, S, D):
+    """K4 asked for checkpoints writes the float32 carry before each
+    chunk of ``CHECKPOINT_STEPS`` steps, bit for bit the plain carry,
+    and leaves h and h_last as they are without them; N2a refuses
+    checkpoints of another shape."""
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=cuda).manual_seed(S)
+    x, dh = (torch.randn((B, S, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    la = (-torch.rand((B, S, D), generator=g, device=cuda)).to(dtype)
+    h0 = torch.randn((B, D), generator=g, device=cuda)
+    h, hl, ck = rg.rglru_scan(x, la, h0, checkpoints=True)
+    h2, hl2 = rg.rglru_scan(x, la, h0)
+    CH = rg.CHECKPOINT_STEPS[dtype]
+    assert ck.shape == rg.checkpoint_shape(B, S, D, dtype) == \
+        (B, -(-S // CH), D)
+    carry, want = h0.clone(), []
+    for t in range(S):
+        if t % CH == 0:
+            want.append(carry)
+        carry = torch.exp(la[:, t].float()) * carry + x[:, t].float()
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(hl, hl2)
+    assert torch.equal(ck, torch.stack(want, 1))
+    with pytest.raises(ValueError, match="ckpt"):
+        rg.rglru_scan_backward(x, la, ck[:, :-1].contiguous()
+                               if ck.shape[1] > 1 else ck[:1, :, :1], dh)
 
 
 # (B, S, H, nonzero s0 and ds_last): rwkv6's 64 heads and its train
@@ -292,6 +333,164 @@ def test_backward_kernel_at_dh256_matches_plain(cuda, B, S, H, KV, window,
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     with pytest.raises(ValueError, match="float32"):
         fa.flash_attention_backward(qf, kf, vf, of, dof, lse, **kw)
+
+
+PROFILE_N1_AT_80 = """
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import flash_attention as fa
+g = torch.Generator(device="cuda").manual_seed(6)
+q, k, v, do = (torch.randn((2, 256, 8, 80), generator=g, device="cuda")
+               .bfloat16() for _ in range(4))
+o, lse = fa.flash_attention(q, k, v, return_lse=True)
+fa.flash_attention_backward(q, k, v, o, do, lse)    # builds, warms
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    fa.flash_attention_backward(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+print(json.dumps({e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}))
+"""
+
+
+def test_n1_at_head_dim_80_runs_only_its_kernels(cuda):
+    """A bfloat16 dh-80 backward call is N1's three device kernels at
+    dh 80 (D, then dK/dV, then dQ) and nothing else: no pad of q, k, v,
+    o or dO and no slice of dq, dk or dv (profiled in a subprocess, as
+    in test_torch_cuda_archs.py)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", PROFILE_N1_AT_80, str(src)],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    runs = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sum(runs.values()) == 3, runs
+    assert any("bwd_dot" in n for n in runs), runs
+    assert any("bwd_dkdv_wgmma<80" in n for n in runs), runs
+    assert any("bwd_dq_wgmma<80" in n for n in runs), runs
+
+
+@pytest.mark.parametrize("B,S,window", [(4, 512, 0), (1, 300, 100)],
+                         ids=["stablelm_train", "window"])
+def test_n1_at_head_dim_80_native(cuda, B, S, window):
+    """N1 at stablelm-3b's head dim 80 in bfloat16, launched at 80: at
+    its train shape (4 x 512, MHA 32:32, causal) and at a ragged S under
+    a window, within 2e-2 of the largest |gradient| of
+    ``ref.attention_backward_plain``, identical run to run; also from
+    the plain forward's own o and LSE."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    assert fa.padded_head_dim(80, fa.BWD_HEAD_DIMS) == 80
+    H = 32 if B == 4 else 8
+    q, k, v, do = _qkv(cuda, B, S, H, H, 80, torch.bfloat16, seed=S)
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    n = fa.bwd_launches
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    assert fa.bwd_launches - n == fa.BWD_KERNELS
+    again = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
+    po, plse = ref.attention_plain(q, k, v, return_lse=True, **kw)
+    whole = ref.attention_backward_plain(q, k, v, po, do, plse, **kw)
+    for a, b, w, p in zip(got, again, want, whole):
+        assert a.shape == w.shape == (q.shape if a.shape[2] == H else
+                                      k.shape)
+        assert torch.equal(a, b)
+        for ref_grad in (w, p):
+            scale = float(ref_grad.float().abs().max())
+            assert float((a.float() - ref_grad.float()).abs().max()) <= \
+                2e-2 * scale
+
+
+# A backward kernel that is the first CUDA work of autograd's thread: the
+# thread has no current context until a runtime call binds one, and the
+# launchers' tensor-map encodes need it
+FIRST_BACKWARD = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru_scan as rg
+g = torch.Generator(device="cuda").manual_seed(0)
+if sys.argv[2] == "rglru":
+    x, dh = (torch.randn((2, 128, 256), generator=g, device="cuda")
+             for _ in range(2))
+    la = -torch.rand((2, 128, 256), generator=g, device="cuda")
+    h0 = torch.zeros((2, 256), device="cuda")
+    _, _, ck = rg.rglru_scan(x, la, h0, checkpoints=True)
+    rg.rglru_scan_backward(x, la, ck, dh)        # builds, fills the cache
+    leaves = [t.clone().requires_grad_(True) for t in (x, la)]
+    h, _ = rg.RGLRUScan.apply(*leaves, h0)
+    grads = torch.autograd.grad(h, leaves, dh)
+else:
+    q, k, v, do = (torch.randn((1, 128, 2, 64), generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    fa.flash_attention_backward(q, k, v, o, do, lse)   # builds, fills
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.FlashAttention.apply(*leaves, True, 0, 0.0)
+    grads = torch.autograd.grad(out, leaves, do)
+torch.cuda.synchronize()
+assert all(bool(torch.isfinite(t).all()) for t in grads)
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("kernel", ["rglru", "attention"])
+def test_backward_kernel_first_on_autograd_thread(cuda, kernel):
+    """N2a and N1 launch when their backward is the first CUDA work of a
+    fresh process's autograd thread (each in a subprocess of its own)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", FIRST_BACKWARD, str(src),
+                          kernel], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_stablelm_train_step_launches(cuda):
+    """One remat train step of a narrow stablelm at head dim 80 (2
+    layers, d_model 320, 4 heads) on the card launches K3 twice a layer
+    and N1 once (its three kernels), as ``chip_smoke.train_launches``
+    counts stablelm-3b's, with no recurrence kernel; the loss finite."""
+    import chip_smoke
+    from repro_torch import prng
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.core.distill import make_train_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import Model
+    cfg = get_smoke("stablelm-3b").replace(d_model=320, num_heads=4,
+                                           num_kv_heads=4, d_ff=640)
+    assert cfg.d_model // cfg.num_heads == 80
+    model = Model(cfg)
+    step, opt = make_train_step(model, TrainConfig(batch_size=2, steps=2))
+    params = model.init_tree(prng.PRNGKey(0), cuda)
+    state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step(params, state, batch)                         # builds, warms
+    before = (fa.launches, fa.bwd_launches, rg.launches, rg.bwd_launches,
+              wk.launches, wk.bwd_launches)
+    _, _, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    want = chip_smoke.train_launches(cfg)
+    got = tuple(a - b for a, b in zip(
+        (fa.launches, fa.bwd_launches, rg.launches, rg.bwd_launches,
+         wk.launches, wk.bwd_launches), before))
+    assert got == tuple(want[k] for k in (
+        "flash_attention", "flash_attention_backward", "rglru_scan",
+        "rglru_scan_backward", "wkv6", "wkv6_backward"))
+    assert got[:2] == (2 * cfg.num_layers, fa.BWD_KERNELS * cfg.num_layers)
+    assert np.isfinite(float(m["loss"]))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])

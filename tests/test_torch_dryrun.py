@@ -399,14 +399,19 @@ def test_meta_recurrences():
                       (ms_last, s_last), (dx, x)):
         assert got.is_meta and (got.shape, got.dtype) == \
             (want.shape, want.dtype)
-    assert work.by_kernel["rglru_scan"]["calls"] == 2
-    assert work.by_kernel["rglru_scan"]["flops"] == 2 * 3 * x.numel()
-    # N2a as built: 10 FLOPs an element; x and log_a read twice, dh
-    # read, dx, dlog_a written, h0 read, dh0 written, and the float32
-    # checkpoints of every 16th carry written and read (12 steps: one)
+    # K4 twice: x, log_a read, h written (bf16), h0 read and h_last
+    # written (float32); under grad it also writes the float32
+    # checkpoints of every 64th carry (12 steps: one a channel)
+    ckpt = 4 * B * 1 * Dm
+    assert work.by_kernel["rglru_scan"] == {
+        "calls": 2, "flops": 2 * 3 * x.numel(),
+        "bytes": 2 * (2 * 3 * x.numel() + 4 * 2 * B * Dm) + ckpt}
+    # N2a as built: 7 FLOPs an element; x, log_a and dh read once, dx and
+    # dlog_a written, dh0 written (no dh_last here), K4's checkpoints
+    # read once
     assert work.by_kernel["rglru_scan_backward"] == {
-        "calls": 1, "flops": 10 * x.numel(),
-        "bytes": 2 * 7 * x.numel() + 4 * 2 * B * Dm + 2 * 4 * B * 1 * Dm}
+        "calls": 1, "flops": 7 * x.numel(),
+        "bytes": 2 * 5 * x.numel() + 4 * B * Dm + ckpt}
     assert work.by_kernel["wkv6"] == {
         "calls": 1, "flops": 6 * B * S * H * dh * dh,
         "bytes": 4 * (5 * r.numel() + u.numel() + 2 * B * H * dh * dh)}
@@ -429,12 +434,14 @@ def test_meta_recurrences():
                       + 2 * (2 * B * H * dh * dh + B * H * dh))}
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "stablelm-3b"])
 def test_chip_smoke_train_launches_match_the_dry_run(arch):
     """chip_smoke's ``train_launches`` (read from the layer pattern) and
     the dry-run's predicted calls of K3, N1, K4, N2a, K5 and N2b agree
-    for the recurrent smokes' train step: ``dryrun_train`` raises where
-    they differ, as it does on the card against the counted launches."""
+    for the recurrent smokes' and stablelm's train step: ``dryrun_train``
+    raises where they differ, as it does on the card against the counted
+    launches."""
     import chip_smoke
     cfg = get_smoke(arch)
     want = chip_smoke.train_launches(cfg)
@@ -447,6 +454,10 @@ def test_chip_smoke_train_launches_match_the_dry_run(arch):
     if arch == "rwkv6-7b":
         assert want["wkv6"] == 2 * len(kinds)
         assert want["wkv6_backward"] == 3 * len(kinds)
+    elif arch == "stablelm-3b":
+        assert want["flash_attention"] == 2 * len(kinds)
+        assert want["flash_attention_backward"] == 3 * len(kinds)
+        assert want["rglru_scan"] == want["wkv6"] == 0
     else:
         assert want["rglru_scan"] == 2 * kinds.count("rglru")
         assert want["rglru_scan_backward"] == kinds.count("rglru")

@@ -189,14 +189,45 @@ def test_attention_backward_plain(causal, window, softcap, H, KV):
         assert float(np.abs(p.numpy() - np.asarray(j)).max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("window", [0, 16], ids=["causal", "window"])
+def test_attention_backward_plain_at_head_dim_80(window):
+    """``ref.attention_backward_plain`` at stablelm-3b's head dim 80
+    (MHA, causal, with and without a window) against ``jax.vjp`` of the
+    reference's xla attention and autograd of the plain forward, within
+    1e-5 of the largest |gradient|, as at dh 32."""
+    B, S, H, dh = 2, 70, 4, 80
+    rng = np.random.default_rng(80 + window)
+    q, k, v, do = (rng.normal(size=(B, S, H, dh)).astype(np.float32)
+                   for _ in range(4))
+    kw = dict(causal=True, window=window, softcap=0.0)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    o, lse = ref.attention_plain(tq, tk, tv, return_lse=True, **kw)
+    auto = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    plain = ref.attention_backward_plain(
+        tq.detach(), tk.detach(), tv.detach(), o.detach(),
+        torch.from_numpy(do), lse.detach(), **kw)
+    jo, vjp = jax.vjp(lambda a, b, c: jops.attention(a, b, c, impl="xla",
+                                                     **kw), q, k, v)
+    jgrads = vjp(jnp.asarray(do))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               atol=1e-5)
+    for p, a, j in zip(plain, auto, jgrads):
+        assert p.shape == (B, S, H, dh)
+        scale = float(np.abs(np.asarray(j)).max())
+        assert float((p - a).abs().max()) <= 1e-5 * scale
+        assert float(np.abs(p.numpy() - np.asarray(j)).max()) <= 1e-5 * scale
+
 
 # (B, Skv, H, KV, dh, splits on 132 SMs): recurrentgemma's train shape
 # (32 dK/dV tiles: 5 splits of 2 heads) and its long row; groups the count
 # does not divide; a granite-like 48:1 group; dh <= 128 never splits
+# (stablelm-3b's train shape at dh 80: 1024 dK/dV CTAs, MHA 32:32)
 HEAD_SPLITS = [(4, 512, 10, 1, 256, 5), (1, 4096, 10, 1, 256, 3),
                (1, 1000, 10, 1, 256, 9), (2, 620, 12, 2, 256, 4),
                (1, 777, 20, 2, 256, 6), (1, 256, 48, 1, 256, 33),
-               (16, 4096, 10, 1, 256, 1), (1, 1024, 48, 1, 128, 1)]
+               (16, 4096, 10, 1, 256, 1), (1, 1024, 48, 1, 128, 1),
+               (4, 512, 32, 32, 80, 1)]
 
 
 @pytest.mark.parametrize("B,Skv,H,KV,dh,want", HEAD_SPLITS)

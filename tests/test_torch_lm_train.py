@@ -33,7 +33,7 @@ from repro_torch.core import distill, voting
 from repro_torch.data import pipeline, synthetic
 from repro_torch.federation.domain import token_domain
 from repro_torch.models import Model
-from repro_torch.tree_util import flatten_tree
+from repro_torch.tree_util import flatten_tree, tree_map
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -103,6 +103,65 @@ def test_train_step_matches_reference(microbatches):
         w = want[name]
         assert float((t - w).abs().max()) <= 1e-5 * float(w.abs().max())
     assert int(state.step) == 3
+
+
+def test_stablelm_train_step_at_head_dim_80_matches_reference():
+    """A narrow stablelm whose heads are stablelm-3b's 80 wide (2 layers,
+    d_model 320, 4 MHA heads; its parallel block, partial rotary and
+    LayerNorm), float32, from the reference's init carried across: the
+    loss within 1e-6 relative and its gradients (the blocks recomputed
+    in the backward) within 1e-5 of each leaf's largest |gradient|, as
+    ``test_torch_archs.py`` holds the smokes; then two
+    ``make_train_step`` steps (AdamW, remat), whose loss, gradient norm
+    and learning rate agree within 1e-5 relative.  (The parameters
+    after AdamW are not compared element by element: AdamW moves an
+    element by about lr whatever the size of its gradient, so a
+    gradient near 0 whose sign the summation order flips parts the two
+    by about 2 lr, ROADMAP §3.)"""
+    from conftest import smoke_model
+    jcfg = smoke_model("stablelm-3b", dtype="float32", param_dtype="float32",
+                       d_model=320, num_heads=4, num_kv_heads=4, d_ff=640,
+                       vocab_size=256)[0]
+    assert jcfg.d_model // jcfg.num_heads == 80
+    jm, cfg = JModel(jcfg), port_config(jcfg)
+    model = Model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    params = lm_tree_from_reference(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    data = synthetic.tokens(n_seqs=8, seq_len=25, vocab=256, seed=3)["train"]
+    batches = list(pipeline.TokenDataset(data, 0).batches(2, steps=2))
+
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      params)
+    loss = model.loss(leaves, {k: torch.from_numpy(v)
+                               for k, v in batches[0].items()})
+    flat = flatten_tree(leaves)
+    grads = dict(zip(flat, torch.autograd.grad(
+        loss, list(flat.values()), materialize_grads=True)))
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jm.loss(
+        p, {k: jnp.asarray(v) for k, v in batches[0].items()})))(jp)
+    assert abs(float(loss.detach()) - float(jloss)) <= 1e-6 * abs(float(jloss))
+    want = flatten_tree(lm_tree_from_reference(
+        cfg, jax.tree.map(np.asarray, jgrads), "cpu"))
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        w = want[name]
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()) + 1e-12, (name, err)
+
+    kw = dict(batch_size=2, seq_len=24, steps=2, learning_rate=3e-3,
+              warmup_steps=1)
+    jstep, jopt = jdistill.make_train_step(jm, JTrainConfig(**kw))
+    step, opt = distill.make_train_step(model, TrainConfig(**kw))
+    jstate, state = jopt.init(jp), opt.init(params)
+    jstep = jax.jit(jstep)
+    for b in batches:
+        jp, jstate, jm_ = jstep(jp, jstate, {k: jnp.asarray(v)
+                                             for k, v in b.items()})
+        params, state, m = step(params, state, {k: torch.from_numpy(v)
+                                                for k, v in b.items()})
+        for name in ("loss", "grad_norm", "lr"):
+            want = float(jm_[name])
+            assert abs(float(m[name]) - want) <= 1e-5 * abs(want), name
 
 
 @pytest.mark.parametrize("vocab,gamma", [(64, 0.0), (64, 0.1),

@@ -4,17 +4,18 @@
 
 ARCH: phi4-mini-3.8b (the default), recurrentgemma-2b, rwkv6-7b (cut to
 ``chip_smoke.RWKV_TRAIN_LAYERS`` of its 32 layers, as lm_train trains
-it) or whisper-tiny.
+it), stablelm-3b (all 32 layers; N1 at its head dim 80) or
+whisper-tiny.
 
 Builds the kernels and draws the arch's parameters at full width (random
 weights from a seeded generator, bf16 compute on float32 masters).
-A decoder (phi4-mini, recurrentgemma, rwkv6): one warm train step, then
-``--steps`` steps under torch.profiler (``chip_smoke.lm_profile_steps``:
-B 4 x S 512, AdamW, remat), with the rank of each LM kernel (K3, N1,
-K4, N2a, K5, N2b) among the steps' device costs.  whisper-tiny:
-``chip_smoke.whisper_train`` (8 steps of B 8 x 128 tokens + 1500
-frames, its launch counts and falling loss checked), then one more step
-under the profiler.  Prints the
+A decoder (phi4-mini, recurrentgemma, rwkv6, stablelm): one warm train
+step, then ``--steps`` steps under torch.profiler
+(``chip_smoke.lm_profile_steps``: B 4 x S 512, AdamW, remat), with the
+rank of each LM kernel (K3, N1, K4, N2a, K5, N2b) among the steps'
+device costs.  whisper-tiny: ``chip_smoke.whisper_train`` (8 steps of B
+8 x 128 tokens + 1500 frames, its launch counts and falling loss
+checked), then one more step under the profiler.  Prints the
 device's busy share and the ten largest kernels by device time, and
 ends with the card's name and power limit.  Needs a card.
 """
@@ -39,7 +40,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--arch", default="phi4-mini-3.8b",
                     choices=("phi4-mini-3.8b", "recurrentgemma-2b",
-                             "rwkv6-7b", "whisper-tiny"))
+                             "rwkv6-7b", "stablelm-3b", "whisper-tiny"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("lm_profile: torch sees no CUDA device", file=sys.stderr)
