@@ -41,6 +41,9 @@ non-zero before printing a result):
                 non-causal calls over 1500 frames (a ragged last key
                 tile): (k) the encoder (8, 1500 x 1500), (l) cross
                 attention (8, 64 x 1500) and (l') the same in float32;
+                gemma2-27b's engine buckets (b') 8 x 512 and (b'') 1 x
+                5120 (window 4096, soft-cap 50), and (j') deepseek's
+                train forward (4, 512) writing the row LSE;
                 the RG-LRU scan at the recurrentgemma-2b prefill, at a
                 ragged S = 1000 and in float32, bit for bit; the WKV
                 recurrence at the rwkv6-7b prefill, from a nonzero
@@ -104,6 +107,17 @@ non-zero before printing a result):
   6. window   : the gemma2 smoke config in float32 (window 64, soft-cap)
                 through the engine, prompts crossing the window, every
                 stream against its solo ``serve_batch`` run.
+  6b. gemma2_serve: gemma2-27b at full width, all 46 layers (bf16,
+                random weights) behind ``Engine(num_slots=8,
+                cache_len=5120)``: 16 requests, 32 tokens each, closed
+                loop, 14 prompts of 1-512 tokens and two of 4352 and
+                4608, past the 4096-key window (their local layers'
+                caches become rings at insert; the cache cap binds their
+                bucket).  K3 (soft-cap 50, the window sliding) launches
+                = 46 x prefill dispatches; the replay's streams equal;
+                streams 0, 1 and the 4608-token prompt's held to solo
+                ``serve_batch`` runs; TTFT, per-token latency, tok/s,
+                the timed run's and the whole phase's peak memory.
   7. recurrent: recurrentgemma-2b, then rwkv6-7b, at full width (random
                 weights, bf16) through ``serve_batch``: 4 prompts of
                 1024 tokens, 32 tokens each.  The one prefill must
@@ -165,8 +179,10 @@ non-zero before printing a result):
                 128 x 1500: Sq != Skv), a granite-like 48:1 group
                 (1, 1024, dh 128, causal), and recurrentgemma's local
                 attention at dh 256 (10:1, window 2048) at (4, 512) and
-                (1, 4096), identical run to run, timed beside its bound
-                and the backward of one SDPA call (an explicit window
+                (1, 4096), stablelm-3b's (dh 80) and deepseek-moe-16b's
+                (4, 512, 16:16) train shapes, identical run to run,
+                timed beside its bound and the backward of one SDPA
+                call (an explicit window
                 mask where the window is shorter than S); then
                 ``launch.train.train_lm`` on phi4-mini-3.8b at full
                 width (bf16 on float32 masters, AdamW, remat, B 4 x S
@@ -205,7 +221,14 @@ non-zero before printing a result):
                 moments are 120.6 GB) as on phi4: exact K3, N1, K4, N2a,
                 K5 and N2b launches a step from the layer pattern, the
                 first loss within [ln V, ln V + 1.79], the first batch's
-                loss lower after the 8 steps, step ms, tokens/s, peak.
+                loss lower after the 8 steps, step ms, tokens/s, peak;
+                then stablelm-3b (32 layers, N1 at dh 80) and
+                deepseek-moe-16b cut to 6 of its 28 layers
+                (``DEEPSEEK_TRAIN_LAYERS``: the dense head block and 5
+                MoE blocks at capacity factor 1.25) the same way, 12 K3
+                and 18 N1 launches a step, and one of its steps taken
+                twice from one set of masters on one batch: the loss
+                and every gradient leaf equal bit for bit.
   10. dryrun  : the port's dry-run on the meta device (no kernel
                 launch; host time): one arch per family (phi4-mini,
                 mixtral, recurrentgemma, whisper) x the four input
@@ -213,7 +236,8 @@ non-zero before printing a result):
                 term, per-device peak against the card's 80 GB and the
                 seconds of its terms, the skips equal to ``SKIPS``; then
                 lm_train's exact steps (phi4-mini, recurrentgemma-2b,
-                rwkv6-7b's 12-layer cut; B 4 x S 512, remat, AdamW,
+                rwkv6-7b's 12-layer cut, stablelm-3b, deepseek-moe-16b's
+                6-layer cut; B 4 x S 512, remat, AdamW,
                 float32 masters) on a one-device mesh, predicted beside
                 that phase's measured step ms and peak memory (the
                 params, gradients and AdamW state it predicts may not
@@ -668,7 +692,12 @@ def phase_attention():
     then whisper-tiny's non-causal calls over 1500 frames (a ragged last
     64-key tile): (k) the encoder's self-attention (Sq = Skv = 1500),
     (l) cross attention (Sq 64 prompt tokens, Skv 1500) and (l') the
-    same in float32.  The library
+    same in float32; then gemma2-27b's engine buckets (window 4096,
+    soft-cap 50): (b') the (8, 512) bucket of its short prompts and
+    (b'') the (1, 5120) bucket, capped at the engine's cache length,
+    of a prompt past the window; and (j') deepseek-moe-16b's train
+    forward (4, 512), which also writes the row LSE for N1 (held to
+    ``ref.attention_plain``'s within ``LSE_TOL``).  The library
     yardstick is SDPA's fastest backend under the explicit causal+window
     mask where there is a window, and under ``is_causal`` where the
     window is absent or covers S (then the mask IS the causal mask), and
@@ -704,22 +733,42 @@ def phase_attention():
     ]
     # (Sq, Skv, causal) of each case: the rows above are causal prefills
     # (Sq = Skv = S); whisper-tiny's are non-causal over 1500 frames
-    cases = [c[:2] + (c[2],) + c[2:] + (True,) for c in cases] + [
+    # ... then whether the call also writes the row LSE (training)
+    cases = [c[:2] + (c[2],) + c[2:] + (True, False) for c in cases] + [
         ("k_whisper_encoder", 8, 1500, 1500, 6, 6, 64, torch.bfloat16, 0,
-         0.0, True, False),
+         0.0, True, False, False),
         ("l_whisper_cross", 8, 64, 1500, 6, 6, 64, torch.bfloat16, 0, 0.0,
-         True, False),
+         True, False, False),
         ("l2_whisper_cross_f32", 8, 64, 1500, 6, 6, 64, torch.float32, 0,
-         0.0, True, False)]
+         0.0, True, False, False),
+        # gemma2-27b's engine buckets (SDPA has no soft-cap)
+        ("b2_gemma2_bucket_8x512", 8, 512, 512, 32, 16, 128,
+         torch.bfloat16, 4096, 50.0, False, True, False),
+        ("b3_gemma2_bucket_1x5120", 1, 5120, 5120, 32, 16, 128,
+         torch.bfloat16, 4096, 50.0, False, True, False),
+        ("j2_deepseek_train_lse", 4, 512, 512, 16, 16, 128, torch.bfloat16,
+         0, 0.0, True, True, True)]
     rows, worst = [], 0.0
-    for label, B, S, Skv, H, KV, dh, dt, window, cap, lib, causal in cases:
+    for (label, B, S, Skv, H, KV, dh, dt, window, cap, lib, causal,
+         lse) in cases:
         q = torch.randn((B, S, H, dh), device="cuda", generator=g).to(dt)
         k = torch.randn((B, Skv, KV, dh), device="cuda", generator=g).to(dt)
         v = torch.randn((B, Skv, KV, dh), device="cuda", generator=g).to(dt)
         kw = dict(causal=causal, window=window, softcap=cap)
-        got = fa.flash_attention(q, k, v, **kw)
-        again = fa.flash_attention(q, k, v, **kw)
+        fkw = dict(kw, return_lse=lse)
+        got = fa.flash_attention(q, k, v, **fkw)
+        again = fa.flash_attention(q, k, v, **fkw)
         want = ref.attention_ref(q, k, v, **kw)
+        lse_err = None
+        if lse:
+            (got, got_lse), (again, again_lse) = got, again
+            want_lse = ref.attention_plain(q, k, v, return_lse=True,
+                                           **kw)[1]
+            lse_err = float((got_lse - want_lse).abs().max())
+            if not torch.equal(got_lse, again_lse) \
+                    or lse_err > LSE_TOL[dt]:
+                raise AssertionError(f"K3's LSE at {label}: {lse_err}, "
+                                     "or not identical run to run")
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"flash_attention differs run to run at "
@@ -733,12 +782,13 @@ def phase_attention():
         worst = max(worst, err)
         del want
         p = fa.plan(fa.padded_head_dim(dh), dt)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **fkw), reps=10)
         # a small call's event time is the wrapper's host time (tensor
         # maps, allocation); 20 launches in a CUDA graph read the device
-        graph = graph_ms(lambda: fa.flash_attention(q, k, v, **kw))
-        plain = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3,
-                        warmup=1)
+        graph = graph_ms(lambda: fa.flash_attention(q, k, v, **fkw))
+        plain = cuda_ms(lambda: ref.attention_plain(q, k, v, **fkw)
+                        if lse else ref.attention_ref(q, k, v, **kw),
+                        reps=3, warmup=1)
         yardsticks = {}
         if lib:   # SDPA computes the same function only without soft-cap
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -759,6 +809,8 @@ def phase_attention():
                       default=None)
         lib_ms = None if fastest is None else fastest[0]
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        if lse:
+            nbytes += 4 * B * H * S
         nops = 4 * B * H * valid_pairs(S, Skv, causal, window) * dh
         b_ms, b_by = bound(nbytes, nops, PEAK_FLOPS
                            if dt == torch.bfloat16 else FP32_FLOPS)
@@ -766,7 +818,8 @@ def phase_attention():
                "Skv": Skv, "causal": causal, "H": H, "KV": KV, "dh": dh,
                "launched_dh": fa.padded_head_dim(dh), "dtype": str(dt),
                "window": window, "softcap": cap, "max_abs_err": err,
-               "tol": tol, "plan": p._asdict(), "kernel_ms": ms,
+               "tol": tol, "return_lse": lse, "lse_max_abs_err": lse_err,
+               "plan": p._asdict(), "kernel_ms": ms,
                "graph_ms": graph, "plain_ms": plain,
                "library_ms": lib_ms,
                "library_backend": None if fastest is None else fastest[1],
@@ -1446,15 +1499,21 @@ def serve_run(model, params, prompts, max_tokens, device, keep_logits,
     """Warms an engine on the prompts' buckets, zeroes the kernel's
     launch count, serves the prompts closed loop (inside ``counter``, a
     context manager, where one is given).  Returns (engine, results,
-    wall seconds, launches, peak bytes)."""
+    wall seconds, launches, the run's peak bytes, the peak bytes from
+    the engine's creation to the end of its warm-up, which runs each
+    bucket at every batch size up to the engine's largest)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving import Engine
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     eng = Engine(model, params, device=device, keep_logits=keep_logits,
                  **engine_kw)
     eng.warmup(buckets=[len(p) for p in prompts])
-    on_card = torch.device(device).type == "cuda"
+    warm_peak = 0
     if on_card:
         torch.cuda.synchronize()
+        warm_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
     t0 = time.perf_counter()
@@ -1465,7 +1524,7 @@ def serve_run(model, params, prompts, max_tokens, device, keep_logits,
     wall = time.perf_counter() - t0
     launches = fa.launches
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    return eng, res, wall, launches, peak
+    return eng, res, wall, launches, peak, warm_peak
 
 
 def serving_metrics(eng, res, wall):
@@ -1486,13 +1545,16 @@ def serving_metrics(eng, res, wall):
 
 def phase_serving(cfg, lens, device="cuda", max_tokens=32, num_slots=8,
                   cache_len=1024, compare=3, rtol=0.25, profile=False,
-                  params=None, counter=None, tag="serve"):
+                  params=None, counter=None, tag="serve", smi=None):
     """The serving path at ``cfg``'s widths: a timed engine run over
     prompts of ``lens`` tokens, then a replay that keeps logits (it must
     give the same streams; ``counter``, a context manager, is entered
-    around it, outside the timed run), then ``compare`` streams held to
-    solo serve_batch runs.  ``params``: the weights (default: drawn from
-    seed 0)."""
+    around it, outside the timed run), then streams held to solo
+    serve_batch runs: the first ``compare`` where it is an int, else the
+    indices it lists.  ``params``: the weights (default: drawn from
+    seed 0); ``smi``: the card's name and power limit, printed in the
+    row.  Returns (the row, with the held streams' indices under
+    "held_to_serial", the timed run's K3 launches)."""
     from repro_torch.models import Model
     model = Model(cfg)
     dev = torch.device(device)
@@ -1502,12 +1564,14 @@ def phase_serving(cfg, lens, device="cuda", max_tokens=32, num_slots=8,
     prompts = serve_prompts(cfg, lens)
     n_requests = len(prompts)
     kw = dict(num_slots=num_slots, cache_len=cache_len)
-    eng, res, wall, launches, peak = serve_run(
+    eng, res, wall, launches, peak, warm_peak = serve_run(
         model, params, prompts, max_tokens, device, False, **kw)
     m = serving_metrics(eng, res, wall)
     m.update({"arch": cfg.name, "layers": cfg.num_layers,
               "dtype": cfg.dtype, "attention_launches": launches,
-              "peak_mem_bytes": peak})
+              "peak_mem_bytes": peak, "warmup_peak_mem_bytes": warm_peak})
+    if smi:
+        m["card"] = smi
     if cfg.moe:
         m["capacity_factor"] = cfg.moe.capacity_factor
     log(f"[{tag}] " + json.dumps(m))
@@ -1522,20 +1586,21 @@ def phase_serving(cfg, lens, device="cuda", max_tokens=32, num_slots=8,
     if any(not 0 <= t < cfg.vocab_size for r in res for t in r.tokens):
         raise AssertionError("token id out of the vocabulary")
     del eng
-    _, replay, _, _, _ = serve_run(model, params, prompts, max_tokens,
-                                   device, True, counter=counter, **kw)
+    replay = serve_run(model, params, prompts, max_tokens, device, True,
+                       counter=counter, **kw)[1]
     if [r.tokens for r in replay] != [r.tokens for r in res]:
         raise AssertionError("the engine's streams differ run to run")
-    if compare:
-        checks = hold_to_serial(model, params, replay, prompts,
-                                range(compare), rtol)
+    idx = range(compare) if isinstance(compare, int) else compare
+    m["held_to_serial"] = list(idx)
+    if idx:
+        checks = hold_to_serial(model, params, replay, prompts, idx, rtol)
         log(f"[{tag}-parity] " + json.dumps({
             "arch": cfg.name, "compared": len(checks),
             "matched_whole": sum(c["match"] for c in checks),
             "streams": checks}))
     if profile:
-        eng, _, _, _, _ = serve_run(model, params, prompts[:num_slots],
-                                    max_tokens, device, False, **kw)
+        eng = serve_run(model, params, prompts[:num_slots], max_tokens,
+                        device, False, **kw)[0]
         for p in prompts[num_slots:]:
             eng.submit(p, max_tokens)
         _profiled(f"serve_{cfg.name}", eng.run)
@@ -1551,6 +1616,75 @@ def phase_window(device="cuda"):
     return phase_serving(cfg, [30, 70, 100, 129, 64, 5], device,
                          max_tokens=8, num_slots=2, cache_len=256,
                          compare=6, rtol=1e-4)
+
+
+# gemma2_serve's two prompts past gemma2-27b's 4096-key window: their
+# local layers' prefill caches become rings at insert, and the cap of
+# the engine's 5120-slot cache, not a power of two, binds their bucket
+GEMMA2_LONG_PROMPTS = (4352, 4608)
+
+
+def phase_gemma2_serving(smi=None, device="cuda", cfg=None, cache_len=5120,
+                         long=GEMMA2_LONG_PROMPTS, short_max=512,
+                         n_short=14, max_tokens=32):
+    """gemma2-27b at full width, all 46 layers (bf16, random weights
+    from a seeded generator; local layers of window 4096 alternating
+    with global ones, attention soft-cap 50, final soft-cap 30, tied
+    embeddings), through ``phase_serving`` behind ``Engine(num_slots=8,
+    cache_len=5120)``: 16 requests, 32 tokens each, closed loop, of
+    which ``n_short`` prompts of 1-``short_max`` tokens (drawn as
+    phi4_serve draws them) and the ``long`` ones past the window.  Every
+    prefill layer launches K3 (the window sliding and the soft-cap on);
+    streams 0, 1 and the last long prompt's are held to solo
+    ``serve_batch`` runs (the engine dropped first: a solo run of the
+    4608-token prompt computes float32 logits at every position).
+    ``cfg``, ``device`` and the sizes are for a rehearsal at smoke
+    width.  Prints one summary line with the whole phase's peak memory
+    (the engine's warm-up prefills included).  Returns (the row, its K3
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = cfg or get_config("gemma2-27b")
+    dev = torch.device(device)
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    lens = [*np.random.default_rng(0).integers(1, short_max + 1, n_short),
+            *long]
+    past = [i for i, n in enumerate(lens) if n > cfg.window]
+    if len(past) != len(long) or max(lens) + max_tokens > cache_len:
+        raise ValueError("the long prompts must pass the window and fit "
+                         "the cache")
+    rtol = 0.25 if cfg.dtype == "bfloat16" else 1e-4
+    m, launches = phase_serving(
+        cfg, lens, device, max_tokens=max_tokens, num_slots=8,
+        cache_len=cache_len, compare=(0, 1, past[-1]), rtol=rtol,
+        params=params, tag="gemma2_serve", smi=smi)
+    del params
+    row = {"arch": cfg.name, "layers": cfg.num_layers,
+           "window": cfg.window, "cache_len": cache_len,
+           "requests": len(lens),
+           # phase_serving raises unless each completed its budget
+           "completed_budget": m["streams"], "max_tokens": max_tokens,
+           "tokens": m["tokens"], "prompt_lens_past_window":
+               [int(lens[i]) for i in past],
+           "buckets": sorted({k.split("x")[1]
+                              for k in m["prefill_ms_by_bucket"]}, key=int),
+           "prefill_dispatches": m["dispatches"]["prefill"],
+           "attention_launches": launches,
+           "attention_launches_want":
+               cfg.num_layers * m["dispatches"]["prefill"],
+           "held_to_serial": m["held_to_serial"],
+           "ttft_s": m["ttft_s"], "token_latency_ms": m["token_latency_ms"],
+           "tok_per_s": m["tok_per_s"], "peak_mem_bytes": m["peak_mem_bytes"],
+           # the first engine's warm-up (its (8, 5120) bucket), or the
+           # replay and the solo runs, whose peak serve_run left running
+           "phase_peak_mem_bytes": max(
+               m["warmup_peak_mem_bytes"], torch.cuda.max_memory_allocated()
+               if dev.type == "cuda" else 0), "card": smi}
+    log("[gemma2_serve] " + json.dumps(row))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2243,8 +2377,9 @@ def lm_backward_rows():
     (one kv head, so the dK/dV grid is 16 CTAs, each walking 48 q
     heads), recurrentgemma's local attention at dh 256 (10:1, window
     2048) at its train shape (4, 512) and at (1, 4096), where the window
-    is shorter than S, and stablelm-3b's train shape at its native head
-    dim 80 (4, 512, MHA 32:32): within the forward's tolerances of the
+    is shorter than S, stablelm-3b's train shape at its native head
+    dim 80 (4, 512, MHA 32:32) and deepseek-moe-16b's (4, 512, MHA
+    16:16, dh 128): within the forward's tolerances of the
     largest |gradient|, identical run to run; kernel, plain and library times
     beside the bound (SDPA under an explicit window mask where the
     window is shorter than S, null where no backend takes that).  The
@@ -2275,7 +2410,9 @@ def lm_backward_rows():
         ("recurrentgemma_long", 1, 4096, 4096, 10, 1, 256, torch.bfloat16,
          2048, 0.0, True),
         ("stablelm_train", 4, 512, 512, 32, 32, 80, torch.bfloat16, 0, 0.0,
-         True)]
+         True),
+        ("deepseek_train", 4, 512, 512, 16, 16, 128, torch.bfloat16, 0,
+         0.0, True)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
@@ -3070,6 +3207,109 @@ RWKV_TRAIN_LAYERS = 12   # rwkv6-7b's cut: 32 layers' masters, gradients
                          # and AdamW moments alone are 120.6 GB, 12's 50.6
 
 
+# deepseek-moe-16b's cut: the dense head block and 5 MoE blocks.  Its
+# 28 layers' float32 masters, gradients and AdamW moments are 16.38 B x
+# 16 B = 262 GB; 6 layers' 3.445 B x 16 B = 55.1 GB, and the dry-run
+# puts the step's peak at 59.5 GB (7 layers': 69.0 GB, too close to 80
+# beside the allocator's slack)
+DEEPSEEK_TRAIN_LAYERS = 6
+
+
+def deepseek_train_config():
+    """deepseek-moe-16b at ``DEEPSEEK_TRAIN_LAYERS`` of its 28 layers, at
+    its own capacity factor 1.25 (picks drop as in its training)."""
+    from repro_torch.configs import get_config
+    return get_config("deepseek-moe-16b").replace(
+        num_layers=DEEPSEEK_TRAIN_LAYERS)
+
+
+def train_step_repeat(model, params, batch, remat=True):
+    """One train step's loss and gradients (``distill``'s: the float32
+    masters cast inside autograd, the blocks recomputed in the backward
+    under ``remat``) taken twice from the tree ``params`` on ``batch``.
+    Returns {"identical", "loss", "loss_again", "leaves", "differing",
+    "max_diff", "finite"}: the losses and every gradient leaf compared
+    bit for bit."""
+    from repro_torch.core.distill import _leaf_grads, _requiring_grad
+    from repro_torch.tree_util import flatten_tree
+    runs = []
+    for _ in range(2):
+        leaves = _requiring_grad(params)
+        loss = model.loss(leaves, batch, remat=remat)
+        runs.append((loss.detach(), flatten_tree(_leaf_grads(loss, leaves))))
+        del leaves, loss
+    (l1, g1), (l2, g2) = runs
+    differing = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    return {"identical": torch.equal(l1, l2) and not differing,
+            "loss": float(l1), "loss_again": float(l2), "leaves": len(g1),
+            "differing": differing,
+            "max_diff": max((float((g1[n] - g2[n]).abs().max())
+                             for n in differing), default=0.0),
+            "finite": bool(torch.isfinite(l1)) and all(
+                bool(torch.isfinite(g).all()) for g in g1.values())}
+
+
+def deepseek_train(smi):
+    """deepseek-moe-16b cut to ``DEEPSEEK_TRAIN_LAYERS`` trained at full
+    width through ``lm_full_train`` (8 steps of B 4 x S 512, AdamW,
+    remat, bf16 on float32 masters, capacity factor 1.25: its dispatch
+    and combine gathers, their backwards, the stacked experts' bmm
+    backward and the aux loss's gradient into the router on the card),
+    then one step's loss and gradients taken twice from the trained
+    masters on the first batch (``train_step_repeat``): equal bit for
+    bit.  ``lm_full_train`` holds the launches a step to
+    ``train_launches`` (12 K3 and 18 N1 at 6 layers), the repeat to
+    twice that.  Prints one summary line.  Returns (the train row, the
+    launches of both runs, each counted from 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.models import Model
+    cfg = deepseek_train_config()
+    params, counts, row = lm_full_train(cfg, smi)
+    data = synthetic.tokens(n_seqs=64, seq_len=513, vocab=cfg.vocab_size,
+                            seed=1)["train"]      # lm_full_train's
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             next(iter(TokenDataset(data).batches(4, steps=1))).items()}
+    torch.cuda.synchronize()
+    _zero_lm_counts()
+    rep = train_step_repeat(Model(cfg), params, batch)
+    torch.cuda.synchronize()
+    rep_counts = _lm_counts()
+    del params
+    torch.cuda.empty_cache()
+    want = {k: 2 * n for k, n in train_launches(cfg).items()}
+    per_step = row["launches_per_step"]
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "of_layers": get_config(cfg.name).num_layers,
+        "params": row["params"],
+        "capacity_factor": cfg.moe.capacity_factor,
+        "k3_per_step": per_step["flash_attention"],
+        "n1_per_step": per_step["flash_attention_backward"],
+        "losses_finite": bool(np.isfinite(row["losses"]).all()),
+        "first_loss": row["losses"][0],
+        "first_batch_loss_after": row["first_batch_loss_after"],
+        "step_ms_median_last6": row["step_ms_median_last6"],
+        "peak_mem_bytes": row["peak_mem_bytes"],
+        "repeat_identical": rep["identical"], "repeat_loss": rep["loss"],
+        "repeat_grad_leaves": rep["leaves"],
+        "repeat_differing_leaves": rep["differing"],
+        "repeat_max_diff": rep["max_diff"], "repeat_launches": rep_counts,
+        "card": smi}
+    log("[deepseek_train] " + json.dumps(summary))
+    if rep_counts != want:
+        raise AssertionError(f"repeated step launches {rep_counts} != "
+                             f"{want}")
+    if not rep["finite"]:
+        raise AssertionError("non-finite loss or gradient in the repeat")
+    if not rep["identical"]:
+        raise AssertionError(f"the MoE train step differs run to run: "
+                             f"{rep['differing']} (max |diff| "
+                             f"{rep['max_diff']}), losses {rep['loss']} "
+                             f"and {rep['loss_again']}")
+    return row, [counts, rep_counts]
+
+
 def recurrent_train_configs():
     """The recurrent archs lm_train trains at full width:
     recurrentgemma-2b whole (26 layers) and rwkv6-7b cut to
@@ -3087,7 +3327,9 @@ def phase_lm_train(smi, profile=False):
     token vote through K1; checkpoint to serve; then N2a and N2b against
     their plain versions, recurrentgemma-2b and rwkv6-7b (its cut)
     trained at full width, and, once their parameters are freed,
-    stablelm-3b at full width (N1 at its head dim 80).  Returns (the
+    stablelm-3b at full width (N1 at its head dim 80), then
+    deepseek-moe-16b cut to ``DEEPSEEK_TRAIN_LAYERS`` (``deepseek_train``:
+    its MoE backward on the card, one step repeated bit for bit).  Returns (the
     backward rows {"n1", "n2a", "n2b"}, their worst errors, the main
     path's launches, the measured rows of the full-width train and label
     steps)."""
@@ -3127,6 +3369,9 @@ def phase_lm_train(smi, profile=False):
         del rec_params
         torch.cuda.empty_cache()
         log(f"[lm_train] {cfg.name} training at {time.time() - t0:.1f} s")
+    measured["deepseek-moe-16b"], ds_runs = deepseek_train(smi)
+    runs += ds_runs
+    log(f"[lm_train] deepseek-moe-16b training at {time.time() - t0:.1f} s")
     # the main path's launches: the sum of the runs above, each counted
     # from 0 just before it and read just after, so that no launch made
     # to compare a kernel with its plain version is in it
@@ -3278,15 +3523,17 @@ def dryrun_label(smi, measured):
 def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     """Phase 10 (after lm_train, whose measured rows it reads): every
     pair of ``archs``, then the train step of phi4-mini, recurrentgemma,
-    rwkv6's cut and stablelm-3b and the label step beside their measured
-    rows (peak memory and launches a step)."""
+    rwkv6's cut, stablelm-3b and deepseek-moe-16b's cut and the label
+    step beside their measured rows (peak memory and launches a
+    step)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     dryrun_pairs(smi, archs)
     log(f"[dryrun] pairs at {time.time() - t0:.1f} s")
     train = [dryrun_train(smi, measured["train"],
                           get_config("phi4-mini-3.8b"))]
-    for cfg in (*recurrent_train_configs(), get_config("stablelm-3b")):
+    for cfg in (*recurrent_train_configs(), get_config("stablelm-3b"),
+                deepseek_train_config()):
         train.append(dryrun_train(smi, measured[cfg.name], cfg))
     label = dryrun_label(smi, measured["label"])
     log(f"[dryrun] train and label at {time.time() - t0:.1f} s")
@@ -3375,6 +3622,9 @@ def main():
     phase_window()
     torch.cuda.synchronize()
     log(f"[phase] window ok at {time.time() - t_start:.1f} s")
+    launches["flash_attention"] += phase_gemma2_serving(smi)[1]
+    torch.cuda.synchronize()
+    log(f"[phase] gemma2_serve ok at {time.time() - t_start:.1f} s")
 
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
         _, rec = phase_batch_serving(get_config(arch),

@@ -167,6 +167,10 @@ class Engine:
                 self.params, toks, torch.as_tensor(plens, device=self.device))
             self.model.insert_cache(self._cache, pc, slots, plens)
             tok.cpu()
+            # before the next bucket's prefill: its cache and this one's
+            # would be alive at once (an (8, 5120) bucket of gemma2-27b
+            # beside a (4, 5120) one's 7.7 GB)
+            del tok, pc
         if lens:  # any warm cache state will do
             out, _, _ = self._decode(self.params, self._tokens(),
                                      self._cache, self._positions())

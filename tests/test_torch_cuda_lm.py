@@ -1,8 +1,9 @@
 """The LM training path on the card: the flash-attention backward kernel
 (N1, dh 80 and 256 included) against its plain version, the forward's row
 log-sum-exp, launch counts of a train step, the recurrences' backward
-kernels (N2a, N2b) against theirs, and the recurrent smokes fitting on
-the card.
+kernels (N2a, N2b) against theirs, the recurrent smokes fitting on
+the card, and deepseek-moe's smoke train step (picks dropping) repeated
+bit for bit.
 
 Run on a GPU host with
 ``python -m pytest -q -m cuda tests/test_torch_cuda_lm.py``; elsewhere
@@ -491,6 +492,55 @@ def test_stablelm_train_step_launches(cuda):
         "rglru_scan_backward", "wkv6", "wkv6_backward"))
     assert got[:2] == (2 * cfg.num_layers, fa.BWD_KERNELS * cfg.num_layers)
     assert np.isfinite(float(m["loss"]))
+
+
+def test_moe_train_step_repeats_bit_for_bit(cuda):
+    """deepseek-moe's smoke layout (its dense head block, then two MoE
+    blocks; bf16 compute on float32 masters) at deepseek-moe-16b's
+    capacity factor 1.25, so that picks drop: one remat train step's
+    loss and gradients taken twice from one init on one batch
+    (``chip_smoke.train_step_repeat``, as chip_smoke's deepseek_train
+    takes them at full width) are equal bit for bit, as are two whole
+    ``make_train_step`` steps (AdamW) from that init; each launches K3
+    and N1 as ``chip_smoke.train_launches`` counts."""
+    import dataclasses
+
+    import chip_smoke
+    from repro_torch import prng
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.core.distill import make_train_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.tree_util import flatten_tree, tree_map
+    cfg = get_smoke("deepseek-moe-16b")
+    cfg = cfg.replace(num_layers=3, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    model = Model(cfg)
+    init = model.init_tree(prng.PRNGKey(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    # 16 distinct ids: repeated tokens crowd the same experts
+    toks = torch.randint(0, 16, (4, 129), device=cuda, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = (fa.launches, fa.bwd_launches)
+    with chip_smoke.DropCount() as drops:
+        rep = chip_smoke.train_step_repeat(model, init, batch)
+    torch.cuda.synchronize()
+    assert rep["identical"] and rep["finite"], rep
+    assert drops.share > 0.0
+    want = chip_smoke.train_launches(cfg)
+    assert (fa.launches - before[0], fa.bwd_launches - before[1]) == (
+        2 * want["flash_attention"], 2 * want["flash_attention_backward"])
+    step, opt = make_train_step(model, TrainConfig(batch_size=4, steps=2))
+    runs = []
+    for _ in range(2):
+        p = tree_map(torch.clone, init)
+        p, _, m = step(p, opt.init(p), batch)
+        runs.append((m, flatten_tree(p)))
+    (m1, p1), (m2, p2) = runs
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert torch.equal(torch.as_tensor(m1["grad_norm"]),
+                       torch.as_tensor(m2["grad_norm"]))
+    assert all(torch.equal(p1[n], p2[n]) for n in p1)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])

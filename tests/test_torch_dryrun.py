@@ -435,13 +435,13 @@ def test_meta_recurrences():
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "stablelm-3b"])
+                                  "stablelm-3b", "deepseek-moe-16b"])
 def test_chip_smoke_train_launches_match_the_dry_run(arch):
     """chip_smoke's ``train_launches`` (read from the layer pattern) and
     the dry-run's predicted calls of K3, N1, K4, N2a, K5 and N2b agree
-    for the recurrent smokes' and stablelm's train step: ``dryrun_train``
-    raises where they differ, as it does on the card against the counted
-    launches."""
+    for the recurrent smokes', stablelm's and deepseek-moe's train step:
+    ``dryrun_train`` raises where they differ, as it does on the card
+    against the counted launches."""
     import chip_smoke
     cfg = get_smoke(arch)
     want = chip_smoke.train_launches(cfg)
@@ -454,7 +454,7 @@ def test_chip_smoke_train_launches_match_the_dry_run(arch):
     if arch == "rwkv6-7b":
         assert want["wkv6"] == 2 * len(kinds)
         assert want["wkv6_backward"] == 3 * len(kinds)
-    elif arch == "stablelm-3b":
+    elif arch in ("stablelm-3b", "deepseek-moe-16b"):
         assert want["flash_attention"] == 2 * len(kinds)
         assert want["flash_attention_backward"] == 3 * len(kinds)
         assert want["rglru_scan"] == want["wkv6"] == 0
@@ -462,6 +462,35 @@ def test_chip_smoke_train_launches_match_the_dry_run(arch):
         assert want["rglru_scan"] == 2 * kinds.count("rglru")
         assert want["rglru_scan_backward"] == kinds.count("rglru")
         assert want["flash_attention"] == 2 * kinds.count("attn_local")
+
+
+def test_deepseek_train_cut_fits_one_card_by_the_dry_run():
+    """chip_smoke's deepseek-moe-16b cut (``DEEPSEEK_TRAIN_LAYERS``, the
+    dense head block and MoE blocks) priced at lm_train's step (B 4 x S
+    512, remat, AdamW, float32 masters) on one device: its predicted
+    peak is at most 72 GB (the cut's rule: the other cuts measured up to
+    6 GB above their resident state), with 2 K3 and 3 N1 launches a
+    layer; all 28 layers' is over the card's 80 GB."""
+    import chip_smoke
+    from repro_torch.configs import get_config
+
+    def peak(cfg):
+        want = chip_smoke.train_launches(cfg)
+        row = chip_smoke.dryrun_train("cpu", {
+            "step_ms_median_last6": 1.0, "peak_mem_bytes": 1 << 40,
+            "launches_per_step": want}, cfg)
+        return row["predicted"]["peak_memory_bytes"], \
+            row["predicted_launches_per_step"]
+
+    cut = chip_smoke.deepseek_train_config()
+    assert cut.num_layers == chip_smoke.DEEPSEEK_TRAIN_LAYERS
+    assert cut.moe.capacity_factor == 1.25
+    got, launches = peak(cut)
+    L = chip_smoke.DEEPSEEK_TRAIN_LAYERS
+    assert launches == {"flash_attention": 2 * L,
+                        "flash_attention_backward": 3 * L}
+    assert got <= 72e9, got
+    assert peak(get_config("deepseek-moe-16b"))[0] > analysis.HBM_BYTES
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,11 @@ reference's init carried across, at one and two microbatches),
 
 Tolerances: train-step losses, gradient norms and every parameter
 within 1e-5 (relative to the reference's value, or to the leaf's largest
-|value|): the same float32 arithmetic summed in another order.  Votes,
-labels and gaps are integers and exact; the Laplace noise's uniform
-draws are the reference's bits (``prng``), its ``log1p`` within an ulp.
+|value|): the same float32 arithmetic summed in another order; an MoE
+step with drops holds its AdamW parameters by the sign split its test
+states.  Votes, labels and gaps are integers and exact; the Laplace
+noise's uniform draws are the reference's bits (``prng``), its
+``log1p`` within an ulp.
 """
 import dataclasses
 
@@ -162,6 +164,105 @@ def test_stablelm_train_step_at_head_dim_80_matches_reference():
         for name in ("loss", "grad_norm", "lr"):
             want = float(jm_[name])
             assert abs(float(m[name]) - want) <= 1e-5 * abs(want), name
+
+
+def test_moe_train_step_with_drops_matches_reference_and_repeats():
+    """deepseek-moe's smoke layout, its dense head block and two MoE
+    blocks (4 experts, top-2, one shared expert), in float32 at
+    deepseek-moe-16b's capacity factor 1.25, so that picks drop: three
+    ``make_train_step`` steps (AdamW, remat) against the reference's
+    from its init carried across.  Loss, gradient norm and learning rate
+    within 1e-5 relative at every step, and the first step's gradients
+    within 1e-5 of each leaf's largest |gradient|, as
+    ``test_train_step_matches_reference`` holds them.  The parameters
+    are held as ``chip_smoke.lm_card_vs_cpu`` holds two devices' AdamW
+    runs: AdamW's first step moves an element by the learning rate times
+    the SIGN of its gradient, and a gradient that is a cancelling sum
+    near 0 takes either sign under another summation order (lm_head's
+    part by 3.2e-3 of its largest after one step).  An element whose
+    first-step gradient has one sign in both packages and |g| >= 1e-2 of
+    its leaf's largest is within 1e-4 of the leaf's largest |value|
+    (3.0e-5 at worst: the later steps' gradients carry the free
+    elements' parting); every other element within ``adam_free_bound``
+    plus that 1e-4.  Then, from one init on one batch, one step's loss
+    and gradients taken twice (``chip_smoke.train_step_repeat``, as the
+    card's run takes them) and the whole step twice: equal bit for
+    bit."""
+    import chip_smoke
+    from conftest import smoke_model
+    from test_torch_moe import port_config as moe_port_config
+    jcfg = smoke_model("deepseek-moe-16b", dtype="float32",
+                       param_dtype="float32", num_layers=3)[0]
+    jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe,
+                                                capacity_factor=1.25))
+    jm, cfg = JModel(jcfg), moe_port_config(jcfg)
+    assert cfg.moe.first_k_dense == 1 and cfg.num_layers == 3
+    model = Model(cfg)
+    kw = dict(batch_size=4, seq_len=16, steps=3, learning_rate=3e-3,
+              warmup_steps=1)
+    jstep, jopt = jdistill.make_train_step(jm, JTrainConfig(**kw))
+    step, opt = distill.make_train_step(model, TrainConfig(**kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    params = lm_tree_from_reference(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    init = tree_map(torch.clone, params)
+    data = synthetic.tokens(n_seqs=32, seq_len=17, vocab=512,
+                            seed=4)["train"]
+    jbatches = list(pipeline.TokenDataset(data, 0).batches(4, steps=3))
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in jbatches]
+
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      init)
+    flat = flatten_tree(leaves)
+    grads = dict(zip(flat, torch.autograd.grad(
+        model.loss(leaves, batches[0]), list(flat.values()),
+        materialize_grads=True)))
+    jgrads = flatten_tree(lm_tree_from_reference(cfg, jax.tree.map(
+        np.asarray, jax.grad(lambda p: jm.loss(p, {
+            k: jnp.asarray(v) for k, v in jbatches[0].items()}))(jp)), "cpu"))
+    for name, g in grads.items():
+        w = jgrads[name]
+        assert float((g - w).abs().max()) <= \
+            1e-5 * float(w.abs().max()) + 1e-12, name
+
+    jstate, state = jopt.init(jp), opt.init(params)
+    jstep = jax.jit(jstep)
+    lrs = []
+    with chip_smoke.DropCount() as drops:
+        for jb, b in zip(jbatches, batches):
+            jp, jstate, jm_ = jstep(jp, jstate, {k: jnp.asarray(v)
+                                                 for k, v in jb.items()})
+            params, state, m = step(params, state, b)
+            for name in ("loss", "grad_norm", "lr"):
+                want = float(jm_[name])
+                assert abs(float(m[name]) - want) <= 1e-5 * abs(want), name
+            lrs.append(float(m["lr"]))
+    assert drops.share > 0.0
+    free = chip_smoke.adam_free_bound(lrs)
+    want = flatten_tree(lm_tree_from_reference(
+        cfg, jax.tree.map(np.asarray, jp), "cpu"))
+    for name, t in flatten_tree(params).items():
+        w, g, jg = want[name], grads[name], jgrads[name]
+        tol = 1e-4 * float(w.abs().max())
+        diff = (t - w).abs()
+        fixed = (torch.sign(g) == torch.sign(jg)) & (
+            jg.abs() >= chip_smoke.ADAMW_GRAD_FLOOR * jg.abs().max())
+        assert not bool((diff[fixed] > tol).any()), name
+        assert not bool((diff[~fixed] > free + tol).any()), name
+
+    rep = chip_smoke.train_step_repeat(model, init, batches[0])
+    assert rep["identical"] and rep["finite"], rep
+    assert rep["leaves"] == len(flatten_tree(init))
+    runs = []
+    for _ in range(2):
+        p = tree_map(torch.clone, init)
+        p, _, m = step(p, opt.init(p), batches[0])
+        runs.append((m, flatten_tree(p)))
+    (m1, p1), (m2, p2) = runs
+    for name in ("loss", "grad_norm"):
+        assert torch.equal(torch.as_tensor(m1[name]),
+                           torch.as_tensor(m2[name])), name
+    assert all(torch.equal(p1[n], p2[n]) for n in p1)
 
 
 @pytest.mark.parametrize("vocab,gamma", [(64, 0.0), (64, 0.1),

@@ -6,7 +6,8 @@
      same prompt and against the port's own solo ``serve_batch`` run —
      staggered arrivals, arrival-order permutations, one bucket of
      mixed lengths, EOS early exit — on the tiny LM and the phi4-mini
-     and gemma2 (window-64 ring, prompts crossing it) smokes in float32,
+     and gemma2 (window-64 ring, prompts crossing it; a cache length of
+     80, not a power of two, whose cap binds the bucket) smokes in float32,
      with the reference's parameters carried across.  Plus the
      engine's refusals, and the CLI.
 
@@ -283,6 +284,43 @@ def test_smoke_ring_window_crossing(gemma2):
         gemma2.check(r.rid, r)
 
 
+@pytest.fixture(scope="module")
+def gemma2_capped():
+    jcfg, jm = smoke_model("gemma2-27b", dtype="float32",
+                           param_dtype="float32")
+    return Served(jcfg, jm, [70, 76, 73, 71], 8, 3, 2, 80)
+
+
+def test_bucket_cap_binds_at_a_cache_length_not_a_power_of_two(
+        gemma2_capped):
+    """gemma2 smoke (window 64) behind ``cache_len`` 80, which is not a
+    power of two: prompts of 70-76 tokens round to the 128 bucket, which
+    the cap holds at 80, and each window layer's 80-entry prefill cache
+    becomes a 64-slot ring at insert, from the request's true length.
+    Every stream (its budget clamped to 80 - prompt) is the JAX
+    engine's, token for token, with logits within 1e-5 of the largest
+    of the reference's (one full forward over prompt and stream), and
+    is held to its solo ``serve_batch`` run by the parity rule."""
+    g = gemma2_capped
+    eng = g.engine(num_slots=2, cache_len=80)
+    res = eng.serve(g.prompts, max_tokens=8)
+    assert {n for _, n in eng.prefill_seconds} == {80}
+    assert eng.scheduler.bucket_of(76) == 80 < 128
+    for r in res:
+        assert r.num_tokens == min(8, 80 - r.prompt_len)
+        assert r.tokens == g.jax_streams[r.rid]
+        want = g.jax_logits(r.rid, r.tokens)
+        err = float(np.abs(r.logits.numpy() - want).max())
+        assert err <= RTOL * float(np.abs(want).max()), err
+        # the solo run is longer (serve_batch has no cache cap): its
+        # first num_tokens tokens
+        info = compare_stream(r.tokens, r.logits, g.refs[r.rid],
+                              g.ref_logits[r.rid])
+        assert info["explained"], info
+        assert info["max_diff"] <= RTOL * float(
+            g.ref_logits[r.rid].abs().max()), info
+
+
 # -- refusals ---------------------------------------------------------------
 def test_engine_refusals(tiny):
     from repro_torch.configs.base import RGLRU
@@ -371,6 +409,26 @@ def test_chip_smoke_serving_phases_on_cpu():
         len(v) for v in m["prefill_ms_by_bucket"].values())
     w, _ = chip_smoke.phase_window(device="cpu")
     assert w["streams"] == 6 and w["tokens"] == 48
+
+
+def test_chip_smoke_gemma2_serving_phase_on_cpu():
+    """chip_smoke.py's gemma2_serve phase, rehearsed on the CPU at the
+    smoke's widths in float32 (window 64): ``cache_len`` 80, two prompts
+    past the window (their bucket capped at 80, their window layers
+    turned to rings at insert) among four short ones; the held streams
+    are passed by index, the last long prompt's among them."""
+    import chip_smoke
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("gemma2-27b").replace(dtype="float32",
+                                          param_dtype="float32")
+    row, launches = chip_smoke.phase_gemma2_serving(
+        device="cpu", cfg=cfg, cache_len=80, long=(70, 76), short_max=40,
+        n_short=4, max_tokens=4)
+    assert row["requests"] == row["completed_budget"] == 6
+    assert row["tokens"] == 24 and launches == 0
+    assert row["prompt_lens_past_window"] == [70, 76]
+    assert row["held_to_serial"] == [0, 1, 5]
+    assert "80" in row["buckets"]
 
 
 def test_launch_serve_recurrent_takes_the_serial_path(capsys):
