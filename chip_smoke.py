@@ -42,8 +42,11 @@ non-zero before printing a result):
                 tile): (k) the encoder (8, 1500 x 1500), (l) cross
                 attention (8, 64 x 1500) and (l') the same in float32;
                 gemma2-27b's engine buckets (b') 8 x 512 and (b'') 1 x
-                5120 (window 4096, soft-cap 50), and (j') deepseek's
-                train forward (4, 512) writing the row LSE;
+                5120 (window 4096, soft-cap 50), (j') deepseek's
+                train forward (4, 512) writing the row LSE, and the same
+                at one batch row of gemma2_train's step (1, 8192, 32:16,
+                soft-cap 50): (b4) a local layer (window 4096) and (b5)
+                a global one;
                 the RG-LRU scan at the recurrentgemma-2b prefill, at a
                 ragged S = 1000 and in float32, bit for bit; the WKV
                 recurrence at the rwkv6-7b prefill, from a nonzero
@@ -180,7 +183,9 @@ non-zero before printing a result):
                 (1, 1024, dh 128, causal), and recurrentgemma's local
                 attention at dh 256 (10:1, window 2048) at (4, 512) and
                 (1, 4096), stablelm-3b's (dh 80) and deepseek-moe-16b's
-                (4, 512, 16:16) train shapes, identical run to run,
+                (4, 512, 16:16) train shapes and one batch row of
+                gemma2_train's (1, 8192, 32:16, soft-cap 50) at a local
+                layer (window 4096) and a global one, identical run to run,
                 timed beside its bound and the backward of one SDPA
                 call (an explicit window
                 mask where the window is shorter than S); then
@@ -228,7 +233,14 @@ non-zero before printing a result):
                 MoE blocks at capacity factor 1.25) the same way, 12 K3
                 and 18 N1 launches a step, and one of its steps taken
                 twice from one set of masters on one batch: the loss
-                and every gradient leaf equal bit for bit.
+                and every gradient leaf equal bit for bit; then
+                gemma2-27b cut to 4 of its 46 layers
+                (``GEMMA2_TRAIN_LAYERS``: 2 local, 2 global) at B 2 x S
+                8192, its own context, the same way: the 4096-key window
+                binds in K3 and N1 under soft-cap 50, the head's 16
+                chunks are soft-capped at 30, the tied embedding's
+                gradient sums the lookup's and the chunks'; 8 K3 and 12
+                N1 launches a step, the repeated step bit for bit.
   10. dryrun  : the port's dry-run on the meta device (no kernel
                 launch; host time): one arch per family (phi4-mini,
                 mixtral, recurrentgemma, whisper) x the four input
@@ -237,7 +249,8 @@ non-zero before printing a result):
                 seconds of its terms, the skips equal to ``SKIPS``; then
                 lm_train's exact steps (phi4-mini, recurrentgemma-2b,
                 rwkv6-7b's 12-layer cut, stablelm-3b, deepseek-moe-16b's
-                6-layer cut; B 4 x S 512, remat, AdamW,
+                6-layer cut at B 4 x S 512, gemma2-27b's 4-layer cut at B
+                2 x S 8192; remat, AdamW,
                 float32 masters) on a one-device mesh, predicted beside
                 that phase's measured step ms and peak memory (the
                 params, gradients and AdamW state it predicts may not
@@ -695,9 +708,12 @@ def phase_attention():
     same in float32; then gemma2-27b's engine buckets (window 4096,
     soft-cap 50): (b') the (8, 512) bucket of its short prompts and
     (b'') the (1, 5120) bucket, capped at the engine's cache length,
-    of a prompt past the window; and (j') deepseek-moe-16b's train
+    of a prompt past the window; (j') deepseek-moe-16b's train
     forward (4, 512), which also writes the row LSE for N1 (held to
-    ``ref.attention_plain``'s within ``LSE_TOL``).  The library
+    ``ref.attention_plain``'s within ``LSE_TOL``), and the same with
+    LSE at one batch row of gemma2_train's step (1, 8192, 32:16,
+    soft-cap 50): (b4) a local layer, window 4096, and (b5) a global
+    one.  The library
     yardstick is SDPA's fastest backend under the explicit causal+window
     mask where there is a window, and under ``is_causal`` where the
     window is absent or covers S (then the mask IS the causal mask), and
@@ -747,7 +763,13 @@ def phase_attention():
         ("b3_gemma2_bucket_1x5120", 1, 5120, 5120, 32, 16, 128,
          torch.bfloat16, 4096, 50.0, False, True, False),
         ("j2_deepseek_train_lse", 4, 512, 512, 16, 16, 128, torch.bfloat16,
-         0, 0.0, True, True, True)]
+         0, 0.0, True, True, True),
+        # one batch row of gemma2_train's forward (and recompute), LSE
+        # out: a local layer (window 4096 binding at S 8192), a global one
+        ("b4_gemma2_train_local_lse", 1, 8192, 8192, 32, 16, 128,
+         torch.bfloat16, 4096, 50.0, False, True, True),
+        ("b5_gemma2_train_global_lse", 1, 8192, 8192, 32, 16, 128,
+         torch.bfloat16, 0, 50.0, False, True, True)]
     rows, worst = [], 0.0
     for (label, B, S, Skv, H, KV, dh, dt, window, cap, lib, causal,
          lse) in cases:
@@ -2378,8 +2400,10 @@ def lm_backward_rows():
     heads), recurrentgemma's local attention at dh 256 (10:1, window
     2048) at its train shape (4, 512) and at (1, 4096), where the window
     is shorter than S, stablelm-3b's train shape at its native head
-    dim 80 (4, 512, MHA 32:32) and deepseek-moe-16b's (4, 512, MHA
-    16:16, dh 128): within the forward's tolerances of the
+    dim 80 (4, 512, MHA 32:32), deepseek-moe-16b's (4, 512, MHA
+    16:16, dh 128) and one batch row of gemma2_train's (1, 8192, 32:16,
+    dh 128, soft-cap 50) at a local layer (window 4096) and a global
+    one: within the forward's tolerances of the
     largest |gradient|, identical run to run; kernel, plain and library times
     beside the bound (SDPA under an explicit window mask where the
     window is shorter than S, null where no backend takes that).  The
@@ -2412,7 +2436,13 @@ def lm_backward_rows():
         ("stablelm_train", 4, 512, 512, 32, 32, 80, torch.bfloat16, 0, 0.0,
          True),
         ("deepseek_train", 4, 512, 512, 16, 16, 128, torch.bfloat16, 0,
-         0.0, True)]
+         0.0, True),
+        # one batch row of gemma2_train's step: a local layer (the window
+        # binds) and a global one, both soft-capped
+        ("gemma2_train_local", 1, 8192, 8192, 32, 16, 128, torch.bfloat16,
+         4096, 50.0, True),
+        ("gemma2_train_global", 1, 8192, 8192, 32, 16, 128, torch.bfloat16,
+         0, 50.0, True)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
@@ -2724,10 +2754,26 @@ def _lm_counts():
             "wkv6_backward": wk.bwd_launches}
 
 
-def lm_full_train(cfg, smi, steps=8):
+def lm_train_data(cfg, S):
+    """lm_full_train's token rows: 48 training sequences of S + 1 tokens
+    from a seeded random bigram process over ``cfg``'s vocabulary."""
+    from repro_torch.data import synthetic
+    return synthetic.tokens(n_seqs=64, seq_len=S + 1, vocab=cfg.vocab_size,
+                            seed=1)["train"]
+
+
+def first_lm_batch(data, B):
+    """The first batch lm_full_train's data loader yields, on the card."""
+    from repro_torch.data import TokenDataset
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            next(iter(TokenDataset(data).batches(B, steps=1))).items()}
+
+
+def lm_full_train(cfg, smi, steps=8, B=4, S=512):
     """``launch.train.train_lm`` on ``cfg`` at full width: bf16 compute
     on float32 masters (random weights from a seeded generator), AdamW,
-    remat, B 4 x S 512, ``steps`` steps, warmup 2, lr 3e-4.  Exact
+    remat, B x S tokens a step (4 x 512 unless given), ``steps`` steps,
+    warmup 2, lr 3e-4.  Exact
     launches a step (``train_launches``), losses finite, the first about
     ln(vocab) (near-uniform logits): within [ln V rounded to 0.01, that
     + 1.79] ([12.21, 14] at phi4-mini's 200,064), and falling: the first
@@ -2738,7 +2784,7 @@ def lm_full_train(cfg, smi, steps=8):
     as before, the last step's loss below the first.  Returns (the
     trained masters, the launches, the row)."""
     from repro_torch.configs import TrainConfig
-    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.data import TokenDataset
     from repro_torch.launch.train import train_lm
     from repro_torch.models import Model, transformer
     from repro_torch.tree_util import tree_leaves
@@ -2747,10 +2793,9 @@ def lm_full_train(cfg, smi, steps=8):
     params = transformer.tree_of(module)
     del module
     n_params = sum(t.numel() for t in tree_leaves(params))
-    tcfg = TrainConfig(batch_size=4, seq_len=512, steps=steps,
+    tcfg = TrainConfig(batch_size=B, seq_len=S, steps=steps,
                        warmup_steps=2, learning_rate=3e-4)
-    data = synthetic.tokens(n_seqs=64, seq_len=513, vocab=cfg.vocab_size,
-                            seed=1)["train"]
+    data = lm_train_data(cfg, S)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_lm_counts()
@@ -2759,10 +2804,8 @@ def lm_full_train(cfg, smi, steps=8):
     torch.cuda.synchronize()
     got = _lm_counts()
     peak = torch.cuda.max_memory_allocated()
-    first = next(iter(TokenDataset(data).batches(4, steps=1)))
     with torch.no_grad():
-        again = float(model.loss(out["params"], {
-            k: torch.from_numpy(v).cuda() for k, v in first.items()}))
+        again = float(model.loss(out["params"], first_lm_batch(data, B)))
     L = cfg.num_layers
     want = {k: n * steps for k, n in train_launches(cfg).items()}
     if got != want:
@@ -2772,10 +2815,10 @@ def lm_full_train(cfg, smi, steps=8):
     step_ms = [1e3 * (b - a) for a, b in zip(secs, secs[1:])]
     med = float(np.median(step_ms[-6:]))
     row = {"arch": cfg.name, "layers": L, "params": n_params,
-           "dtype": cfg.dtype, "B": 4, "S": 512, "steps": steps,
+           "dtype": cfg.dtype, "B": B, "S": S, "steps": steps,
            "losses": losses, "first_batch_loss_after": again,
            "step_ms": step_ms, "step_ms_median_last6": med,
-           "tokens_per_s": 4 * 512 / med * 1e3, "peak_mem_bytes": peak,
+           "tokens_per_s": B * S / med * 1e3, "peak_mem_bytes": peak,
            "launches_per_step": {k: v // steps for k, v in got.items()},
            "card": smi}
     log("[lm-train] " + json.dumps(row))
@@ -3177,30 +3220,30 @@ LM_KERNEL_NAMES = ("flash_attention_wgmma", "bwd_dot", "bwd_dkdv", "bwd_dq",
                    "wkv6_kernel", "wkv6_bwd")
 
 
-def lm_profile_steps(cfg, params, steps=2):
+def lm_profile_steps(cfg, params, steps=2, B=4, S=512):
     """``--profile``: where a full-width train step's time goes (one
-    warm step, then ``steps`` profiled), from the trained masters; the
-    LM kernels' ranks among the step's device costs."""
+    warm step, then ``steps`` profiled, B x S tokens each), from the
+    trained masters; the LM kernels' ranks among the step's device
+    costs."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core.distill import make_train_step
-    from repro_torch.data import TokenDataset, synthetic
+    from repro_torch.data import TokenDataset
     from repro_torch.models import Model
-    tcfg = TrainConfig(batch_size=4, seq_len=512, steps=8, warmup_steps=2,
+    tcfg = TrainConfig(batch_size=B, seq_len=S, steps=8, warmup_steps=2,
                        learning_rate=3e-4)
     step, opt = make_train_step(Model(cfg), tcfg)
     state = opt.init(params)
-    data = synthetic.tokens(n_seqs=64, seq_len=513, vocab=cfg.vocab_size,
-                            seed=1)["train"]
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-               for b in TokenDataset(data).batches(4, steps=steps + 1)]
+               for b in TokenDataset(lm_train_data(cfg, S)).batches(
+                   B, steps=steps + 1)]
     step(params, state, batches[0])
 
     def run():
         for b in batches[1:]:
             step(params, state, b)
 
-    _profiled(f"lm_train_{cfg.name}_L{cfg.num_layers}_x{steps}", run,
-              watch=LM_KERNEL_NAMES)
+    _profiled(f"lm_train_{cfg.name}_L{cfg.num_layers}_{B}x{S}_x{steps}",
+              run, watch=LM_KERNEL_NAMES)
 
 
 RWKV_TRAIN_LAYERS = 12   # rwkv6-7b's cut: 32 layers' masters, gradients
@@ -3221,6 +3264,25 @@ def deepseek_train_config():
     from repro_torch.configs import get_config
     return get_config("deepseek-moe-16b").replace(
         num_layers=DEEPSEEK_TRAIN_LAYERS)
+
+
+# gemma2-27b's cut: 2 local and 2 global layers, trained at its own
+# 8192-token context.  The dry-run (remat, AdamW, float32 masters, one
+# device) prices 4 layers (2.765 B parameters, 44.24 GB of state) at a
+# 67.84 GB peak, 6 layers (3.558 B, 56.93 GB) at 80.52 and 8 (4.351 B,
+# 69.61 GB) at 93.20, at (1, 8192) and (2, 8192) alike: AdamW's
+# float32 temporaries of the 1.18 B-element tied embedding set the
+# peak, not the activations
+GEMMA2_TRAIN_LAYERS = 4
+GEMMA2_TRAIN_B, GEMMA2_TRAIN_S = 2, 8192
+
+
+def gemma2_train_config():
+    """gemma2-27b at ``GEMMA2_TRAIN_LAYERS`` of its 46 layers, its own
+    pattern (local window 4096, global) repeated, soft-caps 50 and 30,
+    tied embeddings, post-norms and full widths."""
+    from repro_torch.configs import get_config
+    return get_config("gemma2-27b").replace(num_layers=GEMMA2_TRAIN_LAYERS)
 
 
 def train_step_repeat(model, params, batch, remat=True):
@@ -3249,65 +3311,83 @@ def train_step_repeat(model, params, batch, remat=True):
                 bool(torch.isfinite(g).all()) for g in g1.values())}
 
 
-def deepseek_train(smi):
-    """deepseek-moe-16b cut to ``DEEPSEEK_TRAIN_LAYERS`` trained at full
-    width through ``lm_full_train`` (8 steps of B 4 x S 512, AdamW,
-    remat, bf16 on float32 masters, capacity factor 1.25: its dispatch
-    and combine gathers, their backwards, the stacked experts' bmm
-    backward and the aux loss's gradient into the router on the card),
-    then one step's loss and gradients taken twice from the trained
-    masters on the first batch (``train_step_repeat``): equal bit for
-    bit.  ``lm_full_train`` holds the launches a step to
-    ``train_launches`` (12 K3 and 18 N1 at 6 layers), the repeat to
-    twice that.  Prints one summary line.  Returns (the train row, the
-    launches of both runs, each counted from 0)."""
+def cut_train(smi, cfg, tag, B=4, S=512):
+    """``cfg`` (a depth cut) trained at full width through
+    ``lm_full_train`` (8 steps of B x S, AdamW, remat, bf16 on float32
+    masters), then one step's loss and gradients taken twice from the
+    trained masters on the first batch (``train_step_repeat``): equal
+    bit for bit.  ``lm_full_train`` holds the launches a step to
+    ``train_launches``, the repeat to twice that.  Prints one ``[tag]``
+    summary line.  Returns (the train row, the launches of both runs,
+    each counted from 0)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import TokenDataset, synthetic
     from repro_torch.models import Model
-    cfg = deepseek_train_config()
-    params, counts, row = lm_full_train(cfg, smi)
-    data = synthetic.tokens(n_seqs=64, seq_len=513, vocab=cfg.vocab_size,
-                            seed=1)["train"]      # lm_full_train's
-    batch = {k: torch.from_numpy(v).cuda() for k, v in
-             next(iter(TokenDataset(data).batches(4, steps=1))).items()}
+    params, counts, row = lm_full_train(cfg, smi, B=B, S=S)
+    batch = first_lm_batch(lm_train_data(cfg, S), B)
     torch.cuda.synchronize()
     _zero_lm_counts()
     rep = train_step_repeat(Model(cfg), params, batch)
     torch.cuda.synchronize()
     rep_counts = _lm_counts()
-    del params
+    del params, batch
     torch.cuda.empty_cache()
     want = {k: 2 * n for k, n in train_launches(cfg).items()}
     per_step = row["launches_per_step"]
     summary = {
         "arch": cfg.name, "layers": cfg.num_layers,
         "of_layers": get_config(cfg.name).num_layers,
-        "params": row["params"],
-        "capacity_factor": cfg.moe.capacity_factor,
+        "params": row["params"], "B": B, "S": S, "steps": row["steps"],
+        "tokens_per_step": B * S,
         "k3_per_step": per_step["flash_attention"],
         "n1_per_step": per_step["flash_attention_backward"],
         "losses_finite": bool(np.isfinite(row["losses"]).all()),
         "first_loss": row["losses"][0],
         "first_batch_loss_after": row["first_batch_loss_after"],
         "step_ms_median_last6": row["step_ms_median_last6"],
+        "tokens_per_s": row["tokens_per_s"],
         "peak_mem_bytes": row["peak_mem_bytes"],
         "repeat_identical": rep["identical"], "repeat_loss": rep["loss"],
         "repeat_grad_leaves": rep["leaves"],
         "repeat_differing_leaves": rep["differing"],
         "repeat_max_diff": rep["max_diff"], "repeat_launches": rep_counts,
+        "layer_kinds": list(cfg.layer_kinds), "window": cfg.window,
+        "attn_softcap": cfg.attn_softcap, "final_softcap": cfg.final_softcap,
+        "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
         "card": smi}
-    log("[deepseek_train] " + json.dumps(summary))
+    log(f"[{tag}] " + json.dumps(summary))
     if rep_counts != want:
         raise AssertionError(f"repeated step launches {rep_counts} != "
                              f"{want}")
     if not rep["finite"]:
         raise AssertionError("non-finite loss or gradient in the repeat")
     if not rep["identical"]:
-        raise AssertionError(f"the MoE train step differs run to run: "
-                             f"{rep['differing']} (max |diff| "
+        raise AssertionError(f"the {cfg.name} train step differs run to "
+                             f"run: {rep['differing']} (max |diff| "
                              f"{rep['max_diff']}), losses {rep['loss']} "
                              f"and {rep['loss_again']}")
     return row, [counts, rep_counts]
+
+
+def deepseek_train(smi):
+    """deepseek-moe-16b cut to ``DEEPSEEK_TRAIN_LAYERS`` through
+    ``cut_train`` (B 4 x S 512, capacity factor 1.25: its dispatch and
+    combine gathers, their backwards, the stacked experts' bmm backward
+    and the aux loss's gradient into the router on the card; 12 K3 and
+    18 N1 launches a step at 6 layers).  Returns ``cut_train``'s."""
+    return cut_train(smi, deepseek_train_config(), "deepseek_train")
+
+
+def gemma2_train(smi):
+    """gemma2-27b cut to ``GEMMA2_TRAIN_LAYERS`` through ``cut_train`` at
+    B 2 x S 8192, gemma2's own context: on the local layers the 4096-key
+    window binds in K3 (forward and recompute, with the row LSE) and in
+    N1, both under soft-cap 50; the head runs 16 chunks soft-capped at
+    30, and the tied embedding's gradient sums the lookup's backward and
+    the chunks' products.  8 K3 and 12 N1 launches a step at 4 layers;
+    the first loss within [12.45, 14.24] (ln 256,000 rounded, + 1.79).
+    Returns ``cut_train``'s."""
+    return cut_train(smi, gemma2_train_config(), "gemma2_train",
+                     B=GEMMA2_TRAIN_B, S=GEMMA2_TRAIN_S)
 
 
 def recurrent_train_configs():
@@ -3329,7 +3409,11 @@ def phase_lm_train(smi, profile=False):
     trained at full width, and, once their parameters are freed,
     stablelm-3b at full width (N1 at its head dim 80), then
     deepseek-moe-16b cut to ``DEEPSEEK_TRAIN_LAYERS`` (``deepseek_train``:
-    its MoE backward on the card, one step repeated bit for bit).  Returns (the
+    its MoE backward on the card, one step repeated bit for bit), then,
+    once its masters are freed, gemma2-27b cut to
+    ``GEMMA2_TRAIN_LAYERS`` at B 2 x S 8192 (``gemma2_train``: the
+    window and soft-caps on a train path, one step repeated bit for
+    bit).  Returns (the
     backward rows {"n1", "n2a", "n2b"}, their worst errors, the main
     path's launches, the measured rows of the full-width train and label
     steps)."""
@@ -3372,6 +3456,9 @@ def phase_lm_train(smi, profile=False):
     measured["deepseek-moe-16b"], ds_runs = deepseek_train(smi)
     runs += ds_runs
     log(f"[lm_train] deepseek-moe-16b training at {time.time() - t0:.1f} s")
+    measured["gemma2-27b"], g2_runs = gemma2_train(smi)
+    runs += g2_runs
+    log(f"[lm_train] gemma2-27b training at {time.time() - t0:.1f} s")
     # the main path's launches: the sum of the runs above, each counted
     # from 0 just before it and read just after, so that no launch made
     # to compare a kernel with its plain version is in it
@@ -3426,9 +3513,10 @@ def dryrun_pairs(smi, archs=DRYRUN_ARCHS):
         raise AssertionError(f"dry-run skips {skipped} != SKIPS {want}")
 
 
-def dryrun_train(smi, measured, cfg):
-    """lm_train's exact step of ``cfg`` on a one-device mesh, predicted
-    beside the phase's measured row.  Raises if the params, gradients
+def dryrun_train(smi, measured, cfg, B=4, S=512):
+    """lm_train's exact step of ``cfg`` (B x S tokens) on a one-device
+    mesh, predicted beside the phase's measured row.  Raises if the
+    params, gradients
     and AdamW state it predicts exceed the measured peak, or if the
     calls it predicts of any kernel (K3, N1, K4, N2a, K5, N2b: each
     call's launches as the wrappers count them) differ from the
@@ -3441,10 +3529,10 @@ def dryrun_train(smi, measured, cfg):
     from repro_torch.launch import analysis, dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import Model
-    # lm_full_train's step: B 4 x S 512, remat, AdamW, float32 masters
-    tcfg = TrainConfig(batch_size=4, seq_len=512, steps=8, warmup_steps=2,
+    # lm_full_train's step: B x S, remat, AdamW, float32 masters
+    tcfg = TrainConfig(batch_size=B, seq_len=S, steps=8, warmup_steps=2,
                        learning_rate=3e-4)
-    rec = dryrun.price(cfg.name, InputShape("lm_train", 512, 4, "train"),
+    rec = dryrun.price(cfg.name, InputShape("lm_train", S, B, "train"),
                        Mesh(("data",), (1,)), "local_1", cfg=cfg, tcfg=tcfg)
     n = analysis.count_params(Model(cfg).init_shapes(), exclude_embed=False)
     state = 4 * 4 * n          # float32 params, gradients, mu and nu
@@ -3454,7 +3542,7 @@ def dryrun_train(smi, measured, cfg):
                 "wkv6_backward": wk.BWD_KERNELS}
     predicted = {k: per_call.get(k, 1) * v["calls"]
                  for k, v in calls.items()}
-    row = {"arch": cfg.name, "layers": cfg.num_layers, "B": 4, "S": 512,
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "B": B, "S": S,
            "predicted": {k: rec[k] for k in (
                "t_compute", "t_memory", "flops_per_device",
                "bytes_per_device", "resident_bytes",
@@ -3523,9 +3611,9 @@ def dryrun_label(smi, measured):
 def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     """Phase 10 (after lm_train, whose measured rows it reads): every
     pair of ``archs``, then the train step of phi4-mini, recurrentgemma,
-    rwkv6's cut, stablelm-3b and deepseek-moe-16b's cut and the label
-    step beside their measured rows (peak memory and launches a
-    step)."""
+    rwkv6's cut, stablelm-3b, deepseek-moe-16b's cut and gemma2-27b's
+    cut (at its B 2 x S 8192) and the label step beside their measured
+    rows (peak memory and launches a step)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     dryrun_pairs(smi, archs)
@@ -3535,6 +3623,9 @@ def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     for cfg in (*recurrent_train_configs(), get_config("stablelm-3b"),
                 deepseek_train_config()):
         train.append(dryrun_train(smi, measured[cfg.name], cfg))
+    train.append(dryrun_train(smi, measured["gemma2-27b"],
+                              gemma2_train_config(), B=GEMMA2_TRAIN_B,
+                              S=GEMMA2_TRAIN_S))
     label = dryrun_label(smi, measured["label"])
     log(f"[dryrun] train and label at {time.time() - t0:.1f} s")
     return train, label

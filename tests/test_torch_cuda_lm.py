@@ -1,9 +1,9 @@
 """The LM training path on the card: the flash-attention backward kernel
-(N1, dh 80 and 256 included) against its plain version, the forward's row
-log-sum-exp, launch counts of a train step, the recurrences' backward
-kernels (N2a, N2b) against theirs, the recurrent smokes fitting on
-the card, and deepseek-moe's smoke train step (picks dropping) repeated
-bit for bit.
+(N1, dh 80 and 256 included, and at gemma2-27b's train shape) against
+its plain version, the forward's row log-sum-exp, launch counts of a
+train step, the recurrences' backward kernels (N2a, N2b) against
+theirs, the recurrent smokes fitting on the card, and deepseek-moe's
+smoke train step (picks dropping) repeated bit for bit.
 
 Run on a GPU host with
 ``python -m pytest -q -m cuda tests/test_torch_cuda_lm.py``; elsewhere
@@ -83,6 +83,36 @@ def test_forward_lse_matches_plain(cuda, dtype, dh):
         assert torch.equal(o, o2)      # the LSE changes nothing else
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
         assert float((lse - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("window", [4096, 0], ids=["local", "global"])
+def test_gemma2_train_shape_matches_plain(cuda, window):
+    """One batch row of chip_smoke's gemma2_train step, (1, 8192, 32:16,
+    dh 128, bf16, soft-cap 50), at a local layer (the 4096-key window
+    binds) and a global one: K3's output within 2e-2 of
+    ``ref.attention_ref`` and its LSE within 1e-2 of
+    ``ref.attention_plain``'s; N1's gradients within 2e-2 of the largest
+    |gradient| of ``ref.attention_backward_plain``, identical run to
+    run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v, do = _qkv(cuda, 1, 8192, 32, 16, 128, torch.bfloat16, seed=29)
+    kw = dict(causal=True, window=window, softcap=50.0)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want_o = ref.attention_ref(q, k, v, **kw)
+    assert torch.allclose(o.float(), want_o.float(), atol=2e-2, rtol=2e-2)
+    del want_o
+    want_lse = ref.attention_plain(q, k, v, return_lse=True, **kw)[1]
+    assert float((lse - want_lse).abs().max()) <= 1e-2
+    del want_lse
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= 2e-2 * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

@@ -435,11 +435,13 @@ def test_meta_recurrences():
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "stablelm-3b", "deepseek-moe-16b"])
+                                  "stablelm-3b", "deepseek-moe-16b",
+                                  "gemma2-27b"])
 def test_chip_smoke_train_launches_match_the_dry_run(arch):
     """chip_smoke's ``train_launches`` (read from the layer pattern) and
     the dry-run's predicted calls of K3, N1, K4, N2a, K5 and N2b agree
-    for the recurrent smokes', stablelm's and deepseek-moe's train step:
+    for the recurrent smokes', stablelm's, deepseek-moe's and gemma2's
+    train step:
     ``dryrun_train`` raises where they differ, as it does on the card
     against the counted launches."""
     import chip_smoke
@@ -454,7 +456,7 @@ def test_chip_smoke_train_launches_match_the_dry_run(arch):
     if arch == "rwkv6-7b":
         assert want["wkv6"] == 2 * len(kinds)
         assert want["wkv6_backward"] == 3 * len(kinds)
-    elif arch in ("stablelm-3b", "deepseek-moe-16b"):
+    elif arch in ("stablelm-3b", "deepseek-moe-16b", "gemma2-27b"):
         assert want["flash_attention"] == 2 * len(kinds)
         assert want["flash_attention_backward"] == 3 * len(kinds)
         assert want["rglru_scan"] == want["wkv6"] == 0
@@ -491,6 +493,63 @@ def test_deepseek_train_cut_fits_one_card_by_the_dry_run():
                         "flash_attention_backward": 3 * L}
     assert got <= 72e9, got
     assert peak(get_config("deepseek-moe-16b"))[0] > analysis.HBM_BYTES
+
+
+def test_gemma2_train_cut_fits_one_card_by_the_dry_run():
+    """chip_smoke's gemma2-27b cut (``gemma2_train_config``) priced at
+    gemma2_train's step (B 2 x S 8192, remat, AdamW, float32 masters) on
+    one device: 4 layers, the full config's first 4 kinds (2 local, 2
+    global) at full width with window 4096, both soft-caps and tied
+    embeddings; 8 K3 calls and 12 N1 launches a step; a predicted peak
+    of at most 72 GB; all 46 layers' over the card's 80 GB."""
+    import chip_smoke
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL
+    full = get_config("gemma2-27b")
+    cut = chip_smoke.gemma2_train_config()
+    B, S = chip_smoke.GEMMA2_TRAIN_B, chip_smoke.GEMMA2_TRAIN_S
+    assert (B, S) == (2, 8192)
+    assert cut.num_layers == chip_smoke.GEMMA2_TRAIN_LAYERS == 4
+    assert cut.layer_kinds == full.layer_kinds[:4]
+    assert cut.layer_kinds.count(ATTN_LOCAL) == \
+        cut.layer_kinds.count(ATTN) == 2
+    assert cut.replace(num_layers=full.num_layers) == full
+
+    def price(cfg):
+        want = chip_smoke.train_launches(cfg)
+        row = chip_smoke.dryrun_train("cpu", {
+            "step_ms_median_last6": 1.0, "peak_mem_bytes": 1 << 40,
+            "launches_per_step": want}, cfg, B=B, S=S)
+        assert (row["B"], row["S"]) == (B, S)
+        return row["predicted"]["peak_memory_bytes"], \
+            row["predicted_launches_per_step"]
+
+    got, launches = price(cut)
+    assert launches == {"flash_attention": 8, "flash_attention_backward": 12}
+    assert got <= 72e9, got
+    assert price(full)[0] > analysis.HBM_BYTES
+
+
+def test_adamw_on_the_tied_embedding_sets_the_gemma2_cut_peak():
+    """``tools/train_peak.py`` at gemma2_train's cut and step: the peak
+    of live storages is reached inside AdamW's update (at the root of
+    v / c2) with six embedding-sized float32 storages alive (its
+    gradient, the new m and v, m / c1, v / c2, the root): all gradients
+    plus those five temporaries, whatever B x S is."""
+    import sys
+    from pathlib import Path
+
+    import chip_smoke
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import train_peak
+    cfg = chip_smoke.gemma2_train_config()
+    table = 4 * cfg.vocab_size * cfg.d_model
+    for B, S in ((chip_smoke.GEMMA2_TRAIN_B, chip_smoke.GEMMA2_TRAIN_S),
+                 (4, 512)):
+        n, peak, op, sizes, stack = train_peak.peak_op(cfg, B, S)
+        assert op == "aten.sqrt.default"
+        assert any("optim/optimizers.py" in line for line in stack)
+        assert sizes[:6] == [table] * 6 and sizes[6] < table
+        assert 0 <= peak - (4 * n + 5 * table) < 1e6     # + scalars
 
 
 # ---------------------------------------------------------------------------

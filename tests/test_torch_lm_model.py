@@ -146,6 +146,27 @@ def test_chunked_head_matches_reference(S):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_gemma2_loss_and_grads_past_its_window_match_reference():
+    """The gemma2 smoke at B 1 x S 1024, as gemma2_train runs gemma2-27b
+    at its own context: its window 64 binds on the local layer, both
+    soft-caps (attention 50, head 30) and the tied embedding are on, and
+    the head runs two ``HEAD_CHUNK`` chunks, each recomputed in the
+    backward.  Loss within 1e-6 relative and gradients (remat) within
+    1e-5 of each leaf's largest |gradient| of ``jax.grad`` of the
+    reference's loss."""
+    from repro_torch.models import transformer
+    cfg, model, tree, jm, jp, batch = _setup("gemma2-27b", B=1, S=1024)
+    assert cfg.window == 64 and "attn_local" in cfg.layer_kinds
+    assert cfg.attn_softcap == 50.0 and cfg.final_softcap == 30.0
+    assert cfg.tie_embeddings and "lm_head" not in tree
+    assert transformer._chunks(1024) == (2, transformer.HEAD_CHUNK)
+    loss, grads = _grads(model, tree, batch, remat=True)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jm.loss(p, _jbatch(batch), remat=True))(jp)
+    assert abs(float(loss.detach()) - float(jloss)) <= 1e-6 * abs(float(jloss))
+    _close_grads(cfg, grads, jgrads, 1e-5)
+
+
 @pytest.mark.parametrize("name", RECURRENT_ARCHS)
 def test_recurrent_grads_on_cpu_match_reference(name):
     """On the CPU the recurrent archs train through the plain

@@ -265,6 +265,48 @@ def test_moe_train_step_with_drops_matches_reference_and_repeats():
     assert all(torch.equal(p1[n], p2[n]) for n in p1)
 
 
+def test_gemma2_train_step_past_its_window_matches_reference_and_repeats():
+    """The gemma2 smoke in float32 (window 64, soft-caps 50 and 30, tied
+    embeddings) trained as chip_smoke's gemma2_train trains gemma2-27b's
+    cut, at rows longer than its window (B 2 x S 256): two
+    ``make_train_step`` steps (AdamW, remat) against the reference's
+    from its init carried across, loss, gradient norm and learning rate
+    within 1e-5 relative at each step; then one step's loss and
+    gradients taken twice from that init on one batch
+    (``chip_smoke.train_step_repeat``): equal bit for bit."""
+    import chip_smoke
+    from conftest import smoke_model
+    jcfg = smoke_model("gemma2-27b", dtype="float32",
+                       param_dtype="float32")[0]
+    jm, cfg = JModel(jcfg), port_config(jcfg)
+    assert cfg.window == 64 and cfg.tie_embeddings
+    model = Model(cfg)
+    kw = dict(batch_size=2, seq_len=256, steps=2, learning_rate=3e-3,
+              warmup_steps=1)
+    jstep, jopt = jdistill.make_train_step(jm, JTrainConfig(**kw))
+    step, opt = distill.make_train_step(model, TrainConfig(**kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    params = lm_tree_from_reference(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    init = tree_map(torch.clone, params)
+    data = synthetic.tokens(n_seqs=16, seq_len=257, vocab=cfg.vocab_size,
+                            seed=5)["train"]
+    jbatches = list(pipeline.TokenDataset(data, 0).batches(2, steps=2))
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in jbatches]
+    jstate, state = jopt.init(jp), opt.init(params)
+    jstep = jax.jit(jstep)
+    for jb, b in zip(jbatches, batches):
+        jp, jstate, jm_ = jstep(jp, jstate, {k: jnp.asarray(v)
+                                             for k, v in jb.items()})
+        params, state, m = step(params, state, b)
+        for name in ("loss", "grad_norm", "lr"):
+            want = float(jm_[name])
+            assert abs(float(m[name]) - want) <= 1e-5 * abs(want), name
+    rep = chip_smoke.train_step_repeat(model, init, batches[0])
+    assert rep["identical"] and rep["finite"], rep
+    assert rep["leaves"] == len(flatten_tree(init))
+
+
 @pytest.mark.parametrize("vocab,gamma", [(64, 0.0), (64, 0.1),
                                          (4096, 0.0), (4096, 0.5)],
                          ids=["hist", "hist_noise", "sort", "vocab_noise"])
