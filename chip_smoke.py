@@ -46,7 +46,10 @@ non-zero before printing a result):
                 train forward (4, 512) writing the row LSE, and the same
                 at one batch row of gemma2_train's step (1, 8192, 32:16,
                 soft-cap 50): (b4) a local layer (window 4096) and (b5)
-                a global one;
+                a global one; and (r) the float32 recurrentgemma train
+                step's local attention with the LSE (4, 512, 10:1, dh
+                256, window 2048); the float32 rows on the split-TF32
+                kernels, bound by 3 TF32 products a float32 one;
                 the RG-LRU scan at the recurrentgemma-2b prefill, at a
                 ragged S = 1000 and in float32, bit for bit; the WKV
                 recurrence at the rwkv6-7b prefill, from a nonzero
@@ -185,7 +188,10 @@ non-zero before printing a result):
                 (1, 4096), stablelm-3b's (dh 80) and deepseek-moe-16b's
                 (4, 512, 16:16) train shapes and one batch row of
                 gemma2_train's (1, 8192, 32:16, soft-cap 50) at a local
-                layer (window 4096) and a global one, identical run to run,
+                layer (window 4096) and a global one, and in float32
+                (the split-TF32 kernels, within 1e-5 of the largest
+                |gradient|) phi4's, stablelm's and recurrentgemma's
+                train shapes and whisper's (m), identical run to run,
                 timed beside its bound and the backward of one SDPA
                 call (an explicit window
                 mask where the window is shorter than S); then
@@ -241,6 +247,11 @@ non-zero before printing a result):
                 chunks are soft-capped at 30, the tied embedding's
                 gradient sums the lookup's and the chunks'; 8 K3 and 12
                 N1 launches a step, the repeated step bit for bit.
+                Between stablelm and deepseek, recurrentgemma-2b in
+                float32 (26 layers, full width) the same way: K3 and N1
+                on their float32 kernels at dh 256 (16 and 24 launches
+                a step, all counted as float32), K4 and N2a in float32,
+                the repeated step bit for bit.
   10. dryrun  : the port's dry-run on the meta device (no kernel
                 launch; host time): one arch per family (phi4-mini,
                 mixtral, recurrentgemma, whisper) x the four input
@@ -249,8 +260,9 @@ non-zero before printing a result):
                 seconds of its terms, the skips equal to ``SKIPS``; then
                 lm_train's exact steps (phi4-mini, recurrentgemma-2b,
                 rwkv6-7b's 12-layer cut, stablelm-3b, deepseek-moe-16b's
-                6-layer cut at B 4 x S 512, gemma2-27b's 4-layer cut at B
-                2 x S 8192; remat, AdamW,
+                6-layer cut and recurrentgemma-2b in float32 at B 4 x S
+                512, gemma2-27b's 4-layer cut at B 2 x S 8192; remat,
+                AdamW,
                 float32 masters) on a one-device mesh, predicted beside
                 that phase's measured step ms and peak memory (the
                 params, gradients and AdamW state it predicts may not
@@ -266,7 +278,10 @@ non-zero before printing a result):
                 whisper train step (torch.profiler; the host-bound
                 phases after it read slower than without the flag).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (K3's and N1's
+float32 kernels have entries of their own, ``flash_attention_f32`` and
+``flash_attention_backward_f32``; a listed kernel that the main path
+never launched fails the run); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 where torch sees no CUDA device or the repository's sources are absent.
 """
@@ -296,6 +311,8 @@ ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 # K3's row log-sum-exp against the plain version's, absolute (as
 # tests/test_torch_cuda_lm.py holds it)
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# N1's gradients against the plain backward's, of the largest |gradient|
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}    # test_kernels.py
 
 
@@ -353,6 +370,15 @@ def bound(nbytes, nops, ops_per_s=FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attention_bound(nbytes, nops, dt):
+    """K3's and N1's (bound_ms, bound_by) for ``nops`` float32-equivalent
+    operations: bf16 on its tensor cores' peak; float32 in split TF32,
+    three TF32 products a float32 one, on the TF32 tensor cores."""
+    if dt == torch.bfloat16:
+        return bound(nbytes, nops, PEAK_FLOPS)
+    return bound(nbytes, 3 * nops, TF32_FLOPS)
+
+
 def percentile(xs, q):
     return sorted(xs)[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
 
@@ -365,7 +391,8 @@ def same_bits(a, b):
 
 # kernels whose registers and spills get a summary line of their own
 PTXAS_KERNELS = ("flash_attention_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
-                 "bwd_dkdv_wg2", "bwd_dq_wg2", "wkv6_kernel",
+                 "bwd_dkdv_wg2", "bwd_dq_wg2", "flash_attention_tf32",
+                 "bwd_dkdv_tf32", "bwd_dq_tf32", "wkv6_kernel",
                  "wkv6_bwd_chains", "wkv6_bwd_chunk", "rglru_scan_bwd_tma",
                  "rglru_scan_bwd_direct")
 
@@ -769,7 +796,11 @@ def phase_attention():
         ("b4_gemma2_train_local_lse", 1, 8192, 8192, 32, 16, 128,
          torch.bfloat16, 4096, 50.0, False, True, True),
         ("b5_gemma2_train_global_lse", 1, 8192, 8192, 32, 16, 128,
-         torch.bfloat16, 0, 50.0, False, True, True)]
+         torch.bfloat16, 0, 50.0, False, True, True),
+        # recurrentgemma_f32_train's local attention forward (and
+        # recompute), LSE out: float32 at dh 256, 10:1, window 2048
+        ("r_recurrentgemma_train_f32_lse", 4, 512, 512, 10, 1, 256,
+         torch.float32, 2048, 0.0, True, True, True)]
     rows, worst = [], 0.0
     for (label, B, S, Skv, H, KV, dh, dt, window, cap, lib, causal,
          lse) in cases:
@@ -834,8 +865,7 @@ def phase_attention():
         if lse:
             nbytes += 4 * B * H * S
         nops = 4 * B * H * valid_pairs(S, Skv, causal, window) * dh
-        b_ms, b_by = bound(nbytes, nops, PEAK_FLOPS
-                           if dt == torch.bfloat16 else FP32_FLOPS)
+        b_ms, b_by = attention_bound(nbytes, nops, dt)
         row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
                "Skv": Skv, "causal": causal, "H": H, "KV": KV, "dh": dh,
                "launched_dh": fa.padded_head_dim(dh), "dtype": str(dt),
@@ -2285,7 +2315,7 @@ def whisper_train(smi, batch=8, seq=128, steps=8):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     got = _lm_counts()
-    want = {k: n * steps for k, n in train_launches(cfg).items()}
+    want = {k: n * steps for k, n in step_launches(cfg).items()}
     med = float(np.median(step_ms[-6:]))
     row = {"arch": cfg.name, "params": sum(t.numel() for t in
                                            tree_leaves(params)),
@@ -2403,8 +2433,10 @@ def lm_backward_rows():
     dim 80 (4, 512, MHA 32:32), deepseek-moe-16b's (4, 512, MHA
     16:16, dh 128) and one batch row of gemma2_train's (1, 8192, 32:16,
     dh 128, soft-cap 50) at a local layer (window 4096) and a global
-    one: within the forward's tolerances of the
-    largest |gradient|, identical run to run; kernel, plain and library times
+    one; then in float32 (the split-TF32 kernels) phi4's, stablelm's
+    (dh 80) and recurrentgemma's (dh 256) train shapes and whisper's (m):
+    within ``BWD_TOL`` of the largest |gradient| (2e-2 bf16, 1e-5
+    float32), identical run to run; kernel, plain and library times
     beside the bound (SDPA under an explicit window mask where the
     window is shorter than S, null where no backend takes that).  The
     forward's row LSE is held to
@@ -2442,7 +2474,18 @@ def lm_backward_rows():
         ("gemma2_train_local", 1, 8192, 8192, 32, 16, 128, torch.bfloat16,
          4096, 50.0, True),
         ("gemma2_train_global", 1, 8192, 8192, 32, 16, 128, torch.bfloat16,
-         0, 50.0, True)]
+         0, 50.0, True),
+        # float32 (split TF32): phi4's and stablelm's train shapes,
+        # recurrentgemma's (dh 256, window 2048: recurrentgemma_f32_train's
+        # N1) and whisper's (m) encoder
+        ("phi4_train_f32", 4, 512, 512, 24, 8, 128, torch.float32, 0, 0.0,
+         True),
+        ("stablelm_train_f32", 4, 512, 512, 32, 32, 80, torch.float32, 0,
+         0.0, True),
+        ("recurrentgemma_train_f32", 4, 512, 512, 10, 1, 256, torch.float32,
+         2048, 0.0, True),
+        ("m_whisper_encoder_f32", 8, 1500, 1500, 6, 6, 64, torch.float32, 0,
+         0.0, False)]
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     for label, B, S, Skv, H, KV, dh, dt, window, cap, causal in cases:
         q, do = (torch.randn((B, S, H, dh), device="cuda", generator=g)
@@ -2465,7 +2508,7 @@ def lm_backward_rows():
         whole = ref.attention_backward_plain(q, k, v, o_plain, do,
                                              lse_plain, **kw)
         torch.cuda.synchronize()
-        tol, err, rel, whole_rel = ATT_TOL[dt], 0.0, 0.0, 0.0
+        tol, err, rel, whole_rel = BWD_TOL[dt], 0.0, 0.0, 0.0
         for name, a, b, w, p in zip(("dq", "dk", "dv"), got, again, want,
                                     whole):
             if not torch.equal(a, b):
@@ -2492,7 +2535,7 @@ def lm_backward_rows():
         mask = None if covers else ref._mask(
             torch.arange(S, device="cuda"), Skv, causal, window, "cuda")
         lib = None if cap else sdpa_backward_best(
-            q, k, v, do, got, tol, causal=causal, mask=mask,
+            q, k, v, do, got, ATT_TOL[dt], causal=causal, mask=mask,
             required=covers)
         del again, want, whole, o_plain, lse_plain
         ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do,
@@ -2505,8 +2548,7 @@ def lm_backward_rows():
         nbytes = (e * (3 * q.numel() + 2 * (k.numel() + v.numel())
                        + o.numel()) + 4 * lse.numel())
         nops = 10 * B * H * valid_pairs(S, Skv, causal, window) * dh
-        b_ms, b_by = bound(nbytes, nops, PEAK_FLOPS
-                           if dt == torch.bfloat16 else FP32_FLOPS)
+        b_ms, b_by = attention_bound(nbytes, nops, dt)
         row = {"kernel": "flash_attention_backward", "shape": label,
                "B": B, "S": S, "Skv": Skv, "causal": causal, "H": H,
                "KV": KV, "dh": dh, "dtype": str(dt),
@@ -2739,7 +2781,7 @@ def _zero_lm_counts():
     """Sets the launch counts of the LM path's kernels to 0, just before
     a main-path run."""
     fa, va, rg, wk = _lm_modules()
-    fa.launches = fa.bwd_launches = 0
+    fa.launches = fa.bwd_launches = fa.f32_launches = fa.f32_bwd_launches = 0
     rg.launches = rg.bwd_launches = wk.launches = wk.bwd_launches = 0
     va.launches = 0
 
@@ -2749,6 +2791,8 @@ def _lm_counts():
     fa, va, rg, wk = _lm_modules()
     return {"flash_attention": fa.launches,
             "flash_attention_backward": fa.bwd_launches,
+            "flash_attention_f32": fa.f32_launches,
+            "flash_attention_backward_f32": fa.f32_bwd_launches,
             "vote_aggregate": va.launches, "rglru_scan": rg.launches,
             "rglru_scan_backward": rg.bwd_launches, "wkv6": wk.launches,
             "wkv6_backward": wk.bwd_launches}
@@ -2807,7 +2851,7 @@ def lm_full_train(cfg, smi, steps=8, B=4, S=512):
     with torch.no_grad():
         again = float(model.loss(out["params"], first_lm_batch(data, B)))
     L = cfg.num_layers
-    want = {k: n * steps for k, n in train_launches(cfg).items()}
+    want = {k: n * steps for k, n in step_launches(cfg).items()}
     if got != want:
         raise AssertionError(f"train launches {got} != {want}")
     losses = [h["loss"] for h in out["history"]]
@@ -2888,6 +2932,17 @@ def train_launches(cfg):
             "vote_aggregate": 0, "rglru_scan": 2 * rg,
             "rglru_scan_backward": rgs.BWD_KERNELS * rg, "wkv6": 2 * rw,
             "wkv6_backward": wk.BWD_KERNELS * rw}
+
+
+def step_launches(cfg):
+    """``train_launches(cfg)`` with K3's and N1's float32 kernels' share,
+    as ``_lm_counts`` reads it (the ``_f32`` keys): all of their
+    launches in a float32 config, none in a bf16 one."""
+    want = train_launches(cfg)
+    f32 = cfg.dtype == "float32"
+    return dict(want, flash_attention_f32=want["flash_attention"] * f32,
+                flash_attention_backward_f32=f32 * want[
+                    "flash_attention_backward"])
 
 
 # Archs whose float32 smoke is too ill-conditioned for the fixed-sign
@@ -3045,7 +3100,7 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
             row["sgd_max_param_rel_err"] > 1e-4 or adamw_bad:
         raise AssertionError(f"card != CPU training at {arch}: {row}")
     # each step a forward and its recompute (remat) and a backward a layer
-    want = {k: n * steps for k, n in train_launches(cfg).items()}
+    want = {k: n * steps for k, n in step_launches(cfg).items()}
     if counts != want:
         raise AssertionError(f"card training launches {counts} != {want}")
     return counts
@@ -3140,7 +3195,8 @@ def lm_label_step(cfg, smi, members=3, gamma=0.1):
     peak = torch.cuda.max_memory_allocated()
     got = _lm_counts()
     want = {"flash_attention": members * cfg.num_layers,
-            "flash_attention_backward": 0, "vote_aggregate": 1,
+            "flash_attention_backward": 0, "flash_attention_f32": 0,
+            "flash_attention_backward_f32": 0, "vote_aggregate": 1,
             "rglru_scan": 0, "rglru_scan_backward": 0, "wkv6": 0,
             "wkv6_backward": 0}
     if got != want:
@@ -3215,7 +3271,8 @@ def lm_checkpoint_serve(cfg, params, smi, prompt_len=256):
 
 
 # the LM path's kernels, as the profiler names them (their rank is logged)
-LM_KERNEL_NAMES = ("flash_attention_wgmma", "bwd_dot", "bwd_dkdv", "bwd_dq",
+LM_KERNEL_NAMES = ("flash_attention_wgmma", "flash_attention_tf32",
+                   "bwd_dot", "bwd_dkdv", "bwd_dq",
                    "rglru_scan_tma", "rglru_scan_direct", "rglru_scan_bwd",
                    "wkv6_kernel", "wkv6_bwd")
 
@@ -3312,9 +3369,10 @@ def train_step_repeat(model, params, batch, remat=True):
 
 
 def cut_train(smi, cfg, tag, B=4, S=512):
-    """``cfg`` (a depth cut) trained at full width through
-    ``lm_full_train`` (8 steps of B x S, AdamW, remat, bf16 on float32
-    masters), then one step's loss and gradients taken twice from the
+    """``cfg`` (a depth cut, or a whole arch in float32) trained at full
+    width through ``lm_full_train`` (8 steps of B x S, AdamW, remat,
+    ``cfg.dtype`` compute on float32 masters), then one step's loss and
+    gradients taken twice from the
     trained masters on the first batch (``train_step_repeat``): equal
     bit for bit.  ``lm_full_train`` holds the launches a step to
     ``train_launches``, the repeat to twice that.  Prints one ``[tag]``
@@ -3331,10 +3389,10 @@ def cut_train(smi, cfg, tag, B=4, S=512):
     rep_counts = _lm_counts()
     del params, batch
     torch.cuda.empty_cache()
-    want = {k: 2 * n for k, n in train_launches(cfg).items()}
+    want = {k: 2 * n for k, n in step_launches(cfg).items()}
     per_step = row["launches_per_step"]
     summary = {
-        "arch": cfg.name, "layers": cfg.num_layers,
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
         "of_layers": get_config(cfg.name).num_layers,
         "params": row["params"], "B": B, "S": S, "steps": row["steps"],
         "tokens_per_step": B * S,
@@ -3390,6 +3448,25 @@ def gemma2_train(smi):
                      B=GEMMA2_TRAIN_B, S=GEMMA2_TRAIN_S)
 
 
+def recurrentgemma_f32_config():
+    """recurrentgemma-2b whole (26 layers, full width) computing in
+    float32, as every LM FedKT round and card-vs-CPU smoke does: its 8
+    local-attention layers run K3 and N1 in float32 at dh 256 (10:1,
+    window 2048), its 18 RG-LRU layers K4 and N2a in float32.  The
+    dry-run prices the B 4 x S 512 step at 51.27 GB."""
+    from repro_torch.configs import get_config
+    return get_config("recurrentgemma-2b").replace(dtype="float32")
+
+
+def recurrentgemma_f32_train(smi):
+    """``recurrentgemma_f32_config`` through ``cut_train`` at B 4 x S 512:
+    8 steps, then one step repeated bit for bit; 16 K3 and 24 N1
+    launches a step, all of them the float32 kernels'.  Returns
+    ``cut_train``'s."""
+    return cut_train(smi, recurrentgemma_f32_config(),
+                     "recurrentgemma_f32_train")
+
+
 def recurrent_train_configs():
     """The recurrent archs lm_train trains at full width:
     recurrentgemma-2b whole (26 layers) and rwkv6-7b cut to
@@ -3408,6 +3485,8 @@ def phase_lm_train(smi, profile=False):
     their plain versions, recurrentgemma-2b and rwkv6-7b (its cut)
     trained at full width, and, once their parameters are freed,
     stablelm-3b at full width (N1 at its head dim 80), then
+    recurrentgemma-2b in float32 (``recurrentgemma_f32_train``: K3 and N1
+    in float32 at dh 256, one step repeated bit for bit), then
     deepseek-moe-16b cut to ``DEEPSEEK_TRAIN_LAYERS`` (``deepseek_train``:
     its MoE backward on the card, one step repeated bit for bit), then,
     once its masters are freed, gemma2-27b cut to
@@ -3453,6 +3532,10 @@ def phase_lm_train(smi, profile=False):
         del rec_params
         torch.cuda.empty_cache()
         log(f"[lm_train] {cfg.name} training at {time.time() - t0:.1f} s")
+    measured["recurrentgemma-2b-f32"], rf_runs = recurrentgemma_f32_train(smi)
+    runs += rf_runs
+    log(f"[lm_train] recurrentgemma-2b float32 training at "
+        f"{time.time() - t0:.1f} s")
     measured["deepseek-moe-16b"], ds_runs = deepseek_train(smi)
     runs += ds_runs
     log(f"[lm_train] deepseek-moe-16b training at {time.time() - t0:.1f} s")
@@ -3563,7 +3646,9 @@ def dryrun_train(smi, measured, cfg, B=4, S=512):
         raise AssertionError(f"predicted resident state {state} B exceeds "
                              f"the measured peak "
                              f"{measured['peak_mem_bytes']} B")
-    got = {k: v for k, v in measured["launches_per_step"].items() if v}
+    # the wrappers' counts (their float32 share is priced with them)
+    got = {k: v for k, v in measured["launches_per_step"].items()
+           if v and not k.endswith("_f32")}
     if predicted != got:
         raise AssertionError(f"dry-run kernel launches {predicted} != the "
                              f"card's launches a step {got} at {cfg.name}")
@@ -3611,7 +3696,8 @@ def dryrun_label(smi, measured):
 def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     """Phase 10 (after lm_train, whose measured rows it reads): every
     pair of ``archs``, then the train step of phi4-mini, recurrentgemma,
-    rwkv6's cut, stablelm-3b, deepseek-moe-16b's cut and gemma2-27b's
+    rwkv6's cut, stablelm-3b, deepseek-moe-16b's cut, recurrentgemma in
+    float32 and gemma2-27b's
     cut (at its B 2 x S 8192) and the label step beside their measured
     rows (peak memory and launches a step)."""
     from repro_torch.configs import get_config
@@ -3623,6 +3709,8 @@ def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     for cfg in (*recurrent_train_configs(), get_config("stablelm-3b"),
                 deepseek_train_config()):
         train.append(dryrun_train(smi, measured[cfg.name], cfg))
+    train.append(dryrun_train(smi, measured["recurrentgemma-2b-f32"],
+                              recurrentgemma_f32_config()))
     train.append(dryrun_train(smi, measured["gemma2-27b"],
                               gemma2_train_config(), B=GEMMA2_TRAIN_B,
                               S=GEMMA2_TRAIN_S))
@@ -3769,6 +3857,14 @@ def main():
     (n1_err, n1_rel), (n2a_err, _), (n2b_err, n2b_rel) = (
         bwd_err[k] for k in ("n1", "n2a", "n2b"))
     n2a, n2b = bwd_rows["n2a"][0], bwd_rows["n2b"][0]
+    # K3's and N1's float32 kernels (split TF32) at the shape the float32
+    # recurrentgemma train step gives them; their launches are the
+    # float32 share of the LM path's, the arch smokes' and whisper's
+    a32 = next(r for r in att_rows
+               if r["shape"] == "r_recurrentgemma_train_f32_lse")
+    n32 = next(r for r in n1_rows if r["shape"] == "recurrentgemma_train_f32")
+    f32 = {k: lm[k] + arch_train[k] + whisper[k]
+           for k in ("flash_attention_f32", "flash_attention_backward_f32")}
     kernels = [
         {"name": "vote_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/vote_aggregate.cu",
@@ -3819,6 +3915,26 @@ def main():
          "plain_ms": n1["plain_ms"], "bound_ms": n1["bound_ms"],
          "bound_by": n1["bound_by"], "library_ms": n1["library_ms"],
          "shapes": shape_rows(n1_rows)},
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:83",
+         "launches": f32["flash_attention_f32"],
+         "max_abs_err": a32["max_abs_err"], "ms": a32["kernel_ms"],
+         "plain_ms": a32["plain_ms"], "bound_ms": a32["bound_ms"],
+         "bound_by": a32["bound_by"], "library_ms": a32["library_ms"],
+         "shapes": shape_rows([r for r in att_rows
+                               if r["dtype"] == str(torch.float32)])},
+        {"name": "flash_attention_backward_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/ops.py:97",
+         "tpu_kernel": None,
+         "launches": f32["flash_attention_backward_f32"],
+         "max_abs_err": n32["max_abs_err"],
+         "max_rel_err": n32["max_rel_err"], "ms": n32["kernel_ms"],
+         "plain_ms": n32["plain_ms"], "bound_ms": n32["bound_ms"],
+         "bound_by": n32["bound_by"], "library_ms": n32["library_ms"],
+         "shapes": shape_rows([r for r in n1_rows
+                               if r["dtype"] == str(torch.float32)])},
         # N2a and N2b have no TPU kernel either: the reference trains the
         # recurrences through autodiff of its xla scan (ops.py:154) and
         # of its chunked step loop (ops.py:215)
@@ -3840,6 +3956,9 @@ def main():
          "bound_ms": n2b["bound_ms"], "bound_by": n2b["bound_by"],
          "library_ms": None, "shapes": shape_rows(bwd_rows["n2b"])},
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -79,12 +79,31 @@
 //    soft-cap's tanh takes one ex2 and one reciprocal.  The last q
 //    tiles, which see the most keys under a causal mask, are started
 //    first.
-//  - float32: FMAs on the CUDA cores (no tensor cores, no TF32), a
-//    16 x 16 thread grid; thread (ty, tx) owns query rows ty + 16i,
-//    score columns tx + 16j and output columns tx + 16c, the q tile is
-//    pre-scaled in shared memory, and the score tile is written over the
-//    K tile as P.  P stays float32, as in the TPU kernel.  At dh = 256
-//    the tiles take 197 KB of shared memory, one CTA an SM.
+//  - float32: split TF32 on the tensor cores (mma.sync m16n8k8), the
+//    library's own method for float32 attention: each float32 operand
+//    x is big = tf32(x) plus small = tf32(x - big), and each product
+//    adds small·big + big·small + big·big in float32 (hopper.cuh:
+//    mma_split), about 2^-22 relative a term, so the output holds the
+//    float32 bar at 495 / 3 TFLOP/s, where the CUDA cores' FMAs give
+//    67.
+//    Four warps of 16 query rows a CTA; Q and a 2-stage ring of K and V
+//    tiles (64 keys, 32 above dh 64) in shared memory, staged by
+//    cp.async so that the next tile lands while this one is read, in a
+//    layout of whole 128-byte rows whose 16-byte chunks are XOR-swizzled
+//    (hopper.cuh: F32Tile) so that both reads below are 16-byte loads
+//    free of bank conflicts.  S's k order is permuted within each
+//    16-column step (lane t's k slots are four adjacent columns), and
+//    P·V's within each 8-key step (slots t and t + 4 are keys 2t and 2t
+//    + 1), so that S's accumulator is P's A fragment as it stands: the
+//    online softmax runs in the accumulators' registers and no value
+//    crosses lanes.  V's columns are read a 16-byte chunk a lane (n-tile
+//    4c + i, column g is dh column 32c + 4g + i), and the output goes
+//    back in order by 16-byte stores.  P stays float32, as in the TPU
+//    kernel; the soft-cap's tanh is the float32 tanhf.  Shared memory:
+//    40 KB at dh 32, 80 KB at 64, 72 KB at 80 (rows of 96 floats), 96 KB
+//    at 128 (two CTAs an SM), 192 KB at 256 (one).  What bounds it: 3
+//    TF32 products a float32 one, 3 x 4·B·H·pairs·dh operations at 495
+//    TFLOP/s, or the bytes.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,16 +117,19 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;  // query rows per CTA
 constexpr int BK = 64;  // keys per tile
 
-// The key tiles [start, end) that query rows [q0, q0 + rows) can see.
+// The key tiles [start, end) of `keys` keys that query rows [q0, q0 +
+// rows) can see.
 __device__ __forceinline__ void key_tiles(int q0, int rows, int Sq, int Skv,
                                           int q_offset, int causal,
-                                          int window, int* start, int* end) {
+                                          int window, int* start, int* end,
+                                          int keys = BK) {
   const int qlo = q_offset + q0;
   const int qhi = q_offset + min(q0 + rows, Sq) - 1;
-  *end = (Skv + BK - 1) / BK;
-  if (causal) *end = min(*end, qhi < 0 ? 0 : qhi / BK + 1);
+  *end = (Skv + keys - 1) / keys;
+  if (causal) *end = min(*end, qhi < 0 ? 0 : qhi / keys + 1);
   *start = 0;
-  if (window > 0 && qlo - window + 1 > 0) *start = (qlo - window + 1) / BK;
+  if (window > 0 && qlo - window + 1 > 0)
+    *start = (qlo - window + 1) / keys;
 }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Skv,
@@ -136,15 +158,13 @@ __device__ __forceinline__ float lanes_sum(float x, int width) {
 constexpr int WG_THREADS = 128 + 32;  // a consumer warpgroup + a producer warp
 constexpr int STAGES = 2;             // the K / V ring
 
+// The wgmma path's CTAs an SM, for its launch bounds: three at dh 80 (3 x
+// 52 KB of shared memory, at most 136 registers a thread).  Its shared
+// memory (the plan's): Q, STAGES x (K, V), the barriers (Q; K and V
+// full, K and V free, a stage each), and slack to align the tiles to
+// 1024 bytes.
 template <int DH>
 struct Wg : Tile<DH> {
-  // Q, STAGES x (K, V), the barriers (Q; K and V full, K and V free, a
-  // stage each), and slack to align the tiles to 1024 bytes
-  static constexpr size_t bytes =
-      1024 + (size_t)Tile<DH>::TILE * (1 + 2 * STAGES) +
-      8 * (1 + 4 * STAGES);
-  // CTAs an SM that the launch bounds ask for: three at dh 80 (3 x 52 KB
-  // of shared memory, at most 136 registers a thread)
   static constexpr int CTAS = DH == 80 ? 3 : 1;
 };
 
@@ -368,163 +388,145 @@ __global__ void __launch_bounds__(WG_THREADS, Wg<DH>::CTAS)
 }
 
 // ---------------------------------------------------------------------------
-// float32: FMAs on the CUDA cores
+// float32: split TF32 on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
-constexpr int FMA_THREADS = 256;  // a 16 x 16 thread grid
-constexpr int RQ = BQ / 16;       // query rows per thread
-constexpr int CK = BK / 16;       // score columns per thread
+constexpr int F32_THREADS = 128;  // four warps of 16 query rows
+
+// Keys a tile at head dim DH (kernels/flash_attention.py: plan owns it
+// and passes it; the launcher refuses another): 64, or 32 above dh 64,
+// so that Q and a 2-stage K/V ring fit three CTAs an SM at 80, two at
+// 128 and one at 256
+template <int DH>
+__host__ __device__ constexpr int f32_keys() {
+  return DH > 64 ? 32 : 64;
+}
 
 template <int DH>
-struct SmemF32 {
-  static constexpr int LD = DH + 1;   // padded row: conflict-free K reads
-  static constexpr int PLD = BK + 1;  // padded row of the P tile
-  static constexpr int Q = BQ * LD;
-  static constexpr int KP = BK * LD > BQ * PLD ? BK * LD : BQ * PLD;
-  static constexpr int V = BK * DH;
-  static constexpr size_t bytes = sizeof(float) * (Q + KP + V);
-};
+__global__ void __launch_bounds__(F32_THREADS)
+    flash_attention_tf32(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int Sq, int Skv, int H, int KV, float scale,
+                         int causal, int window, float softcap, int q_offset,
+                         float* __restrict__ lse) {
+  constexpr int BKT = f32_keys<DH>();
+  constexpr int NT = BKT / 8;   // 8-key n-tiles of S
+  constexpr int DT = DH / 8;    // 8-wide n-tiles of O
+  constexpr int P = F32Tile<DH>::PITCH;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) float smem_tf[];
+  float* sQ = smem_tf;           // BQ rows
+  float* sK = sQ + BQ * P;       // 2 stages of BKT rows
+  float* sV = sK + 2 * BKT * P;  // 2 stages of BKT rows
 
-template <int DH>
-__global__ void __launch_bounds__(FMA_THREADS)
-    flash_attention_f32(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        int Sq, int Skv, int H, int KV, float scale,
-                        int causal, int window, float softcap, int q_offset,
-                        float* __restrict__ lse) {
-  using S = SmemF32<DH>;
-  constexpr int CD = DH / 16;  // output columns per thread
-  extern __shared__ float smem_f32[];
-  float* Qs = smem_f32;
-  float* Ks = Qs + S::Q;  // the K tile, then the P tile
-  float* Vs = Ks + S::KP;
-
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-  const size_t q_step = (size_t)H * DH;    // one sequence position of q, o
-  const size_t kv_step = (size_t)KV * DH;  // one sequence position of k, v
-  const float* qb = q + (size_t)b * Sq * q_step + (size_t)h * DH;
+  const size_t q_step = (size_t)H * DH, kv_step = (size_t)KV * DH;
   const float* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
   const float* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
-  float* ob = o + (size_t)b * Sq * q_step + (size_t)h * DH;
+  const int qlo = q_offset + q0, qhi = qlo + BQ - 1;
+  int kt0, kt1;
+  key_tiles(q0, BQ, Sq, Skv, q_offset, causal, window, &kt0, &kt1, BKT);
+  const int n_tiles = max(kt1 - kt0, 0);
+  auto stage_kv = [&](int i) {
+    const int slot = i & 1;
+    stage_f32<DH, BKT, F32_THREADS>(sK + slot * BKT * P, kb, (kt0 + i) * BKT,
+                                    Skv, kv_step);
+    stage_f32<DH, BKT, F32_THREADS>(sV + slot * BKT * P, vb, (kt0 + i) * BKT,
+                                    Skv, kv_step);
+  };
+  stage_f32<DH, BQ, F32_THREADS>(
+      sQ, q + (size_t)b * Sq * q_step + (size_t)h * DH, q0, Sq, q_step);
+  if (n_tiles > 0) stage_kv(0);
+  cp_async_commit();
 
-  for (int i = tid; i < BQ * DH; i += FMA_THREADS) {
-    const int r = i / DH, d = i % DH;
-    const int s = q0 + r;
-    Qs[r * S::LD + d] = s < Sq ? qb[(size_t)s * q_step + d] * scale : 0.f;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][CD];
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first row
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DH / 2];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  const bool capped = softcap > 0.f;
+  // p = 2^(v c2 - m c2): v the raw score, or the soft-capped one
+  const float c2 = capped ? LOG2E : scale * LOG2E;
+  const float cap_in = capped ? scale / softcap : 0.f;
 
-  int kt_start, kt_end;
-  key_tiles(q0, BQ, Sq, Skv, q_offset, causal, window, &kt_start,
-            &kt_end);
-  for (int kt = kt_start; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // Q is staged; the last tile's P and V reads are done
-    for (int i = tid; i < BK * DH; i += FMA_THREADS) {
-      const int r = i / DH, d = i % DH;
-      const int s = k0 + r;
-      const bool in = s < Skv;
-      Ks[r * S::LD + d] = in ? kb[(size_t)s * kv_step + d] : 0.f;
-      Vs[r * DH + d] = in ? vb[(size_t)s * kv_step + d] : 0.f;
-    }
+  for (int i = 0; i < n_tiles; ++i) {
+    // the next tile lands in the other slot while this one is read
+    if (i + 1 < n_tiles) stage_kv(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
+    const float* tK = sK + (i & 1) * BKT * P;
+    const float* tV = sV + (i & 1) * BKT * P;
+    const int k0 = (kt0 + i) * BKT;
 
-    float sc[RQ][CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float a[RQ], bk[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = Qs[(ty + 16 * i) * S::LD + d];
-#pragma unroll
-      for (int j = 0; j < CK; ++j) bk[j] = Ks[(tx + 16 * j) * S::LD + d];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
+    // S = Q K_i^T
+    float sc[NT * 4];
+    row_mma<DH, NT>(sc, sQ, r0, tK, g, t);
 
-    float p[RQ][CK];
+    // the online softmax, as the wgmma path's (float32 tanh under the
+    // cap)
+    const bool masked = k0 + BKT > Skv || (causal && k0 + BKT - 1 > qlo) ||
+                        (window > 0 && k0 <= qhi - window);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qpos = q_offset + q0 + ty + 16 * i;
-      bool ok[CK];
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = qlo + r0 + g + 8 * half;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        float s = sc[i][j];
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        ok[j] = visible(qpos, k0 + tx + 16 * j, Skv, causal, window);
-        sc[i][j] = ok[j] ? s : NEG_INF;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      mx = lanes_max(mx, 16);  // the half-warp that shares the row
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[4 * j + 2 * half + e];
+          if (capped) x = softcap * tanhf(x * cap_in);
+          if (masked && !visible(qpos, k0 + 8 * j + 2 * t + e, Skv, causal,
+                                 window))
+            x = NEG_INF;
+          sc[4 * j + 2 * half + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = lanes_max(mx, 4);
+      const float m_new = fmaxf(m[half], mx);
+      const float mc = (m_new == NEG_INF ? 0.f : m_new) * c2;
+      const float alpha = ex2(fmaf(m[half], c2, -mc));
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        p[i][j] = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        rs += p[i][j];
+      for (int j = 0; j < NT * 2; ++j) {
+        const int e = 4 * (j / 2) + 2 * half + j % 2;
+        sc[e] = ex2(fmaf(sc[e], c2, -mc));
+        rs += sc[e];
       }
-      rs = lanes_sum(rs, 16);
-      l[i] = l[i] * alpha + rs;
+      rs = lanes_sum(rs, 4);
+      l[half] = l[half] * alpha + rs;
 #pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
+      for (int d = 0; d < DT; ++d) {
+        acc[4 * d + 2 * half] *= alpha;
+        acc[4 * d + 2 * half + 1] *= alpha;
+      }
+      m[half] = m_new;
     }
 
-    __syncthreads();  // every score is read from Ks before P replaces it
-    float* Ps = Ks;
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j)
-        Ps[(ty + 16 * i) * S::PLD + tx + 16 * j] = p[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RQ], vv[CD];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + 16 * i) * S::PLD + kk];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) vv[c] = Vs[kk * DH + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
+    // O += P V_i: S's accumulator of n-tile j is P's A fragment of
+    // k-step j (P stays float32, as in the TPU kernel)
+    col_mma<DH, DH, NT>(acc, tV, 0, g, t, sc);
+    __syncthreads();  // every warp is done with the slot before its refill
   }
+  cp_async_wait<0>();
 
+  const size_t ob = (size_t)b * Sq * q_step + (size_t)h * DH;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int s = q0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const int s = q0 + r0 + g + 8 * half;
     if (s < Sq) {
-      if (lse != nullptr && tx == 0)  // as the wgmma path's
+      if (lse != nullptr && t == 0)  // as the wgmma path's
         lse[((size_t)b * H + h) * Sq + s] =
-            l[i] == 0.f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
-      const float li = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-      for (int c = 0; c < CD; ++c)
-        ob[(size_t)s * q_step + tx + 16 * c] = acc[i][c] / li;
+            l[half] == 0.f ? __int_as_float(0x7f800000)
+                           : m[half] * (capped ? 1.f : scale) + logf(l[half]);
+      const float li = l[half] == 0.f ? 1.f : l[half];
+      col_store<DH>(o + ob + (size_t)s * q_step, acc, half, t, 1.f / li);
     }
   }
 }
@@ -532,23 +534,23 @@ __global__ void __launch_bounds__(FMA_THREADS)
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
-// Each launcher takes the plan's threads and shared-memory bytes
-// (kernels/flash_attention.py: plan) and refuses a plan that is not its
-// own, so the wrapper's scratch-free plan and the kernel never disagree.
+// The wrapper's plan (kernels/flash_attention.py: plan) owns the launch
+// geometry: each launcher refuses threads or keys a tile it was not
+// built for, and asks for the plan's shared memory as it is.
 template <int DH>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Sq, int Skv, int H, int KV, float scale,
                int causal, int window, float softcap, int q_offset,
-               int threads, size_t smem, cudaStream_t stream) {
-  if (threads != FMA_THREADS || smem != SmemF32<DH>::bytes)
+               int threads, int keys, size_t smem, cudaStream_t stream) {
+  if (threads != F32_THREADS || keys != f32_keys<DH>())
     return (int)cudaErrorInvalidValue;
   // above 48 KB of shared memory only after opting in (per device)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_tf32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_f32<DH><<<grid, FMA_THREADS, smem, stream>>>(
+  flash_attention_tf32<DH><<<grid, F32_THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
       H, KV, scale, causal, window, softcap, q_offset, lse);
   return (int)cudaGetLastError();
@@ -558,11 +560,10 @@ template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Sq, int Skv, int H, int KV,
                  float scale, int causal, int window, float softcap,
-                 int q_offset, int threads, size_t smem,
+                 int q_offset, int threads, int keys, size_t smem,
                  cudaStream_t stream) {
   using W = Wg<DH>;
-  if (threads != WG_THREADS || smem != W::bytes)
-    return (int)cudaErrorInvalidValue;
+  if (threads != WG_THREADS || keys != BK) return (int)cudaErrorInvalidValue;
   bind_context();
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H, DH, W::COLS, W::SW) ||
@@ -571,28 +572,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)W::bytes);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_wgmma<DH><<<grid, WG_THREADS, W::bytes, stream>>>(
+  flash_attention_wgmma<DH><<<grid, WG_THREADS, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, Sq, Skv, H, KV, scale, causal, window,
       softcap, q_offset, lse);
   return (int)cudaGetLastError();
 }
 
-// The two paths: bfloat16 on wgmma, float32 on FMAs.  A refused launch
-// returns its error; no path stands in for another.
+// The two paths: bfloat16 on wgmma, float32 in split TF32 on mma.sync.
+// A refused launch returns its error; no path stands in for another.
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
               void* o, float* lse, int B, int Sq, int Skv, int H, int KV,
               float scale, int causal, int window, float softcap,
-              int q_offset, int threads, size_t smem, cudaStream_t s) {
+              int q_offset, int threads, int keys, size_t smem,
+              cudaStream_t s) {
   if (bf16)
     return launch_wgmma<DH>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale,
-                            causal, window, softcap, q_offset, threads, smem,
-                            s);
+                            causal, window, softcap, q_offset, threads, keys,
+                            smem, s);
   return launch_f32<DH>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal,
-                        window, softcap, q_offset, threads, smem, s);
+                        window, softcap, q_offset, threads, keys, smem, s);
 }
 
 }  // namespace
@@ -602,19 +604,19 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 // null, is a float32 (B, H, Sq) buffer that receives each row's
 // natural-log sum of exp of its scaled, soft-capped, masked scores (the
 // backward's input; +inf for a row that sees no key).  scale is
-// dh^-0.5 rounded to float32.  threads and smem are the launch plan's
-// (kernels/flash_attention.py: plan).  Launches on `stream`; returns
-// cudaGetLastError() (or the error of the shared-memory opt-in, or
-// cudaErrorInvalidValue where the plan is not the kernel's or a tensor
-// map cannot be made).
+// dh^-0.5 rounded to float32.  threads, keys (a tile) and smem are the
+// launch plan's (kernels/flash_attention.py: plan).  Launches on
+// `stream`; returns cudaGetLastError() (or the error of the
+// shared-memory opt-in, or cudaErrorInvalidValue where the plan's
+// threads or keys are not the kernel's or a tensor map cannot be made).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int Sq,
                                       int Skv, int H, int KV, int dh,
                                       int bf16, int causal, int window,
                                       float softcap, float scale,
-                                      int q_offset, int threads, int smem,
-                                      void* stream) {
+                                      int q_offset, int threads, int keys,
+                                      int smem, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (Skv == 0 && lse != nullptr) return (int)cudaErrorInvalidValue;
@@ -626,23 +628,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32:
       return launch_dh<32>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
                            H, KV, scale, causal, window, softcap,
-                           q_offset, threads, bytes, s);
+                           q_offset, threads, keys, bytes, s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
                            H, KV, scale, causal, window, softcap,
-                           q_offset, threads, bytes, s);
+                           q_offset, threads, keys, bytes, s);
     case 80:
       return launch_dh<80>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
                            H, KV, scale, causal, window, softcap,
-                           q_offset, threads, bytes, s);
+                           q_offset, threads, keys, bytes, s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
                             H, KV, scale, causal, window, softcap,
-                            q_offset, threads, bytes, s);
+                            q_offset, threads, keys, bytes, s);
     case 256:
       return launch_dh<256>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv,
                             H, KV, scale, causal, window, softcap,
-                            q_offset, threads, bytes, s);
+                            q_offset, threads, keys, bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

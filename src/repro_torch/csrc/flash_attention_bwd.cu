@@ -38,7 +38,9 @@
 // exponentials (4096 a tile pair in each pass, 16 a clock on an SM's
 // special-function units) and the wgmma chain's latency within one
 // warpgroup are what keep it above that bound (PERF.md has the measured
-// times).
+// times).  In float32 the products are three TF32 products each (split
+// TF32, below): 3 x 16 GFLOP at phi4's shape, 0.098 ms at 495 TFLOP/s,
+// so the operations bound it.
 //
 // Design: three launches, no sum shared between CTAs or threads, every
 // sum in one fixed order, so the gradients are identical run to run.
@@ -112,8 +114,6 @@
 //  five k-steps of 16, one a box, and dV, dK and dQ are m64n80 products
 //  (wgmma_rs_n80), so no head dim is padded; at the MHA 32:32 train
 //  shape the dK/dV grid is 1024 CTAs, so the walk needs no head split.
-//  Float32 runs dh 32, 64 and 128 (the wrapper pads its 80 to 128; its
-//  float tiles would not fit shared memory at 256).
 //  P and dS are rounded to bf16 before their products, as K3's forward
 //  rounds P; every product accumulates in float32; outputs are bf16.
 //  The soft-cap is a template argument, so uncapped calls carry no tanh
@@ -123,10 +123,31 @@
 //  accumulators defined between stages), 128-row owner tiles over two
 //  consumer warpgroups sharing each streamed tile (the two lock-step on
 //  the ring), three CTAs an SM at dh 64, a ring of 3.
-// float32 (the card-vs-CPU parity calls): FMAs on the CUDA cores in full
-// float32, a 16 x 16 thread grid, S and dP in both passes: bwd_dkdv
-// stages Q, dO, lse and D a query tile at a time, writes P and dS to
-// shared memory and adds P^T dO and dS^T Q; bwd_dq adds dS K.
+// float32 (the card-vs-CPU parity smokes, LM FedKT rounds, any
+// float32 config): two kernels in split TF32 on mma.sync m16n8k8, K3's
+// float32 forward (flash_attention.cu) applied to the five products:
+// each float32 operand is big + small TF32 terms, each product adds
+// small·big + big·small + big·big (hopper.cuh: mma_split), so the
+// gradients hold the float32 bar on the tensor cores at 495 / 3 TFLOP/s
+// against 67 on the CUDA cores.  Four warps a CTA, tiles staged by
+// cp.async in K3's swizzled float32 layout (F32Tile), a 2-stage ring of
+// the streamed tiles.  Each product sums a short run of k-steps in fresh
+// registers and adds it rounded (hopper.cuh: row_mma, col_mma: the
+// tensor cores truncate as they accumulate, and a chain over a group's
+// query tiles drifted to 2e-5 of the largest gradient).  bwd_dkdv_tf32
+// owns a block of
+// keys (warps of 16 keys), holds K and V, streams (Q, dO) pairs with
+// their lse and D, and makes S^T and dP^T (Q, dO read K-major), then P^T
+// and dS^T in the accumulators, which are, with the k order permuted as
+// K3 permutes P·V's, the A fragments of dV += P^T dO and dK += dS^T Q
+// (dO, Q read N-major): no value crosses lanes.  bwd_dq_tf32 owns a
+// block of query rows and streams (K, V) tiles: S, dP, dS, then dQ +=
+// dS K.  Every head dim runs natively (dh 80: rows of 96 floats; dh
+// 256: a block of 32 rows, each 16-row block split over two warps a
+// half of the output columns, both making its S and dP), and dh 256
+// splits the group's q heads over CTAs as the bf16 path does
+// (bwd_head_splits), their float32 partials merged in split order by
+// merge_dkdv.
 // A refused launch returns its error: no path stands in for another.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -139,8 +160,7 @@ namespace {
 
 constexpr int BQ = 64;        // query rows a tile
 constexpr int BK = 64;        // keys a tile
-constexpr int THREADS = 256;  // float32: a 16 x 16 thread grid
-constexpr int R = 4;          // float32: rows (or keys) a thread owns
+constexpr int THREADS = 256;  // bwd_dot's and bwd_dot_rows' CTA
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
@@ -156,34 +176,39 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq,
   return ok;
 }
 
-// Whether the mask can hide a pair of query tile [q0, q0 + 64) and key
-// tile [k0, k0 + 64): the tile crosses Skv, the causal diagonal or the
-// window's edge (rows past Sq need no mask: their lse is +inf)
+// Whether the mask can hide a pair of query tile [q0, q0 + rows) and
+// key tile [k0, k0 + keys): the tile crosses Skv, the causal diagonal or
+// the window's edge (rows past Sq need no mask: their lse is +inf)
 __device__ __forceinline__ bool tile_masked(int q0, int k0, int Skv,
-                                            int causal, int window) {
-  return k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
-         (window > 0 && k0 <= q0 + BQ - 1 - window);
+                                            int causal, int window,
+                                            int rows = BQ, int keys = BK) {
+  return k0 + keys > Skv || (causal && k0 + keys - 1 > q0) ||
+         (window > 0 && k0 <= q0 + rows - 1 - window);
 }
 
-// The query tiles [start, end) that can see a key of tile [k0, k0 + 64)
+// The query tiles [start, end) of `rows` rows that can see a key of tile
+// [k0, k0 + keys)
 __device__ __forceinline__ void query_tiles(int k0, int Sq, int Skv,
                                             int causal, int window,
-                                            int* start, int* end) {
-  const int kmax = min(k0 + BK, Skv) - 1;
+                                            int* start, int* end,
+                                            int keys = BK, int rows = BQ) {
+  const int kmax = min(k0 + keys, Skv) - 1;
   const int q_end = window > 0 ? min(Sq, kmax + window) : Sq;
-  *start = causal ? k0 / BQ : 0;
-  *end = (q_end + BQ - 1) / BQ;
+  *start = causal ? k0 / rows : 0;
+  *end = (q_end + rows - 1) / rows;
 }
 
-// The key tiles [start, end) that query rows [q0, q0 + 64) can see (the
-// forward's key_tiles at q_offset 0)
+// The key tiles [start, end) of `keys` keys that query rows [q0, q0 +
+// rows) can see (the forward's key_tiles at q_offset 0)
 __device__ __forceinline__ void key_tiles(int q0, int Sq, int Skv,
                                           int causal, int window,
-                                          int* start, int* end) {
-  const int qhi = min(q0 + BQ, Sq) - 1;
-  *end = (Skv + BK - 1) / BK;
-  if (causal) *end = min(*end, qhi / BK + 1);
-  *start = window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / BK : 0;
+                                          int* start, int* end,
+                                          int rows = BQ, int keys = BK) {
+  const int qhi = min(q0 + rows, Sq) - 1;
+  *end = (Skv + keys - 1) / keys;
+  if (causal) *end = min(*end, qhi / keys + 1);
+  *start = window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / keys
+                                             : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -809,15 +834,25 @@ __global__ void __launch_bounds__(WG2_THREADS)
 // of DH columns, a float4 of each at a time
 constexpr int MERGE_ROWS = 16;
 
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(p);
+  d[0] = __floats2bfloat162_rn(x.x, x.y);
+  d[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+__device__ __forceinline__ void put4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
 // dK = scale x (the splits' partials summed in split order), dV the
-// same unscaled, both rounded to bf16 once: rows [MERGE_ROWS m,
-// MERGE_ROWS (m + 1)) of the `rows` (b, s, kv head) rows.  Every element
-// is summed by one thread in one order: identical run to run.
-template <int DH>
+// same unscaled, both rounded to the output type T (bf16 or float32)
+// once: rows [MERGE_ROWS m, MERGE_ROWS (m + 1)) of the `rows` (b, s, kv
+// head) rows.  Every element is summed by one thread in one order:
+// identical run to run.
+template <int DH, typename T>
 __device__ __forceinline__ void merge_dkdv(const float* __restrict__ part,
-                                           __nv_bfloat16* __restrict__ dk,
-                                           __nv_bfloat16* __restrict__ dv,
-                                           int m, int rows, int hsplit,
+                                           T* __restrict__ dk,
+                                           T* __restrict__ dv, int m,
+                                           int rows, int hsplit,
                                            float scale) {
   const size_t plane = (size_t)rows * DH;
   for (int e = threadIdx.x; e < MERGE_ROWS * DH / 4; e += blockDim.x) {
@@ -833,10 +868,8 @@ __device__ __forceinline__ void merge_dkdv(const float* __restrict__ part,
         x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
       }
       const float f = which == 0 ? scale : 1.f;
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>((which == 0 ? dk : dv) + off);
-      dst[0] = __floats2bfloat162_rn(x.x * f, x.y * f);
-      dst[1] = __floats2bfloat162_rn(x.z * f, x.w * f);
+      put4((which == 0 ? dk : dv) + off,
+           make_float4(x.x * f, x.y * f, x.z * f, x.w * f));
     }
   }
 }
@@ -1219,276 +1252,306 @@ __global__ void __launch_bounds__(WG2_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// float32: FMAs on the CUDA cores
+// float32: split TF32 on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
-// Shared memory of one CTA (both passes): Q and dO tiles (64 query rows),
-// K and V tiles (64 keys), rows padded by one float so that a column walk
-// is free of bank conflicts; P and dS (64 x 64, padded); lse and D of the
-// 64 rows.
-template <int DH>
-struct Smem {
-  static constexpr int LD = DH + 1;
-  static constexpr int PLD = BK + 1;
-  static constexpr int TILE = 64 * LD;
-  static constexpr int PT = BQ * PLD;
-  static constexpr size_t bytes =
-      sizeof(float) * (4 * TILE + 2 * PT + 2 * BQ);
-};
+constexpr int F32_THREADS = 128;  // four warps
 
-// Stages rows [r0, r0 + 64) of one head of a (B, S, heads, DH) tensor
-// (S = Sq or Skv) into a padded tile; rows past S are zeros.
+// The float32 plan's two sizes (kernels/flash_attention.py: bwd_plan owns
+// them and passes them; the launcher refuses others).  block: the rows a
+// CTA owns, keys in the dK/dV pass and query rows in the dQ pass (64; 32
+// at dh 256); step: the rows of each streamed tile, query rows in the
+// dK/dV pass and keys in the dQ pass (64; 32 above dh 64).  Both passes'
+// shared memory (K and V, or Q and dO, of a block, and a 2-stage ring
+// of the other pair) then fits two CTAs an SM up to dh 80 and one at
+// 128 (128 KB) and 256 (192 KB).  At dh 256 a block of 32 rows is two
+// warps' 16, and each row block is split over two warps a half of the
+// output columns (both make the block's S and dP: 192 instead of 128
+// accumulators a thread would not fit).
 template <int DH>
-__device__ __forceinline__ void stage(float* dst, const float* base, int r0,
-                                      int S, size_t row_step) {
-  for (int i = threadIdx.x; i < 64 * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH;
-    const int s = r0 + r;
-    dst[r * Smem<DH>::LD + d] = s < S ? base[(size_t)s * row_step + d] : 0.f;
-  }
+__host__ __device__ constexpr int f32_block() {
+  return DH == 256 ? 32 : 64;
+}
+template <int DH>
+__host__ __device__ constexpr int f32_step() {
+  return DH <= 64 ? 64 : 32;
 }
 
-// S (scaled, soft-capped) and dP of the 4 x 4 (row, key) pairs of thread
-// (ty, tx): rows ty + 16i of Q / dO against keys tx + 16j of K / V.  Then
-// P and dS of each pair into shared memory (Ps may be null: dQ needs only
-// dS).
-template <int DH>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       const float* lse_s, const float* D_s,
-                                       float* Ps, float* dSs, int q0, int k0,
-                                       int Sq, int Skv, float scale,
-                                       int causal, int window,
-                                       float softcap) {
-  using M = Smem<DH>;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float sc[R][R], dp[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    float a[R], g[R], kk[R], vv[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      a[i] = Qs[(ty + 16 * i) * M::LD + d];
-      g[i] = dOs[(ty + 16 * i) * M::LD + d];
-      kk[i] = Ks[(tx + 16 * i) * M::LD + d];
-      vv[i] = Vs[(tx + 16 * i) * M::LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
-        dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
-      }
+// P = 2^(s c2 - lse2) (0 where masked) of a raw score v, and in dcap the
+// soft-cap's derivative 1 - tanh^2 (1 uncapped); tanh in float32
+template <int CAP>
+__device__ __forceinline__ float prob_f32(float v, float c2, float cap_in,
+                                          float softcap, float lse2,
+                                          float* dcap) {
+  *dcap = 1.f;
+  if (CAP) {
+    const float th = tanhf(v * cap_in);
+    v = softcap * th;
+    *dcap = 1.f - th * th;
   }
-  const bool capped = softcap > 0.f;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty + 16 * i;
-    const float lse = lse_s[r], D = D_s[r];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int c = tx + 16 * j;
-      float s = sc[i][j] * scale, dcap = 1.f;
-      if (capped) {
-        const float t = tanhf(s / softcap);
-        s = softcap * t;
-        dcap = 1.f - t * t;
-      }
-      const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, window)
-                          ? expf(s - lse) : 0.f;
-      if (Ps != nullptr) Ps[r * M::PLD + c] = p;
-      dSs[r * M::PLD + c] = p * (dp[i][j] - D) * dcap;
-    }
-  }
+  return ex2(fmaf(v, c2, -lse2));
 }
 
-// lse and D of query rows [q0, q0 + 64) of head h; rows past Sq get lse
-// +inf (P = 0) and D 0.
-__device__ __forceinline__ void stage_rows(float* lse_s, float* D_s,
-                                           const float* lse,
-                                           const float* Dv, int q0, int Sq,
-                                           size_t row0) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int s = q0 + r;
-    lse_s[r] = s < Sq ? lse[row0 + s] : __int_as_float(0x7f800000);
-    D_s[r] = s < Sq ? Dv[row0 + s] : 0.f;
-  }
-}
+// dK and dV: a CTA a (block of keys, kv head, batch row, head split);
+// warp w owns keys 16 (w % (block / 16)) .. + 15 of the block and the
+// output columns of its split.  A pair (q head, query tile) at a time:
+// S^T = K Q^T and dP^T = V dO^T (split TF32, Q and dO read K-major), P^T
+// and dS^T made in the accumulators, then dV += P^T dO and dK += dS^T Q
+// with P^T's and dS^T's accumulators as the A fragments (dO and Q read
+// N-major).  The next pair's Q, dO, lse and D land in the other slot of
+// the ring while this pair is read.
+template <int DH, int CAP>
+__global__ void __launch_bounds__(F32_THREADS)
+    bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ Dv,
+                  float* __restrict__ dk, float* __restrict__ dv, int B,
+                  int Sq, int Skv, int H, int KV, float scale, int causal,
+                  int window, float softcap, int hsplit,
+                  float* __restrict__ part) {
+  constexpr int KB = f32_block<DH>();  // keys the CTA owns
+  constexpr int QS = f32_step<DH>();   // query rows a pair
+  constexpr int SPLIT = 64 / KB;       // warps a 16-key block
+  constexpr int NO = DH / SPLIT;       // the dK, dV columns a warp owns
+  constexpr int NT = QS / 8;           // 8-query n-tiles of S^T
+  constexpr int P = F32Tile<DH>::PITCH;
+  extern __shared__ __align__(16) float smem_kf[];
+  float* sK = smem_kf;
+  float* sV = sK + KB * P;
+  float* sQ = sV + KB * P;         // 2 stages of QS rows
+  float* sG = sQ + 2 * QS * P;     // 2 stages of QS rows
+  float* sRows = sG + 2 * QS * P;  // 2 stages of lse2 (QS), D (QS)
 
-// dK and dV: a CTA a (key tile, kv head, batch row)
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ Dv,
-             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
-             int H, int KV, float scale, int causal, int window,
-             float softcap) {
-  using M = Smem<DH>;
-  constexpr int C = DH / 16;  // output columns a thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + M::TILE;
-  float* Ks = dOs + M::TILE;
-  float* Vs = Ks + M::TILE;
-  float* Ps = Vs + M::TILE;
-  float* dSs = Ps + M::PT;
-  float* lse_s = dSs + M::PT;
-  float* D_s = lse_s + BQ;
-
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  // the block index slowest (key block 0 first), the head split fastest
+  const int sp = blockIdx.x % hsplit;
+  const int cta = blockIdx.x / hsplit;
+  const int kvh = cta % KV;
+  const int b = (cta / KV) % B;
+  const int k0 = (cta / (KV * B)) * KB;
   const int group = H / KV;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int h_lo = sp * group / hsplit, h_hi = (sp + 1) * group / hsplit;
+  int qt0, qt1;
+  query_tiles(k0, Sq, Skv, causal, window, &qt0, &qt1, KB, QS);
+  const int per_head = max(qt1 - qt0, 0);
+  const int n_iter = (h_hi - h_lo) * per_head;
   const size_t q_step = (size_t)H * DH, kv_step = (size_t)KV * DH;
 
-  stage<DH>(Ks, k + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
-            kv_step);
-  stage<DH>(Vs, v + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
-            kv_step);
-
-  int qt_start, qt_end;
-  query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
-
-  float dK[R][C], dV[R][C];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dK[i][c] = dV[i][c] = 0.f;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const float* qb = q + (size_t)b * Sq * q_step + (size_t)h * DH;
-    const float* gb = dout + (size_t)b * Sq * q_step + (size_t)h * DH;
+  // pair i's Q, dO, lse2 and D into slot i & 1
+  auto issue = [&](int i) {
+    const int slot = i & 1;
+    const int h = kvh * group + h_lo + i / per_head;
+    const int q0 = (qt0 + i % per_head) * QS;
+    const size_t hb = (size_t)b * Sq * q_step + (size_t)h * DH;
+    stage_f32<DH, QS, F32_THREADS>(sQ + slot * QS * P, q + hb, q0, Sq, q_step);
+    stage_f32<DH, QS, F32_THREADS>(sG + slot * QS * P, dout + hb, q0, Sq,
+                                   q_step);
+    float* lr = sRows + slot * 2 * QS;
     const size_t row0 = ((size_t)b * H + h) * Sq;
-    for (int qt = qt_start; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the last tile's P, dS, Q and dO reads are done
-      stage<DH>(Qs, qb, q0, Sq, q_step);
-      stage<DH>(dOs, gb, q0, Sq, q_step);
-      stage_rows(lse_s, D_s, lse, Dv, q0, Sq, row0);
-      __syncthreads();
-      scores<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, Ps, dSs, q0, k0, Sq, Skv,
-                 scale, causal, window, softcap);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over the tile's 64 rows, in row order
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float p[R], ds[R], g[C], a[C];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          p[i] = Ps[r * M::PLD + ty + 16 * i];
-          ds[i] = dSs[r * M::PLD + ty + 16 * i];
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          g[c] = dOs[r * M::LD + tx + 16 * c];
-          a[c] = Qs[r * M::LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            dV[i][c] = fmaf(p[i], g[c], dV[i][c]);
-            dK[i][c] = fmaf(ds[i], a[c], dK[i][c]);
-          }
-      }
+    for (int r = threadIdx.x; r < QS; r += F32_THREADS) {
+      const int s = q0 + r;
+      lr[r] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
+      lr[QS + r] = s < Sq ? Dv[row0 + s] : 0.f;
     }
+  };
+  if (n_iter > 0) {
+    stage_f32<DH, KB, F32_THREADS>(
+        sK, k + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
+        kv_step);
+    stage_f32<DH, KB, F32_THREADS>(
+        sV, v + (size_t)b * Skv * kv_step + (size_t)kvh * DH, k0, Skv,
+        kv_step);
+    issue(0);
   }
+  cp_async_commit();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp % (KB / 16)) * 16;  // the warp's keys in the block
+  const int cs = warp / (KB / 16);         // its column split
+  float dK[NO / 2], dV[NO / 2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int s = k0 + ty + 16 * i;
+  for (int i = 0; i < NO / 2; ++i) dK[i] = dV[i] = 0.f;
+  const float c2 = CAP ? LOG2E : scale * LOG2E;
+  const float cap_in = CAP ? scale / softcap : 0.f;
+
+  for (int i = 0; i < n_iter; ++i) {
+    if (i + 1 < n_iter) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt0 + i % per_head) * QS;
+    const float* tQ = sQ + (i & 1) * QS * P;
+    const float* tG = sG + (i & 1) * QS * P;
+    const float* lr = sRows + (i & 1) * 2 * QS;
+
+    // S^T = K Q^T and dP^T = V dO^T over dh
+    float st[NT * 4], dp[NT * 4];
+    row_mma<DH, NT>(st, sK, r0, tQ, g, t);
+    row_mma<DH, NT>(dp, sV, r0, tG, g, t);
+
+    // P^T = 2^(s c2 - lse2[query]) (0 where masked) over st, and dS^T =
+    // P^T (1 - t^2) (dP^T - D[query]) over dp
+    const bool masked = tile_masked(q0, k0, Skv, causal, window, QS, KB);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int col = 8 * j + 2 * t + (f & 1);
+        const int kpos = k0 + r0 + g + 8 * (f >> 1);
+        float dcap;
+        float p = prob_f32<CAP>(st[4 * j + f], c2, cap_in, softcap, lr[col],
+                                &dcap);
+        if (masked && !visible(q0 + col, kpos, Sq, Skv, causal, window))
+          p = 0.f;
+        st[4 * j + f] = p;
+        dp[4 * j + f] = p * dcap * (dp[4 * j + f] - lr[QS + col]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q over the pair's rows, the warp's
+    // columns
+    col_mma<DH, NO, NT>(dV, tG, cs * NO, g, t, st);
+    col_mma<DH, NO, NT>(dK, tQ, cs * NO, g, t, dp);
+    __syncthreads();  // every warp is done with the slot before its refill
+  }
+  cp_async_wait<0>();
+
+  const size_t plane = (size_t)B * Skv * kv_step;
+  float* pk = part != nullptr ? part + (size_t)sp * plane : nullptr;
+  float* pv = part != nullptr ? pk + (size_t)hsplit * plane : nullptr;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = k0 + r0 + g + 8 * hf;
     if (s < Skv) {
-      const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dk[off + tx + 16 * c] = dK[i][c] * scale;
-        dv[off + tx + 16 * c] = dV[i][c];
+      const size_t off = ((size_t)b * Skv + s) * kv_step + (size_t)kvh * DH +
+                         cs * NO;
+      if (part != nullptr) {  // a split's partials, dK unscaled
+        col_store<NO>(pk + off, dK, hf, t, 1.f);
+        col_store<NO>(pv + off, dV, hf, t, 1.f);
+      } else {
+        col_store<NO>(dk + off, dK, hf, t, scale);
+        col_store<NO>(dv + off, dV, hf, t, 1.f);
       }
     }
   }
 }
 
-// dQ: a CTA a (query tile, q head, batch row)
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ Dv,
-           float* __restrict__ dq, int Sq, int Skv, int H, int KV,
-           float scale, int causal, int window, float softcap) {
-  using M = Smem<DH>;
-  constexpr int C = DH / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + M::TILE;
-  float* Ks = dOs + M::TILE;
-  float* Vs = Ks + M::TILE;
-  float* dSs = Vs + M::TILE + M::PT;  // the P slot stays unused
-  float* lse_s = dSs + M::PT;
-  float* D_s = lse_s + BQ;
+// dQ: a CTA a (block of query rows, q head, batch row); warp w owns rows
+// 16 (w % (block / 16)) .. + 15 and the dQ columns of its split.  A key
+// tile at a time through a 2-stage K/V ring: S = Q K^T and dP = dO V^T,
+// dS = P (1 - t^2) (dP - D) in the accumulators, dQ += dS K (K read
+// N-major).  The CTAs past the dQ blocks merge a head split's dK and dV
+// partials (merge_dkdv), as bwd_dq_wg2's do.
+template <int DH, int CAP>
+__global__ void __launch_bounds__(F32_THREADS)
+    bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ Dv,
+                float* __restrict__ dq, int B, int Sq, int Skv, int H, int KV,
+                float scale, int causal, int window, float softcap, int n_dq,
+                int hsplit, const float* __restrict__ part,
+                float* __restrict__ dk, float* __restrict__ dv) {
+  if ((int)blockIdx.x >= n_dq) {  // the CTAs past the dQ blocks
+    merge_dkdv<DH>(part, dk, dv, blockIdx.x - n_dq, B * Skv * KV, hsplit,
+                   scale);
+    return;
+  }
+  constexpr int QB = f32_block<DH>();  // query rows the CTA owns
+  constexpr int KS = f32_step<DH>();   // keys a tile
+  constexpr int SPLIT = 64 / QB;       // warps a 16-row block
+  constexpr int NO = DH / SPLIT;       // the dQ columns a warp owns
+  constexpr int NT = KS / 8;           // 8-key n-tiles of S
+  constexpr int P = F32Tile<DH>::PITCH;
+  extern __shared__ __align__(16) float smem_qf[];
+  float* sQ = smem_qf;
+  float* sG = sQ + QB * P;
+  float* sK = sG + QB * P;      // 2 stages of KS rows
+  float* sV = sK + 2 * KS * P;  // 2 stages of KS rows
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the block index slowest and reversed: the last query blocks, which
+  // see the most keys under a causal mask, start first
+  const int n_qb = (Sq + QB - 1) / QB;
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int q0 = (n_qb - 1 - blockIdx.x / (H * B)) * QB;
   const int kvh = h / (H / KV);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  int kt0, kt1;
+  key_tiles(q0, Sq, Skv, causal, window, &kt0, &kt1, QB, KS);
+  const int n_tiles = max(kt1 - kt0, 0);
   const size_t q_step = (size_t)H * DH, kv_step = (size_t)KV * DH;
   const float* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
   const float* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * DH;
+  auto issue = [&](int i) {
+    const int slot = i & 1;
+    stage_f32<DH, KS, F32_THREADS>(sK + slot * KS * P, kb, (kt0 + i) * KS,
+                                   Skv, kv_step);
+    stage_f32<DH, KS, F32_THREADS>(sV + slot * KS * P, vb, (kt0 + i) * KS,
+                                   Skv, kv_step);
+  };
+  const size_t hb = (size_t)b * Sq * q_step + (size_t)h * DH;
+  stage_f32<DH, QB, F32_THREADS>(sQ, q + hb, q0, Sq, q_step);
+  stage_f32<DH, QB, F32_THREADS>(sG, dout + hb, q0, Sq, q_step);
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
 
-  stage<DH>(Qs, q + (size_t)b * Sq * q_step + (size_t)h * DH, q0, Sq,
-            q_step);
-  stage<DH>(dOs, dout + (size_t)b * Sq * q_step + (size_t)h * DH, q0, Sq,
-            q_step);
-  stage_rows(lse_s, D_s, lse, Dv, q0, Sq, ((size_t)b * H + h) * Sq);
-
-  int kt_start, kt_end;
-  key_tiles(q0, Sq, Skv, causal, window, &kt_start, &kt_end);
-
-  float dQ[R][C];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp % (QB / 16)) * 16;  // the warp's rows in the block
+  const int cs = warp / (QB / 16);         // its column split
+  const size_t row0 = ((size_t)b * H + h) * Sq;
+  float lse2[2], Dr[2];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dQ[i][c] = 0.f;
-
-  for (int kt = kt_start; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the last tile's dS and K reads are done
-    stage<DH>(Ks, kb, k0, Skv, kv_step);
-    stage<DH>(Vs, vb, k0, Skv, kv_step);
-    __syncthreads();
-    scores<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, nullptr, dSs, q0, k0, Sq, Skv,
-               scale, causal, window, softcap);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[R], kv[C];
-#pragma unroll
-      for (int i = 0; i < R; ++i) ds[i] = dSs[(ty + 16 * i) * M::PLD + kk];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kv[c] = Ks[kk * M::LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) dQ[i][c] = fmaf(ds[i], kv[c], dQ[i][c]);
-    }
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = q0 + r0 + g + 8 * hf;
+    lse2[hf] = s < Sq ? lse[row0 + s] * LOG2E : __int_as_float(0x7f800000);
+    Dr[hf] = s < Sq ? Dv[row0 + s] : 0.f;
   }
+  float dQ[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) dQ[i] = 0.f;
+  const float c2 = CAP ? LOG2E : scale * LOG2E;
+  const float cap_in = CAP ? scale / softcap : 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = (kt0 + i) * KS;
+    const float* tK = sK + (i & 1) * KS * P;
+    const float* tV = sV + (i & 1) * KS * P;
+
+    // S = Q K^T and dP = dO V^T over dh
+    float sc[NT * 4], dp[NT * 4];
+    row_mma<DH, NT>(sc, sQ, r0, tK, g, t);
+    row_mma<DH, NT>(dp, sG, r0, tV, g, t);
+
+    // dS = P (1 - t^2) (dP - D), P = 2^(s c2 - lse2) (0 where masked)
+    const bool masked = tile_masked(q0, k0, Skv, causal, window, QB, KS);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int hf = f >> 1;
+        const int qpos = q0 + r0 + g + 8 * hf;
+        float dcap;
+        float p = prob_f32<CAP>(sc[4 * j + f], c2, cap_in, softcap, lse2[hf],
+                                &dcap);
+        if (masked && !visible(qpos, k0 + 8 * j + 2 * t + (f & 1), Sq, Skv,
+                               causal, window))
+          p = 0.f;
+        dp[4 * j + f] = p * dcap * (dp[4 * j + f] - Dr[hf]);
+      }
+
+    // dQ += dS K over the tile's keys, the warp's columns
+    col_mma<DH, NO, NT>(dQ, tK, cs * NO, g, t, dp);
+    __syncthreads();  // every warp is done with the slot before its refill
+  }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s < Sq) {
-      const size_t off = ((size_t)b * Sq + s) * q_step + (size_t)h * DH;
-#pragma unroll
-      for (int c = 0; c < C; ++c) dq[off + tx + 16 * c] = dQ[i][c] * scale;
-    }
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = q0 + r0 + g + 8 * hf;
+    if (s < Sq)
+      col_store<NO>(dq + hb + (size_t)s * q_step + cs * NO, dQ, hf, t, scale);
   }
 }
 
@@ -1505,32 +1568,46 @@ int launch_dot(const void* o, const void* dout, float* Dv, int B, int Sq,
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+// float32: the plan (kernels/flash_attention.py: bwd_plan) owns the
+// threads, the block and step sizes and the shared memory, and the
+// launcher refuses threads or sizes it was not built for; head splits
+// at dh 256 as the bf16 path's, the dQ launch's extra CTAs merging them
+template <int DH, int CAP>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* Dv, void* dq,
                void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
                float scale, int causal, int window, float softcap,
-               cudaStream_t stream) {
-  const size_t smem = Smem<DH>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+               int hsplit, float* part, int threads, int block, int step,
+               int smem, cudaStream_t stream) {
+  if (threads != F32_THREADS || block != f32_block<DH>() ||
+      step != f32_step<DH>())
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(bwd_dkdv_tf32<DH, CAP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(bwd_dq_tf32<DH, CAP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess)
+    return (int)err;
   int e = launch_dot<float>(o, dout, Dv, B, Sq, H, DH, stream);
   if (e != 0) return e;
-  const dim3 kv_grid((Skv + BK - 1) / BK, KV, B);
-  bwd_dkdv<DH><<<kv_grid, THREADS, smem, stream>>>(
+  const int n_kb = (Skv + block - 1) / block, n_qb = (Sq + block - 1) / block;
+  float* kv_part = hsplit > 1 ? part : nullptr;
+  const int rows = B * Skv * KV;
+  const int n_merge =
+      kv_part != nullptr ? (rows + MERGE_ROWS - 1) / MERGE_ROWS : 0;
+  const int n_dq = n_qb * H * B;
+  bwd_dkdv_tf32<DH, CAP><<<n_kb * KV * B * hsplit, F32_THREADS, smem,
+                           stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, Dv, (float*)dk, (float*)dv, Sq, Skv, H, KV, scale, causal,
-      window, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 q_grid((Sq + BQ - 1) / BQ, H, B);
-  bwd_dq<DH><<<q_grid, THREADS, smem, stream>>>(
+      lse, Dv, (float*)dk, (float*)dv, B, Sq, Skv, H, KV, scale, causal,
+      window, softcap, hsplit, kv_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd_dq_tf32<DH, CAP><<<n_dq + n_merge, F32_THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, Dv, (float*)dq, Sq, Skv, H, KV, scale, causal, window, softcap);
+      lse, Dv, (float*)dq, B, Sq, Skv, H, KV, scale, causal, window, softcap,
+      n_dq, hsplit, kv_part, (float*)dk, (float*)dv);
   return (int)cudaGetLastError();
 }
 
@@ -1606,25 +1683,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// The two paths: bfloat16 on wgmma (the soft-cap a template argument),
-// float32 on FMAs.
-// float32 stops at dh 128: its tiles of 64 x 256 floats would not fit a
-// CTA's shared memory, and no main path trains at float32 dh 256; nor
-// at float32 dh 80, which the wrapper pads to 128 (kernels/
-// flash_attention.py: BWD_F32_HEAD_DIMS)
+// The two paths, the soft-cap a template argument of each: bfloat16 on
+// wgmma, float32 in split TF32 on mma.sync.
 template <int DH>
 int launch_dh(int bf16, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, float* Dv,
               void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
               int KV, float scale, int causal, int window, float softcap,
-              int hsplit, float* part, cudaStream_t s) {
+              int hsplit, float* part, int threads, int block, int step,
+              int smem, cudaStream_t s) {
   if (!bf16) {
-    if constexpr (DH > 128 || DH == 80) {
-      return (int)cudaErrorInvalidValue;
-    } else {
-      return launch_f32<DH>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
-                            Skv, H, KV, scale, causal, window, softcap, s);
-    }
+    if (softcap > 0.f)
+      return launch_f32<DH, 1>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
+                               Skv, H, KV, scale, causal, window, softcap,
+                               hsplit, part, threads, block, step, smem, s);
+    return launch_f32<DH, 0>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
+                             Skv, H, KV, scale, causal, window, softcap,
+                             hsplit, part, threads, block, step, smem, s);
   }
   if (softcap > 0.f)
     return launch_wgmma<DH, 1>(q, k, v, o, dout, lse, Dv, dq, dk, dv, B, Sq,
@@ -1638,31 +1713,32 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, dh); k, v, dk, dv (B, Skv, KV, dh);
-// contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1, 16-byte
-// aligned for TMA).  lse is the forward's float32 (B, H, Sq) row
-// log-sum-exp; Dv a float32 (B, H, Sq) scratch buffer for D.  scale is
-// dh^-0.5 rounded to float32; dh is 32, 64 or 128, or 80 or 256 in
-// bfloat16;
-// a causal call needs Sq == Skv.  splits is the caller's count of CTAs
-// that share one (batch, kv head, key tile)'s walk over the group's q
-// heads (kernels/flash_attention.py: bwd_head_splits owns it): 1, or
-// at dh 256 up to H / KV, with `part` a float32 workspace of 2 x splits
-// x B x Skv x KV x dh for the partial dK and dV (null at 1).  Launches
-// three kernels on `stream`; returns the first nonzero
+// contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1), 16-byte
+// aligned (TMA and cp.async).  lse is the forward's float32 (B, H, Sq)
+// row log-sum-exp; Dv a float32 (B, H, Sq) scratch buffer for D.  scale
+// is dh^-0.5 rounded to float32; dh is 32, 64, 80, 128 or 256; a causal
+// call needs Sq == Skv.  splits is the caller's count of CTAs that share
+// one (batch, kv head, key block)'s walk over the group's q heads
+// (kernels/flash_attention.py: bwd_head_splits owns it): 1, or at dh 256
+// up to H / KV, with `part` a float32 workspace of 2 x splits x B x Skv
+// x KV x dh for the partial dK and dV (null at 1).  threads, block, step
+// and smem are the float32 plan's (kernels/flash_attention.py:
+// bwd_plan); bfloat16 calls pass zeros (its launcher sizes its own
+// tiles).  Launches three kernels on `stream`; returns the first nonzero
 // cudaGetLastError() (or the error of a shared-memory opt-in, or
-// cudaErrorInvalidValue for another dh or float32 at 80 or 256, no key at
-// all, a causal call with Sq != Skv, a split count out of range, or a
-// tensor map that cannot be made).
+// cudaErrorInvalidValue for another dh, a float32 plan not the kernels',
+// no key at all, a causal call with Sq != Skv, a split count out of
+// range, or a tensor map that cannot be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* Dv, void* dq, void* dk,
     void* dv, int B, int Sq, int Skv, int H, int KV, int dh, int bf16,
     int causal, int window, float softcap, float scale, int splits,
-    void* part, void* stream) {
+    void* part, int threads, int block, int step, int smem, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   if (Skv == 0 || (causal && Sq != Skv)) return (int)cudaErrorInvalidValue;
   if (splits < 1 || KV < 1 || splits > H / KV ||
-      (splits > 1 && (dh != 256 || !bf16 || part == nullptr)))
+      (splits > 1 && (dh != 256 || part == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
@@ -1672,23 +1748,23 @@ extern "C" int flash_attention_bwd_launch(
     case 32:
       return launch_dh<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                            Skv, H, KV, scale, causal, window, softcap, 1, P,
-                           s);
+                           threads, block, step, smem, s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                            Skv, H, KV, scale, causal, window, softcap, 1, P,
-                           s);
+                           threads, block, step, smem, s);
     case 80:
       return launch_dh<80>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                            Skv, H, KV, scale, causal, window, softcap, 1, P,
-                           s);
+                           threads, block, step, smem, s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                             Skv, H, KV, scale, causal, window, softcap, 1, P,
-                            s);
+                            threads, block, step, smem, s);
     case 256:
       return launch_dh<256>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                             Skv, H, KV, scale, causal, window, softcap,
-                            splits, P, s);
+                            splits, P, threads, block, step, smem, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // tf32, mma_tf32
+
 namespace {
 
 constexpr int DH = 64;          // rwkv_head_dim of the supported configs
@@ -142,25 +144,6 @@ __device__ __forceinline__ void unpack(float* dst, uint4 x) {
       dst[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// d (16 x 8) += a (16 x 8) b (8 x 8): mma.sync m16n8k8 in TF32 (the
-// fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
-// b0 (t, g), b1 (t + 4, g); d (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1), g = lane / 4, t = lane % 4)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x as the tensor cores' TF32 operand (rounded once) where TC

@@ -4,40 +4,45 @@ The counterpart of ``repro.kernels.flash_attention.flash_attention``:
 blocked online-softmax attention with GQA, a causal mask, a sliding
 window, a tanh logit soft-cap and a scalar ``q_offset``; bfloat16
 inputs run on the tensor cores, wgmma with TMA tile loads at every
-head dim (P rounded to bf16 before P·V); float32 inputs on FMAs in full
-float32.  It takes the model layout, q (B, Sq, H, dh) and k/v (B, Skv,
-KV, dh), where the reference's kernel takes (B, H, S, dh) after a
-transpose and padding in ``ops.attention``: the CUDA kernel reads heads
-by stride (or through TMA tensor maps over the same layout, made by its
-launcher) and masks its ragged edges.  CUDA tensors only; ``ops.attention`` runs
-the plain version (``ref.attention_plain``) for CPU tensors.
+head dim (P rounded to bf16 before P·V); float32 inputs on the tensor
+cores too, in split TF32 (each float32 operand the sum of two TF32
+terms, each product three TF32 products: float32 accuracy, the
+arithmetic ``ref.attention_split_tf32_plain`` states).  It takes the
+model layout, q (B, Sq, H, dh) and k/v (B, Skv, KV, dh), where the
+reference's kernel takes (B, H, S, dh) after a transpose and padding in
+``ops.attention``: the CUDA kernel reads heads by stride (or through
+TMA tensor maps over the same layout, made by its launcher) and masks
+its ragged edges.  CUDA tensors only; ``ops.attention`` runs the plain
+version (``ref.attention_plain``) for CPU tensors.
 
 ``launches`` counts the kernel launches this process made, so a run
-can show that its prefills went through the kernel.  ``plan`` is the
-launch's plan, which the CUDA launcher checks against its own.
+can show that its prefills went through the kernel (``f32_launches``
+the float32 kernel's share).  ``plan`` is the launch's plan and the one
+owner of its geometry: the CUDA launcher takes its threads, keys a tile
+and shared memory, and refuses threads or keys it was not built for.
 
 Training: ``return_lse=True`` also returns each row's float32
 log-sum-exp (B, H, Sq), which ``flash_attention_backward`` (the
 hand-written backward, ``csrc/flash_attention_bwd.cu``) takes with q,
 k, v, o and dO to give dQ, dK and dV (Sq = Skv, or Sq != Skv for a
 non-causal cross attention): bfloat16 on TMA + wgmma (P and dS rounded
-to bf16 before their products), float32 on FMAs in full float32, the
-launcher choosing by dtype with no fallback; ``FlashAttention`` is the
-``torch.autograd.Function`` that joins the two, and ``bwd_launches``
-counts the backward's kernel launches (three a call).  The reference has
-no backward kernel: off the TPU it differentiates its xla attention.
+to bf16 before their products), float32 in split TF32 on mma.sync
+(``ref.attention_backward_split_tf32_plain`` states it; ``bwd_plan``
+owns its geometry), the launcher choosing by dtype with no fallback;
+``FlashAttention`` is the ``torch.autograd.Function`` that joins the
+two, and ``bwd_launches`` counts the backward's kernel launches (three
+a call; ``f32_bwd_launches`` the float32 kernels' share).  The
+reference has no backward kernel: off the TPU it differentiates its xla
+attention.
 
-Both directions run stablelm's head dim 80 natively in bfloat16
-(``HEAD_DIMS``, ``BWD_HEAD_DIMS``; the tiles are five 32-byte-swizzled
-boxes of 16 columns, ``tile``), and the backward runs recurrentgemma's
-local attention at dh 256 in bfloat16.  A head dim between a kernel's
-own is zero-padded on the head axis to the next one
-(``padded_head_dim``: the forward's 48 -> 64; the float32 backward's 80
--> 128, ``BWD_F32_HEAD_DIMS``, since only the float32 smokes reach it)
-and run with the true dim's scale ``dh ** -0.5``: zero columns add
-nothing to q·k, to D = rowsum(dO·O) or to dQ and dK, and the padded
-output columns are sliced away, at the cost of the padded dim's work
-and the pad and slice copies.
+Both directions run every head dim of ``HEAD_DIMS`` and
+``BWD_HEAD_DIMS`` natively in both dtypes (32, 64, stablelm's 80, 128
+and recurrentgemma's 256).  A head dim between them is zero-padded on
+the head axis to the next one (``padded_head_dim``: 48 -> 64) and run
+with the true dim's scale ``dh ** -0.5``: zero columns add nothing to
+q·k, to D = rowsum(dO·O) or to dQ and dK, and the padded output columns
+are sliced away, at the cost of the padded dim's work and the pad and
+slice copies.
 """
 from __future__ import annotations
 
@@ -52,17 +57,19 @@ from repro_torch.kernels import build
 launches = 0
 NEG_INF = -1e30    # a masked score's running-max floor (csrc: NEG_INF)
 bwd_launches = 0
+# the float32 (split-TF32) kernels' share of launches and bwd_launches
+f32_launches = 0
+f32_bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
-BWD_HEAD_DIMS = (32, 64, 80, 128, 256)   # bfloat16
-BWD_F32_HEAD_DIMS = (32, 64, 128)        # float32's FMA kernels
 BWD_SPLIT_DH = 256  # the head dim whose dK/dV walk splits the q heads
 
-HEAD_DIMS = (32, 64, 80, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)       # the forward, both dtypes
+BWD_HEAD_DIMS = (32, 64, 80, 128, 256)   # the backward, both dtypes
 DTYPES = (torch.float32, torch.bfloat16)
-BQ = BK = 64       # query rows a CTA, keys a tile
-STAGES = 2         # the wgmma path's K / V ring
+BQ = BK = 64       # query rows a CTA, keys a tile (the wgmma paths)
+STAGES = 2         # the K / V (or Q / dO) ring of every path
 WG_THREADS = 128 + 32  # the wgmma path: a consumer warpgroup + a producer warp
-FMA_THREADS = 256  # the float32 path's 16 x 16 thread grid
+F32_THREADS = 128  # the split-TF32 paths: four warps of 16 rows
 SMEM_MAX = 232_448  # shared memory one CTA may opt into on the H100
 
 
@@ -81,8 +88,16 @@ def tile(dh):
     return Tile(swizzle, swizzle // 2, dh // (swizzle // 2))
 
 
+def f32_pitch(dh):
+    """Floats a row of a float32 tile takes in shared memory
+    (``csrc/hopper.cuh: F32Tile``): dh rounded up to 32, whole 128-byte
+    lines, so that the XOR swizzle of its 16-byte chunks keeps both of
+    the kernels' reads free of bank conflicts (dh 80: 96)."""
+    return -(-dh // 32) * 32
+
+
 class Plan(NamedTuple):
-    path: str     # "wgmma" (bfloat16) or "fma" (float32)
+    path: str     # "wgmma" (bfloat16) or "split_tf32" (float32)
     rows: int     # query rows a CTA
     keys: int     # keys a tile
     threads: int
@@ -90,22 +105,51 @@ class Plan(NamedTuple):
 
 
 def plan(dh, dtype):
-    """The launch plan at head dim ``dh`` and ``dtype``.  bfloat16 takes
-    the wgmma path: a consumer warpgroup of 64 query rows and a producer
-    warp a CTA, a Q tile and a ring of STAGES K and V tiles (64 x dh bf16
-    each, ``tile(dh).boxes`` TMA boxes), 9 barriers, and 1 KB of slack
-    to align the tiles to the 128-byte swizzle's 1024-byte period (three
-    CTAs an SM at dh 80, two at the other dh <= 128, one at dh 256).
-    float32 takes the FMA path: Q, the K tile (reused as P) and the V
-    tile in shared memory, rows padded by one float."""
+    """The forward's launch plan at head dim ``dh`` and ``dtype``.
+    bfloat16 takes the wgmma path: a consumer warpgroup of 64 query rows
+    and a producer warp a CTA, a Q tile and a ring of STAGES K and V
+    tiles (64 x dh bf16 each, ``tile(dh).boxes`` TMA boxes), 9
+    barriers, and 1 KB of slack to align the tiles to the 128-byte
+    swizzle's 1024-byte period (three CTAs an SM at dh 80, two at the
+    other dh <= 128, one at dh 256).  float32 takes the split-TF32 path:
+    four warps of 16 query rows, a Q tile and a ring of STAGES K and V
+    tiles of ``keys`` rows (64; 32 above dh 64), rows of
+    ``f32_pitch(dh)`` floats (two CTAs an SM at dh 64 and 128, three at
+    80, one at 256)."""
     if dtype == torch.bfloat16:
         t = tile(dh)
         tile_bytes = t.boxes * BK * t.swizzle
         smem = 1024 + tile_bytes * (1 + 2 * STAGES) + 8 * (1 + 4 * STAGES)
         return Plan("wgmma", BQ, BK, WG_THREADS, smem)
-    ld, pld = dh + 1, BK + 1
-    smem = 4 * (BQ * ld + max(BK * ld, BQ * pld) + BK * dh)
-    return Plan("fma", BQ, BK, FMA_THREADS, smem)
+    keys = 64 if dh <= 64 else 32
+    smem = 4 * f32_pitch(dh) * (BQ + STAGES * 2 * keys)
+    return Plan("split_tf32", BQ, keys, F32_THREADS, smem)
+
+
+class BwdPlan(NamedTuple):
+    threads: int
+    block: int    # rows a CTA owns: keys (dK/dV pass), query rows (dQ)
+    step: int     # rows a streamed tile: query rows (dK/dV), keys (dQ)
+    smem: int     # bytes of dynamic shared memory, both passes
+
+
+def bwd_plan(dh, dtype):
+    """The float32 backward's launch plan at head dim ``dh`` (split
+    TF32, four warps a CTA), or None for bfloat16 (its launcher sizes
+    its own TMA tiles).  Each pass holds two tiles of ``block`` rows (K
+    and V, or Q and dO) and a ring of STAGES pairs of ``step``-row tiles
+    (Q and dO, or K and V), rows of ``f32_pitch(dh)`` floats, beside the
+    dK/dV pass's lse and D of a step's rows.  block is 64, 32 at dh 256
+    (each 16-row block then split over two warps a half of the output
+    columns); step is 64, 32 above dh 64: two CTAs an SM up to dh 80,
+    one at 128 (128.5 KB) and 256 (192.5 KB)."""
+    if dtype != torch.float32:
+        return None
+    block = 32 if dh == BWD_SPLIT_DH else 64
+    step = 64 if dh <= 64 else 32
+    smem = (4 * f32_pitch(dh) * (2 * block + STAGES * 2 * step)
+            + 4 * 2 * STAGES * step)
+    return BwdPlan(F32_THREADS, block, step, smem)
 
 
 _P = ctypes.c_void_p
@@ -115,27 +159,30 @@ _F = ctypes.c_float
 
 def _lib():
     fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P]
     fn.restype = _I
     return fn
 
 
 def _bwd_lib():
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P] + [_I] * 4 + [_P]
     fn.restype = _I
     return fn
 
 
 def bwd_head_splits(B, Skv, KV, H, dh, sms):
-    """How many CTAs share one (batch, kv head, 64-key tile)'s walk over
+    """How many CTAs share one (batch, kv head, key block)'s walk over
     its group's H / KV q heads in the backward's dK/dV pass, on a card
-    of ``sms`` SMs.  At ``BWD_SPLIT_DH`` (a CTA of two warpgroups a tile,
-    one CTA an SM) enough for one CTA an SM, at most one q head a split:
-    recurrentgemma's train shape (B 4, S 512, 10:1) has 32 tiles and gets
-    5 splits of 2 heads.  Elsewhere 1: the dh <= 128 kernels walk the
-    whole group.  Each split's float32 partial dK and dV are added in
-    split order (``csrc/flash_attention_bwd.cu``: merge_dkdv)."""
+    of ``sms`` SMs.  At ``BWD_SPLIT_DH`` (one CTA an SM in both dtypes)
+    enough for one CTA an SM counting 64-key tiles, at most one q head a
+    split: recurrentgemma's train shape (B 4, S 512, 10:1) has 32 tiles
+    and gets 5 splits of 2 heads, so that under the causal mask the CTA
+    of key block 0 walks 2 heads' query tiles (the float32 kernels'
+    32-key blocks make 320 CTAs of it).  Elsewhere 1: the dh <= 128
+    kernels walk the whole group.  Each split's float32 partial dK and dV
+    are added in split order (``csrc/flash_attention_bwd.cu``:
+    merge_dkdv)."""
     if dh != BWD_SPLIT_DH:
         return 1
     tiles = -(-Skv // BK) * KV * B
@@ -182,7 +229,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     with ``return_lse`` also the float32 (B, H, Sq) row
     log-sum-exp of the scaled, soft-capped, masked scores (+inf for a
     row that sees no key)."""
-    global launches
+    global launches, f32_launches
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -217,10 +264,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                  None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV,
                  dp, int(q.dtype == torch.bfloat16),
                  int(bool(causal)), int(window), float(softcap),
-                 dh ** -0.5, q_offset, p.threads, p.smem, stream)
+                 dh ** -0.5, q_offset, p.threads, p.keys, p.smem, stream)
     build.check(err, "flash_attention")
     with build.COUNT_LOCK:
         launches += 1
+        f32_launches += q.dtype == torch.float32
     if dp != dh:
         out = out[..., :dh].contiguous()
     return (out, lse) if return_lse else out
@@ -234,18 +282,16 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     = Skv, training) or, with ``causal=False``, cross attention (Sq !=
     Skv).  CUDA tensors, contiguous; q, o, do (B, Sq, H, dh) and k, v
     (B, Skv, KV, dh) of one dtype (float32 or bfloat16); dh at most the
-    largest of the dtype's head dims, ``BWD_HEAD_DIMS`` (bfloat16, dh 80
-    and 256 included) or ``BWD_F32_HEAD_DIMS`` (float32), and padded to
-    the next one between them.  bfloat16 runs the wgmma kernels (at dh
-    256 two warpgroups a CTA, one a half of the output columns, sharing
-    each tile's scores, and the q heads of a group split over
+    largest of ``BWD_HEAD_DIMS`` (each launched as it is, and a dh
+    between them padded to the next one).  bfloat16 runs the wgmma
+    kernels (at dh 256 two warpgroups a CTA, one a half of the output
+    columns, sharing each tile's scores), float32 the split-TF32 kernels
+    (``bwd_plan``); at dh 256 both split the q heads of a group over
     ``bwd_head_splits`` CTAs whose partial dK and dV are added in split
-    order), float32 the FMA kernels.
-    Every
-    product accumulates in float32 in a fixed order (no atomics): the
-    gradients are identical run to run.  The outputs are in q's
-    dtype."""
-    global bwd_launches
+    order.  Every product accumulates in float32 in a fixed order (no
+    atomics): the gradients are identical run to run.  The outputs are
+    in q's dtype."""
+    global bwd_launches, f32_bwd_launches
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention_backward: q and k must be 4-d, "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -254,17 +300,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_backward: dtype {q.dtype} not in "
                         f"{DTYPES}")
-    if padded_head_dim(dh, BWD_HEAD_DIMS) is None:
+    dp = padded_head_dim(dh, BWD_HEAD_DIMS)
+    if dp is None:
         raise ValueError(f"flash_attention_backward: head dim {dh} above "
                          f"{BWD_HEAD_DIMS[-1]} (the attention archs' "
                          f"training widths and their smokes)")
-    dp = padded_head_dim(dh, BWD_F32_HEAD_DIMS if q.dtype == torch.float32
-                         else BWD_HEAD_DIMS)
-    if dp is None:
-        raise ValueError(f"flash_attention_backward: float32 runs head dims "
-                         f"up to {BWD_F32_HEAD_DIMS[-1]} (its FMA kernels' "
-                         f"tiles would not fit shared memory above); dh "
-                         f"{dh} trains in bfloat16")
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention_backward: {H} heads do not split "
                          f"over {KV} kv heads")
@@ -290,6 +330,7 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     d_rows = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    bp = bwd_plan(dp, q.dtype)
     splits = bwd_head_splits(
         B, Skv, KV, H, dp,
         torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -303,10 +344,12 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H,
                  KV, dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
                  int(window), float(softcap), dh ** -0.5, splits,
-                 None if part is None else part.data_ptr(), stream)
+                 None if part is None else part.data_ptr(),
+                 *(bp if bp is not None else (0, 0, 0, 0)), stream)
     build.check(err, "flash_attention_backward")
     with build.COUNT_LOCK:
         bwd_launches += BWD_KERNELS
+        f32_bwd_launches += BWD_KERNELS * (q.dtype == torch.float32)
     if dp != dh:
         dq, dk, dv = (t[..., :dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

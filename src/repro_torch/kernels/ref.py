@@ -129,6 +129,83 @@ def attention_backward_plain(q, k, v, o, do, lse, *, causal=True, window=0,
             dv.to(v.dtype))
 
 
+def tf32_rna(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it:
+    to nearest, ties away from zero, 10 mantissa bits, the low 13 bits
+    of the float32 pattern zero: ``(bits + 0x1000) & 0xFFFFE000`` on
+    the int32 view (sign and magnitude, so adding half a TF32 ulp and
+    truncating rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_einsum(eq, a, b):
+    """``torch.einsum(eq, a, b)`` of float32 operands as the split-TF32
+    kernels take it (``csrc/hopper.cuh: mma_split``): each operand is
+    big = tf32(x) plus small = tf32(x - big), and the product is
+    small·big + big·small + big·big, each term's products exact and
+    summed in float32; small·small (about 2^-22 of a term) is dropped."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+    return (torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def attention_split_tf32_plain(q, k, v, *, causal=True, window=0,
+                               softcap=0.0, q_offset=0, return_lse=False):
+    """float32 attention in the arithmetic of K3's float32 kernel
+    (``csrc/flash_attention.cu``: flash_attention_tf32): ``attention_plain``
+    with Q K^T and P·V as split-TF32 products (``split_tf32_einsum``),
+    the scale applied to the raw scores.  float32 inputs; returns o and,
+    with ``return_lse``, the (B, H, Sq) row log-sum-exp."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    s = split_tf32_einsum("bqkgd,bskd->bkgqs", q.reshape(B, Sq, KV, g, dh),
+                          k) * dh ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    m = _mask(qpos, Skv, causal, window, q.device)[None, None, None]
+    s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = split_tf32_einsum("bkgqs,bskd->bqkgd", p, v).reshape(B, Sq, H, dh)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
+
+
+def attention_backward_split_tf32_plain(q, k, v, o, do, lse, *, causal=True,
+                                        window=0, softcap=0.0):
+    """``attention_backward_plain`` in the arithmetic of N1's float32
+    kernels (``csrc/flash_attention_bwd.cu``: bwd_dkdv_tf32, bwd_dq_tf32):
+    S, dP, dV, dK and dQ as split-TF32 products (``split_tf32_einsum``),
+    P, D and dS in float32.  float32 inputs and outputs."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = dh ** -0.5
+    qf = q.reshape(B, Sq, KV, g, dh)
+    gf = do.reshape(B, Sq, KV, g, dh)
+    s = split_tf32_einsum("bqkgd,bskd->bkgqs", qf, k) * scale
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    m = _mask(torch.arange(Sq, device=q.device), Skv, causal, window,
+              q.device)[None, None, None]
+    p = torch.where(m, torch.exp(s - lse.reshape(B, KV, g, Sq, 1)),
+                    torch.zeros_like(s))
+    dv = split_tf32_einsum("bkgqs,bqkgd->bskd", p, gf)
+    dp = split_tf32_einsum("bqkgd,bskd->bkgqs", gf, v)
+    d_rows = (do * o).sum(-1).reshape(B, Sq, KV, g)
+    ds = p * (dp - d_rows.permute(0, 2, 3, 1)[..., None])
+    if softcap > 0:
+        ds = ds * (1 - t * t)
+    dq = split_tf32_einsum("bkgqs,bskd->bqkgd", ds, k) * scale
+    dk = split_tf32_einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return dq.reshape(B, Sq, H, dh), dk, dv
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU linear recurrence (RecurrentGemma / Griffin)
 # ---------------------------------------------------------------------------

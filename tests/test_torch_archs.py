@@ -406,21 +406,22 @@ def test_serve_cli_on_the_cpu(arch, path, capsys):
 
 
 def test_head_dim_80_pads_to_128_exactly():
-    """K3, and N1 in bfloat16, launch stablelm's head dim 80 as it is;
-    N1 in float32 (the FMA kernels, only the float32 smokes reach it)
-    pads it to 128, exactly: zero columns leave q·k and the output's
-    first 80 columns as they are, given the true dim's scale (here folded
-    into q for the plain version, which takes its scale from the head
-    dim)."""
+    """K3 and N1, in both dtypes, launch stablelm's head dim 80 and
+    recurrentgemma's 256 as they are (the float32 backward's split-TF32
+    kernels too: no pad of 80 to 128, no refusal at 256); a head dim
+    between the kernels' own pads to the next one, exactly: zero columns
+    leave q·k and the output's first 80 columns as they are, given the
+    true dim's scale (here folded into q for the plain version, which
+    takes its scale from the head dim), shown at 80 padded to 128."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     assert [fa.padded_head_dim(d) for d in (16, 32, 48, 80, 128, 200, 256,
                                              257)] == \
         [32, 32, 64, 80, 128, 256, 256, None]
     assert fa.padded_head_dim(80, fa.BWD_HEAD_DIMS) == 80
-    assert fa.padded_head_dim(80, fa.BWD_F32_HEAD_DIMS) == 128
+    assert fa.bwd_plan(80, torch.float32).smem <= fa.SMEM_MAX
     assert fa.padded_head_dim(256, fa.BWD_HEAD_DIMS) == 256
-    assert fa.padded_head_dim(256, fa.BWD_F32_HEAD_DIMS) is None
+    assert fa.bwd_plan(256, torch.float32).block == 32
     assert fa.padded_head_dim(257, fa.BWD_HEAD_DIMS) is None
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((2, 40, n, 80), generator=g) for n in (4, 2, 2))

@@ -1,7 +1,6 @@
 """The MoE slice's archs on the card: flash attention (K3) at
 stablelm's head dim 80 (launched at 80: one device kernel a call) and
-its backward (N1, at 80 in bfloat16, padded to 128 on the head axis in
-float32), the two joined by
+its backward (N1, at 80 in both dtypes), the two joined by
 ``FlashAttention``, K3 at granite's MQA group (48 q heads on one kv
 head), the MoE layer run to run, and each new smoke's logits against
 the CPU's.
@@ -141,7 +140,7 @@ def test_k3_at_head_dim_80_runs_one_device_kernel(cuda):
 def test_flash_attention_autograd_at_head_dim_80(cuda, dtype, window,
                                                  softcap):
     """``FlashAttention`` at dh 80, a native forward joined to N1 (native
-    in bfloat16, padded to 128 in float32): the output against the plain
+    in both dtypes): the output against the plain
     forward, dq, dk and dv against
     ``ref.attention_backward_plain`` from the plain forward's own o and
     LSE within N1's tolerance of the largest |gradient|, one forward

@@ -120,8 +120,9 @@ def test_gemma2_train_shape_matches_plain(cuda, window):
 @pytest.mark.parametrize("dh", [32, 64, 128])
 def test_backward_runs_the_dtypes_kernels(cuda, dtype, dh):
     """bfloat16 runs the TMA + wgmma kernels (bwd_dkdv_wgmma,
-    bwd_dq_wgmma), float32 the FMA kernels (bwd_dkdv, bwd_dq), at the
-    call's head dim, as the profiler sees them; both after bwd_dot."""
+    bwd_dq_wgmma), float32 the split-TF32 kernels (bwd_dkdv_tf32,
+    bwd_dq_tf32), at the call's head dim, as the profiler sees them; both
+    after bwd_dot."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     q, k, v, do = _qkv(cuda, 2, 128, 4, 2, dh, dtype)
@@ -136,7 +137,8 @@ def test_backward_runs_the_dtypes_kernels(cuda, dtype, dh):
     assert any("bwd_dot" in n for n in names), names
     for kernel in ("bwd_dkdv", "bwd_dq"):
         runs = [n for n in names if kernel in n]
-        assert runs and all(("wgmma" in n) == wgmma and f"<{dh}" in n
+        assert runs and all(("wgmma" in n) == wgmma and
+                            ("tf32" in n) != wgmma and f"<{dh}" in n
                             for n in runs), names
 
 
@@ -347,7 +349,8 @@ def test_backward_kernel_at_dh256_matches_plain(cuda, B, S, H, KV, window,
     dK and dV added in split order), within 2e-2 of the largest
     |gradient| of
     ``ref.attention_backward_plain``, identical run to run, through
-    windows, caps and MQA; float32 at 256 is refused."""
+    windows, caps and MQA; float32 at 256 runs too (the split-TF32
+    kernels, the same head splits), within 1e-5."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v, do = _qkv(cuda, B, S, H, KV, 256, torch.bfloat16, seed=S + H)
@@ -361,9 +364,61 @@ def test_backward_kernel_at_dh256_matches_plain(cuda, B, S, H, KV, window,
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
         scale = float(w.float().abs().max())
         assert float((a.float() - w.float()).abs().max()) <= 2e-2 * scale
-    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
-    with pytest.raises(ValueError, match="float32"):
-        fa.flash_attention_backward(qf, kf, vf, of, dof, lse, **kw)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    of, lsef = fa.flash_attention(qf, kf, vf, return_lse=True, **kw)
+    got = fa.flash_attention_backward(qf, kf, vf, of, dof, lsef, **kw)
+    want = ref.attention_backward_plain(qf, kf, vf, of, dof, lsef, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+# float32 N1 at its new native head dims: (label, B, Sq, Skv, H, KV, dh,
+# causal, window, softcap): stablelm-3b's train shape, a window under a
+# cap at a ragged S, recurrentgemma-2b's (4, 512, 10:1, window 2048: 5
+# head splits), a ragged 20:2 group under a cap, and
+# non-causal cross attention over Sq != Skv (N1b)
+F32_NATIVE = [("dh80_stablelm", 4, 512, 512, 32, 32, 80, True, 0, 0.0),
+              ("dh80_window_cap", 1, 300, 300, 8, 8, 80, True, 100, 30.0),
+              ("dh80_cross", 2, 64, 300, 4, 4, 80, False, 0, 0.0),
+              ("dh256_recurrentgemma", 4, 512, 512, 10, 1, 256, True, 2048,
+               0.0),
+              ("dh256_ragged_cap", 1, 777, 777, 20, 2, 256, True, 0, 30.0),
+              ("dh256_cross", 2, 64, 300, 4, 1, 256, False, 0, 0.0)]
+
+
+@pytest.mark.parametrize("label,B,Sq,Skv,H,KV,dh,causal,window,softcap",
+                         F32_NATIVE, ids=[c[0] for c in F32_NATIVE])
+def test_float32_backward_at_native_head_dims(cuda, label, B, Sq, Skv, H,
+                                              KV, dh, causal, window,
+                                              softcap):
+    """float32 N1 at dh 80 (no pad to 128) and 256 (once refused): K3's
+    output within 2e-5 of ``ref.attention_ref`` and its LSE within 1e-5
+    of ``ref.attention_plain``'s; N1's gradients within 1e-5 of the
+    largest |gradient| of ``ref.attention_backward_plain``, identical run
+    to run, three launches a call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=cuda).manual_seed(Sq + dh)
+    q, do = (torch.randn((B, Sq, H, dh), generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn((B, Skv, KV, dh), generator=g, device=cuda)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want_o, want_lse = ref.attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o, want_o, atol=2e-5, rtol=2e-5)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    n = fa.bwd_launches
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    assert fa.bwd_launches - n == fa.BWD_KERNELS
+    again = fa.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 PROFILE_N1_AT_80 = """

@@ -529,6 +529,36 @@ def test_gemma2_train_cut_fits_one_card_by_the_dry_run():
     assert price(full)[0] > analysis.HBM_BYTES
 
 
+def test_recurrentgemma_f32_train_fits_one_card_by_the_dry_run():
+    """chip_smoke's recurrentgemma-2b in float32
+    (``recurrentgemma_f32_config``: all 26 layers, full width) priced at
+    lm_train's step (B 4 x S 512, remat, AdamW, float32 masters) on one
+    device: a predicted peak of at most 72 GB; its 8 local-attention
+    layers' 16 K3 and 24 N1 launches a step, and 36 K4 and 18 N2a calls,
+    equal to ``train_launches``; and ``step_launches`` counts every K3
+    and N1 launch as the float32 kernels' (none in the bf16 config)."""
+    import chip_smoke
+    cfg = chip_smoke.recurrentgemma_f32_config()
+    assert (cfg.dtype, cfg.num_layers) == ("float32", 26)
+    assert cfg.replace(dtype="bfloat16") == get_config("recurrentgemma-2b")
+    want = chip_smoke.train_launches(cfg)
+    row = chip_smoke.dryrun_train("cpu", {
+        "step_ms_median_last6": 1.0, "peak_mem_bytes": 1 << 40,
+        "launches_per_step": chip_smoke.step_launches(cfg)}, cfg)
+    assert row["predicted_launches_per_step"] == {
+        k: v for k, v in want.items() if v}
+    assert row["predicted_kernel_calls"] == {
+        "flash_attention": 16, "flash_attention_backward": 8,
+        "rglru_scan": 36, "rglru_scan_backward": 18}
+    assert row["predicted"]["peak_memory_bytes"] <= 72e9
+    f32 = chip_smoke.step_launches(cfg)
+    assert (f32["flash_attention_f32"], f32["flash_attention_backward_f32"]) \
+        == (16, 24)
+    bf16 = chip_smoke.step_launches(get_config("recurrentgemma-2b"))
+    assert (bf16["flash_attention_f32"],
+            bf16["flash_attention_backward_f32"]) == (0, 0)
+
+
 def test_adamw_on_the_tied_embedding_sets_the_gemma2_cut_peak():
     """``tools/train_peak.py`` at gemma2_train's cut and step: the peak
     of live storages is reached inside AdamW's update (at the root of

@@ -257,15 +257,20 @@ def test_flash_attention_launch_plan(dh, dtype):
     """The attention kernel's launch plan (``flash_attention.plan``):
     every bfloat16 head dim takes the wgmma path (a warpgroup of 64 query
     rows and a producer warp, a 2-stage K/V ring; two CTAs an SM at dh
-    <= 128, three at stablelm's dh 80), float32 the FMA path; the shared
-    memory the launcher asks for stays within what one CTA may opt into
-    on the H100 (232,448 bytes), and the threads are whole warps."""
+    <= 128, three at stablelm's dh 80), float32 the split-TF32 path (four
+    warps of 16 rows, a 2-stage ring of K/V tiles of 64 keys, 32 above dh
+    64, rows of whole 128-byte lines); the float32 backward's plan
+    (``bwd_plan``) holds two 64-row blocks (32 at dh 256) and a 2-stage
+    ring of 64-row steps (32 above dh 64) beside a step's lse and D.
+    The shared memory each launcher asks for stays within what one CTA
+    may opt into on the H100 (232,448 bytes), and the threads are whole
+    warps."""
     from repro_torch.kernels import flash_attention as fa
     p = fa.plan(dh, dtype)
-    assert p.keys == 64 and p.threads % 32 == 0
+    assert p.threads % 32 == 0
     assert 0 < p.smem <= fa.SMEM_MAX == 232_448
     if dtype == torch.bfloat16:
-        assert (p.path, p.rows, p.threads) == ("wgmma", 64, 160)
+        assert (p.path, p.rows, p.keys, p.threads) == ("wgmma", 64, 64, 160)
         # a Q tile and a 2-stage K/V ring of 64 x dh bf16 tiles, 9
         # barriers, and the 1 KB alignment slack
         tile = 64 * dh * 2
@@ -274,11 +279,29 @@ def test_flash_attention_launch_plan(dh, dtype):
             assert 2 * p.smem <= 228 * 1024
         if dh == 80:    # three: five 2 KB boxes a tile
             assert p.smem == 52_296 and 3 * p.smem <= 228 * 1024
+        assert fa.bwd_plan(dh, dtype) is None
     else:
-        assert (p.path, p.rows, p.threads) == ("fma", 64, 256)
-        # Q, the K tile or the P tile over it, V; rows padded by 1
-        assert p.smem == 4 * (64 * (dh + 1) + 64 * max(dh + 1, 65)
-                              + 64 * dh)
+        keys = 64 if dh <= 64 else 32
+        assert (p.path, p.rows, p.keys, p.threads) == ("split_tf32", 64,
+                                                       keys, 128)
+        pitch = fa.f32_pitch(dh)
+        assert pitch % 32 == 0 and dh <= pitch < dh + 32
+        # Q, and 2 stages of K and V
+        assert p.smem == 4 * pitch * (64 + 2 * 2 * keys)
+        # five CTAs an SM at dh 32, three at 80, two at 64 and 128, one
+        # at 256
+        ctas = {32: 5, 64: 2, 80: 3, 128: 2, 256: 1}[dh]
+        assert ctas * (p.smem + 1024) <= 228 * 1024 < \
+            (ctas + 1) * (p.smem + 1024)
+        bp = fa.bwd_plan(dh, dtype)
+        block = 32 if dh == 256 else 64
+        step = 64 if dh <= 64 else 32
+        assert (bp.threads, bp.block, bp.step) == (128, block, step)
+        assert bp.smem == 4 * pitch * (2 * block + 2 * 2 * step) + \
+            4 * 2 * 2 * step
+        assert bp.smem <= fa.SMEM_MAX
+        # two CTAs an SM up to dh 80, one above
+        assert (2 * (bp.smem + 1024) <= 228 * 1024) == (dh <= 80)
 
 
 @pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])

@@ -11,40 +11,51 @@ rglru_scan_bwd,wkv6_bwd}.cu`` is built with the port's own nvcc command
 into
 ``build/kernels/ab/`` and called through its C entry point on the same
 inputs, at the main paths' shapes: K1 at the round's (M 5, T 6105, U 2,
-noise) and at the L2 token vote's (M 5, T 1024, U 200,064, noise), K3 at
-(a) the phi4-mini prefill (8 x 512, 24:8, dh 128) and (f) the
-stablelm-3b prefill (4 x 1024, 32:32, dh 80), bf16, causal, K4 at the
+noise) and at the L2 token vote's (M 5, T 1024, U 200,064, noise); K3
+in bf16 at (a) the phi4-mini prefill (8 x 512, 24:8, dh 128) and (f)
+the stablelm-3b prefill (4 x 1024, 32:32, dh 80), causal, and in
+float32 at (c) MQA (2 x 384, 8:1, dh 128), (f') stablelm's prefill,
+(l') whisper-tiny's cross attention (8, 64 x 1500, 6:6, dh 64,
+non-causal) and (r) recurrentgemma-2b's float32 train forward (4 x
+512, 10:1, dh 256, window 2048, the row LSE written); K4 at the
 recurrentgemma-2b prefill (4 x 1024 x 2560, bf16) and at its train
 shape (4 x 512 x 2560) as training calls it (a tree whose K4 writes
-checkpoints writes them), N1 at phi4-mini's training shape (B 4, S 512,
-24:8, dh 128, causal), at whisper-tiny's (m) encoder (8, 1500 x 1500,
-6:6, dh 64) and (n) cross attention (8, 128 x 1500), at recurrentgemma-
-2b's local attention in training (4, 512, 10:1, dh 256, window 2048)
-and at stablelm-3b's (4, 512, 32:32, dh 80, causal), bf16, from this
-tree's forward (K3) o and row log-sum-exp, N2a at recurrentgemma-2b's
-train shape (x, log_a, dh (4, 512, 2560) bf16, h0 and dh_last
-nonzero), at S 1024, at a ragged S 1000 and in float32 (2, 1000, 512),
-and N2b at rwkv6-7b's training shape (r, k, v, w, dO (4, 512, 64, 64)
-bf16, zero s0, no ds_last).  A tree whose K3 or N1 has no dh-80 kernel
-(the parent of the native dh 80) is called at dh 80 as its wrapper
-called it: the inputs zero-padded to dh 128 by ``F.pad``, a launch at
-128 with the scale 80^-0.5, the outputs sliced back to 80; the
-profiler's device time of a call sums every kernel it runs, so the
-copies count.  A tree whose N1 entry point takes no head-split count
-(the parent of the dh-256 split) is called with its own signature; a
-tree's N2b is called with its wrapper's ``BWD_CHUNK`` and workspaces
-sized for the smaller chunk.  N2a is called as each tree's
-``RGLRUScan`` calls it in training: a tree whose K4 writes checkpoints
-(``CHECKPOINT_STEPS`` per dtype) hands them to it; a tree whose entry
-points take none (the parent of the checkpoints) is called with its own
-signature, its N2a writing its own into a workspace sized by its
-``CHECKPOINT_STEPS``.  N2a's outputs are held bit for bit to
-``ref.rglru_scan_backward_plain``.  K1
-and K4 outputs are held bit for bit to the plain version
-(``kernels/ref.py``); K3's to ``ref.attention_ref``
-within ``chip_smoke.ATT_TOL``; N1's to ``ref.attention_backward_plain``
-within ``chip_smoke.ATT_TOL`` of the largest |gradient| (bf16 rounds P
-and dS before their products, the plain version does not); N2b's to
+checkpoints writes them); N1 in bf16 at phi4-mini's training shape (B
+4, S 512, 24:8, dh 128, causal), at whisper-tiny's (m) encoder (8, 1500
+x 1500, 6:6, dh 64) and (n) cross attention (8, 128 x 1500), at
+recurrentgemma-2b's local attention in training (4, 512, 10:1, dh 256,
+window 2048) and at stablelm-3b's (4, 512, 32:32, dh 80, causal), and
+in float32 at phi4's, stablelm's and recurrentgemma's train shapes, at
+a dh-32 one (2, 384, 8:2, window 64) and at whisper's (m), from this
+tree's forward (K3) o and row log-sum-exp; N2a at recurrentgemma-2b's
+train shape (x, log_a, dh (4, 512, 2560) bf16, h0 and dh_last nonzero),
+at S 1024, at a ragged S 1000 and in float32 (2, 1000, 512); and N2b at
+rwkv6-7b's training shape (r, k, v, w, dO (4, 512, 64, 64) bf16, zero
+s0, no ds_last).  Each tree's K3 is launched with its own ``plan``
+(keys a tile too, where its launcher takes them) and its N1 with its
+own float32 ``bwd_plan`` where it has one.  A tree whose K3 or N1 has
+no dh-80 kernel (the parent of a native dh 80: in bf16 once, and
+float32 N1 before the split-TF32 kernels) is called at dh 80 as its
+wrapper called it: the inputs zero-padded to dh 128 by ``F.pad``, a
+launch at 128 with the scale 80^-0.5, the outputs sliced back to 80;
+the profiler's device time of a call sums every kernel it runs, so the
+copies count.  A tree whose wrapper refused a float32 head dim (N1 at
+dh 256 before the split-TF32 kernels) is not called there: its row
+reads null times and "refused".  A tree whose N1 entry point takes no
+head-split count (the parent of the dh-256 split) is called with its
+own signature; a tree's N2b is called with its wrapper's ``BWD_CHUNK``
+and workspaces sized for the smaller chunk.  N2a is called as each
+tree's ``RGLRUScan`` calls it in training: a tree whose K4 writes
+checkpoints (``CHECKPOINT_STEPS`` per dtype) hands them to it; a tree
+whose entry points take none (the parent of the checkpoints) is called
+with its own signature, its N2a writing its own into a workspace sized
+by its ``CHECKPOINT_STEPS``.  N2a's outputs are held bit for bit to
+``ref.rglru_scan_backward_plain``.  K1 and K4 outputs are held bit for
+bit to the plain version (``kernels/ref.py``); K3's to
+``ref.attention_ref`` within ``chip_smoke.ATT_TOL``; N1's to
+``ref.attention_backward_plain`` within ``chip_smoke.BWD_TOL`` of the
+largest |gradient| (2e-2 bf16: it rounds P and dS before their
+products, the plain version does not; 1e-5 float32); N2b's to
 ``ref.wkv6_backward_plain`` within 2e-2 of each output's largest
 |gradient|; K3, N1 and N2b identical run to run.  Then the trees are
 timed in turns (parent, change, change, parent), each turn's mean over
@@ -53,7 +64,11 @@ back-to-back calls, around a CUDA graph of the 20 launches, and from the
 profiler's kernel durations; beside each K3 case, one
 ``scaled_dot_product_attention`` call under ``is_causal`` on its
 fastest backend (``chip_smoke.sdpa_best``), beside each N1 case its
-backward (``chip_smoke.sdpa_backward_best``), both by CUDA events.
+backward (``chip_smoke.sdpa_backward_best``), both by CUDA events (in
+float32 too, where SDPA runs on the tensor cores in split TF32; none
+where a window shorter than the keys binds).  Bounds are
+``chip_smoke.attention_bound``'s: float32 on the TF32 tensor cores,
+three TF32 products a float32 one.
 Prints one JSON line a turn, then the card's name and power limit.
 Needs a card and nvcc.
 """
@@ -61,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
@@ -75,11 +91,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import (ATT_TOL, bound, cuda_ms, graph_ms,  # noqa: E402
-                        same_bits, sdpa_backward_best, sdpa_best,
-                        wkv_backward_bound)
+from chip_smoke import (ATT_TOL, BWD_TOL, attention_bound,  # noqa: E402
+                        bound, cuda_ms, graph_ms, same_bits,
+                        sdpa_backward_best, sdpa_best, wkv_backward_bound)
 from repro_torch.kernels import build, ref  # noqa: E402
-from repro_torch.launch.analysis import PEAK_FLOPS  # noqa: E402
 
 NAMES = ("vote_aggregate", "flash_attention", "rglru_scan",
          "flash_attention_bwd", "rglru_scan_bwd", "wkv6_bwd")
@@ -127,11 +142,14 @@ def build_tree(tree: Path, tag: str):
         libs = dict(pool.map(one, NAMES))
     va = libs["vote_aggregate"].vote_aggregate_launch
     va.argtypes, va.restype = [_P] * 7 + [_I] * 3 + [_P], _I
-    k3 = libs["flash_attention"].flash_attention_launch
-    k3.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P]
-    k3.restype = _I
     csrc = tree / "src" / "repro_torch" / "csrc"
     kernels = tree / "src" / "repro_torch" / "kernels"
+    k3_src = (csrc / "flash_attention.cu").read_text()
+    k3_keys = "int keys" in k3_src
+    k3 = libs["flash_attention"].flash_attention_launch
+    k3.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F] + [_I] * (
+        4 if k3_keys else 3) + [_P]
+    k3.restype = _I
     ckpt = "void* ckpt" in (csrc / "rglru_scan.cu").read_text()
     rg = libs["rglru_scan"].rglru_scan_launch
     rg.argtypes = [_P] * 6 + [_I] * 5 + [_P] if ckpt else \
@@ -147,18 +165,29 @@ def build_tree(tree: Path, tag: str):
                 for dt in (torch.bfloat16, torch.float32)}
     bwd_src = (csrc / "flash_attention_bwd.cu").read_text()
     splits = "int splits" in bwd_src
+    n1_plan = "int step" in bwd_src
     n1 = libs["flash_attention_bwd"].flash_attention_bwd_launch
     n1.argtypes = [_P] * 10 + [_I] * 9 + [_F] * 2 + (
-        [_I, _P, _P] if splits else [_P])
+        [_I, _P] if splits else []) + [_I] * (4 if n1_plan else 0) + [_P]
     n1.restype = _I
     wk = libs["wkv6_bwd"].wkv6_bwd_launch
     wk.argtypes, wk.restype = [_P] * 16 + [_I] * 6 + [_P], _I
     chunk = int(re.search(
         r"^BWD_CHUNK = (\d+)", (tree / "src" / "repro_torch" / "kernels" /
                                 "wkv6.py").read_text(), re.M).group(1))
-    k3_dh80 = "case 80" in (csrc / "flash_attention.cu").read_text()
+    k3_dh80 = "case 80" in k3_src
+    spec = importlib.util.spec_from_file_location(
+        f"flash_attention_{tag}", kernels / "flash_attention.py")
+    tree_fa = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tree_fa)
+    # the tree's own float32 backward head dims: a dh between them its
+    # wrapper padded, a dh above them it refused
+    f32_dims = getattr(tree_fa, "BWD_F32_HEAD_DIMS", tree_fa.BWD_HEAD_DIMS)
     SIGNATURES[tag] = {"n1_splits": splits, "n1_dh80": "case 80" in bwd_src,
-                       "k3_dh80": k3_dh80,
+                       "k3_dh80": k3_dh80, "k3_keys": k3_keys,
+                       "k3_plan": tree_fa.plan, "n1_plan": n1_plan,
+                       "bwd_plan": getattr(tree_fa, "bwd_plan", None),
+                       "n1_f32_dims": f32_dims,
                        "wkv_chunk": chunk, "rglru_ckpt": ckpt,
                        "rglru_chunk": rg_chunk}
     return {"vote_aggregate": va, "flash_attention": k3, "rglru_scan": rg,
@@ -300,24 +329,32 @@ def rglru_bwd_case(label, B, S, D, dt, g):
     return shape, call, check, bound(nbytes, 7 * B * S * D), None
 
 
-def attention_case(label, B, S, H, KV, dh, g):
-    """K3 at one causal prefill shape in bf16, the output preallocated.
-    At dh 80 a tree with no dh-80 kernel is called as its wrapper called
-    it: pad to 128, launch and slice."""
-    from repro_torch.kernels import flash_attention as fa
+def attention_case(label, B, Sq, Skv, H, KV, dh, causal, window, lse, dt,
+                   g):
+    """K3 at one shape in ``dt`` (the row LSE written where ``lse``), the
+    outputs preallocated, each tree launched with its own plan (its
+    ``plan``, and keys a tile where its launcher takes them).  At dh 80
+    a tree with no dh-80 kernel is called as its wrapper called it: pad
+    to 128, launch and slice."""
     from repro_torch.kernels.meta import valid_pairs
-    q = torch.randn((B, S, H, dh), device="cuda", generator=g).bfloat16()
-    k, v = (torch.randn((B, S, KV, dh), device="cuda", generator=g)
-            .bfloat16() for _ in range(2))
+    q = torch.randn((B, Sq, H, dh), device="cuda", generator=g).to(dt)
+    k, v = (torch.randn((B, Skv, KV, dh), device="cuda", generator=g)
+            .to(dt) for _ in range(2))
     out = torch.empty_like(q)
+    lse_out = torch.empty((B, H, Sq), device="cuda") if lse else None
+    kw = dict(causal=causal, window=window)
 
-    def launch(fn, q, k, v, o):
+    def launch(fn, tree, q, k, v, o):
         d = q.shape[-1]
-        p = fa.plan(d, torch.bfloat16)
+        sig = SIGNATURES[tree]
+        p = sig["k3_plan"](d, dt)
+        geometry = (p.threads, p.keys, p.smem) if sig["k3_keys"] else \
+            (p.threads, p.smem)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None, B, S, S, H, KV, d, 1, 1, 0, 0.0, dh ** -0.5, 0,
-                 p.threads, p.smem, stream)
+                 None if lse_out is None else lse_out.data_ptr(), B, Sq,
+                 Skv, H, KV, d, int(dt == torch.bfloat16), int(causal),
+                 window, 0.0, dh ** -0.5, 0, *geometry, stream)
         build.check(err, "flash_attention")
 
     def padded(tree):
@@ -327,12 +364,12 @@ def attention_case(label, B, S, H, KV, dh, g):
         if padded(tree):
             qp, kp, vp = (F.pad(t, (0, 128 - dh)) for t in (q, k, v))
             op = torch.empty_like(qp)
-            launch(fn, qp, kp, vp, op)
+            launch(fn, tree, qp, kp, vp, op)
             return (op[..., :dh].contiguous(),)
-        launch(fn, q, k, v, out)
+        launch(fn, tree, q, k, v, out)
         return (out,)
-    want = ref.attention_ref(q, k, v, causal=True)
-    tol = ATT_TOL[torch.bfloat16]
+    want = ref.attention_ref(q, k, v, **kw)
+    tol = ATT_TOL[dt]
 
     def check(call, fn, tree):
         got = call(fn, tree)[0].clone()
@@ -345,68 +382,103 @@ def attention_case(label, B, S, H, KV, dh, g):
                               rtol=tol):
             raise AssertionError(f"K3 {label}: max |err| {err}")
         return {"max_abs_err": err, "tol": tol, "run_to_run": True,
-                "launched_dh": 128 if padded(tree) else dh}
+                "launched_dh": 128 if padded(tree) else dh,
+                "plan": SIGNATURES[tree]["k3_plan"](
+                    128 if padded(tree) else dh, dt)._asdict()}
 
     def library():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms, backend, out_t = sdpa_best(qt, kt, vt, is_causal=True)
+        extra = {"is_causal": True} if causal else {}
+        ms, backend, out_t = sdpa_best(qt, kt, vt, **extra)
         torch.testing.assert_close(out_t.transpose(1, 2).float(),
                                    want.float(), atol=tol, rtol=tol)
         return {"event_ms": ms, "backend": backend}
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    nops = 4 * B * H * valid_pairs(S, S, True, 0) * dh
-    shape = {"shape": label, "B": B, "S": S, "H": H, "KV": KV, "dh": dh,
-             "causal": True, "dtype": "bfloat16"}
-    return (shape, call, check, bound(nbytes, nops, PEAK_FLOPS),
-            library)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + (
+        4 * B * H * Sq if lse else 0)
+    nops = 4 * B * H * valid_pairs(Sq, Skv, causal, window) * dh
+    shape = {"shape": label, "B": B, "Sq": Sq, "Skv": Skv, "H": H, "KV": KV,
+             "dh": dh, "causal": causal, "window": window, "lse": lse,
+             "dtype": str(dt).split(".")[1]}
+    # SDPA computes the same function where the window covers the keys
+    lib = library if window == 0 or window >= Skv else None
+    return shape, call, check, attention_bound(nbytes, nops, dt), lib
 
 
-def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, g):
-    """N1 at one shape in bf16: inputs from ``g``, o and the row
+def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, dt,
+                       g):
+    """N1 at one shape in ``dt``: inputs from ``g``, o and the row
     log-sum-exp from this tree's forward kernel, outputs preallocated; a
     tree that splits the dK/dV walk gets its split count
-    (``bwd_head_splits``) and its partials' workspace; at dh 80 a tree
-    with no dh-80 backward is called padded to 128, as its wrapper
-    did."""
+    (``bwd_head_splits``) and its partials' workspace, a tree whose
+    launcher takes the float32 plan gets its ``bwd_plan``.  A head dim
+    the tree's wrapper padded (bf16 dh 80 before its native kernel;
+    float32 dh 80 before the split-TF32 kernels) is called padded to
+    128, as that wrapper did; one it refused (float32 dh 256 before
+    them) is not called, and its time is null."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.meta import valid_pairs
     q, do = (torch.randn((B, Sq, H, dh), device="cuda", generator=g)
-             .bfloat16() for _ in range(2))
+             .to(dt) for _ in range(2))
     k, v = (torch.randn((B, Skv, KV, dh), device="cuda", generator=g)
-            .bfloat16() for _ in range(2))
+            .to(dt) for _ in range(2))
     kw = dict(causal=causal, window=window)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
     d_rows = torch.empty((B, H, Sq), device="cuda")
-    splits = fa.bwd_head_splits(
-        B, Skv, KV, H, dh,
-        torch.cuda.get_device_properties(0).multi_processor_count)
-    part = torch.empty((2, splits, B, Skv, KV, dh), device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def launched_dh(tree):
+        sig = SIGNATURES[tree]
+        if dt == torch.float32:
+            return fa.padded_head_dim(dh, sig["n1_f32_dims"])
+        return dh if dh != 80 or sig["n1_dh80"] else 128
+
+    def geometry(tree, d):
+        sig = SIGNATURES[tree]
+        bp = sig["bwd_plan"](d, dt) if sig["bwd_plan"] else None
+        splits = fa.bwd_head_splits(B, Skv, KV, H, d, sms)
+        if not sig["n1_splits"] or (dt == torch.float32 and bp is None):
+            splits = 1
+        return bp, splits
 
     def launch(fn, tree, ins, grads):
+        sig = SIGNATURES[tree]
+        d = ins[0].shape[-1]
+        bp, splits = geometry(tree, d)
+        part = (torch.empty((2, splits, B, Skv, KV, d), device="cuda")
+                if splits > 1 else None)
         stream = torch.cuda.current_stream().cuda_stream
         args = [*(t.data_ptr() for t in ins[:5]), lse.data_ptr(),
                 d_rows.data_ptr(), *(t.data_ptr() for t in grads), B, Sq,
-                Skv, H, KV, ins[0].shape[-1], 1, int(causal), window, 0.0,
-                dh ** -0.5]
-        if SIGNATURES[tree]["n1_splits"]:
-            args += [splits, part.data_ptr() if splits > 1 else None]
+                Skv, H, KV, d, int(dt == torch.bfloat16), int(causal),
+                window, 0.0, dh ** -0.5]
+        if sig["n1_splits"]:
+            args += [splits, None if part is None else part.data_ptr()]
+        if sig["n1_plan"]:
+            args += list(bp) if bp is not None else [0, 0, 0, 0]
         err = fn(*args, stream)
         build.check(err, "flash_attention_backward")
 
     def call(fn, tree):
-        if dh == 80 and not SIGNATURES[tree]["n1_dh80"]:
-            ins = [F.pad(t, (0, 128 - dh)) for t in (q, k, v, o, do)]
+        d = launched_dh(tree)
+        if d is None:
+            return None
+        if d != dh:
+            ins = [F.pad(t, (0, d - dh)) for t in (q, k, v, o, do)]
             grads = [torch.empty_like(t) for t in ins[:3]]
             launch(fn, tree, ins, grads)
             return tuple(t[..., :dh].contiguous() for t in grads)
         launch(fn, tree, (q, k, v, o, do), outs)
         return outs
     want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
-    tol = ATT_TOL[torch.bfloat16]
+    tol = BWD_TOL[dt]
 
     def check(call, fn, tree):
-        got = [t.clone() for t in call(fn, tree)]
+        first = call(fn, tree)
+        if first is None:
+            return {"refused": f"the tree's wrapper refuses float32 dh {dh}",
+                    "launched_dh": None}
+        got = [t.clone() for t in first]
         again = call(fn, tree)
         torch.cuda.synchronize()
         rel = 0.0
@@ -419,21 +491,21 @@ def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, g):
             raise AssertionError(f"N1 {label}: {rel} > {tol} of the "
                                  f"largest |gradient|")
         return {"max_rel_err": rel, "tol": tol, "run_to_run": True,
-                "head_splits": splits if SIGNATURES[tree]["n1_splits"]
-                else 1, "launched_dh": 128 if dh == 80 and not
-                SIGNATURES[tree]["n1_dh80"] else dh}
+                "head_splits": geometry(tree, launched_dh(tree))[1],
+                "launched_dh": launched_dh(tree)}
 
     def library():
-        ms, backend, _ = sdpa_backward_best(q, k, v, do, want, tol,
+        ms, backend, _ = sdpa_backward_best(q, k, v, do, want, ATT_TOL[dt],
                                             causal=causal)
         return {"event_ms": ms, "backend": backend}
-    nbytes = (2 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + o.numel())
-              + 4 * lse.numel())
+    nbytes = (q.element_size() * (3 * q.numel() + 2 * (k.numel() + v.numel())
+                                  + o.numel()) + 4 * lse.numel())
     nops = 10 * B * H * valid_pairs(Sq, Skv, causal, window) * dh
     shape = {"shape": label, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
              "KV": KV, "dh": dh, "causal": causal, "window": window,
-             "dtype": "bfloat16"}
-    return shape, call, check, bound(nbytes, nops, PEAK_FLOPS), library
+             "dtype": str(dt).split(".")[1]}
+    lib = library if window == 0 or window >= Skv else None
+    return shape, call, check, attention_bound(nbytes, nops, dt), lib
 
 
 def wkv_bwd_case(B, S, H, g):
@@ -497,12 +569,22 @@ def main():
     trees = {"parent": build_tree(args.parent.resolve(), "parent"),
              "change": build_tree(ROOT, "change")}
     g = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [("vote_aggregate", vote_case(5, 6105, 2, g)),
              ("vote_aggregate", vote_case(5, 1024, 200_064, g))] + [
         ("flash_attention", attention_case(*shape, g))
-        # label, B, S, H, KV, dh
-        for shape in (("a_phi4_prefill", 8, 512, 24, 8, 128),
-                      ("f_stablelm_dh80", 4, 1024, 32, 32, 80))] + [
+        # label, B, Sq, Skv, H, KV, dh, causal, window, lse, dtype
+        for shape in (
+            ("a_phi4_prefill", 8, 512, 512, 24, 8, 128, True, 0, False, bf),
+            ("f_stablelm_dh80", 4, 1024, 1024, 32, 32, 80, True, 0, False,
+             bf),
+            ("c_f32_mqa", 2, 384, 384, 8, 1, 128, True, 0, False, f32),
+            ("f2_stablelm_dh80_f32", 4, 1024, 1024, 32, 32, 80, True, 0,
+             False, f32),
+            ("l2_whisper_cross_f32", 8, 64, 1500, 6, 6, 64, False, 0, False,
+             f32),
+            ("r_recurrentgemma_train_f32_lse", 4, 512, 512, 10, 1, 256,
+             True, 2048, True, f32))] + [
         ("rglru_scan", rglru_case(*shape, g))
         for shape in (("recurrentgemma_prefill", 4, 1024, 2560, False),
                       ("recurrentgemma_train", 4, 512, 2560, True))] + [
@@ -513,14 +595,25 @@ def main():
                       ("ragged_S1000", 4, 1000, 2560, torch.bfloat16),
                       ("f32_small", 2, 1000, 512, torch.float32))] + [
         ("flash_attention_bwd", attention_bwd_case(*shape, g))
-        for shape in (("phi4_train", 4, 512, 512, 24, 8, 128, True, 0),
+        # label, B, Sq, Skv, H, KV, dh, causal, window, dtype
+        for shape in (("phi4_train", 4, 512, 512, 24, 8, 128, True, 0, bf),
                       ("m_whisper_encoder", 8, 1500, 1500, 6, 6, 64, False,
-                       0),
-                      ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, False, 0),
+                       0, bf),
+                      ("n_whisper_cross", 8, 128, 1500, 6, 6, 64, False, 0,
+                       bf),
                       ("recurrentgemma_train", 4, 512, 512, 10, 1, 256,
-                       True, 2048),
-                      ("stablelm_train", 4, 512, 512, 32, 32, 80, True,
-                       0))] + [
+                       True, 2048, bf),
+                      ("stablelm_train", 4, 512, 512, 32, 32, 80, True, 0,
+                       bf),
+                      ("phi4_train_f32", 4, 512, 512, 24, 8, 128, True, 0,
+                       f32),
+                      ("stablelm_train_f32", 4, 512, 512, 32, 32, 80, True,
+                       0, f32),
+                      ("recurrentgemma_train_f32", 4, 512, 512, 10, 1, 256,
+                       True, 2048, f32),
+                      ("f32_dh32", 2, 384, 384, 8, 2, 32, True, 64, f32),
+                      ("m_whisper_encoder_f32", 8, 1500, 1500, 6, 6, 64,
+                       False, 0, f32))] + [
         ("wkv6_bwd", wkv_bwd_case(4, 512, 64, g))]
     turns = list(enumerate(("parent", "change", "change", "parent")))
     rows = []
@@ -535,12 +628,14 @@ def main():
         for turn, tree in turns:
             def run(fn=trees[tree][name], tree=tree, call=call):
                 return call(fn, tree)
-            rows.append((run, {
+            refused = "refused" in checks[tree]
+            rows.append((None if refused else run, {
                 "kernel": name, **shape, "tree": tree, "turn": turn,
-                "event_ms": cuda_ms(run), "graph_ms": graph_ms(run),
+                "event_ms": None if refused else cuda_ms(run),
+                "graph_ms": None if refused else graph_ms(run),
                 "bound_ms": b_ms, "bound_by": b_by, **checks[tree]}))
     for run, row in rows:  # profiler last
-        row["device_ms"] = device_ms(run)
+        row["device_ms"] = None if run is None else device_ms(run)
         print(json.dumps(row), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
