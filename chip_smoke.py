@@ -289,6 +289,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2144,9 +2145,11 @@ def phase_arch_parity():
     (``phase_smoke_parity``: serve_batch streams, logits within 1e-4 of
     the largest, prefill(P) + decode against prefill(P + n); the MoE
     smokes at their no-drop capacity, where the handoff is exact),
-    llava's embeddings path, and one train step of deepseek-moe's smoke
-    card against CPU (``lm_card_vs_cpu``: loss and gradients within
-    1e-4, exact K3 and N1 launches); then whisper-tiny's smoke with 100
+    llava's embeddings path, and one train step of the deepseek-moe,
+    granite (8:1 MQA), mixtral and llava (its stub embeddings) smokes,
+    the MoE smokes at their own capacity, card against CPU
+    (``lm_card_vs_cpu``: loss and gradients within 1e-4, exact K3 and
+    N1 launches); then whisper-tiny's smoke with 100
     frames (a ragged last key tile) through ``serve_batch`` and one
     train step the same way.  Returns those steps' launches."""
     from repro_torch.configs import get_smoke
@@ -2155,7 +2158,9 @@ def phase_arch_parity():
         phase_smoke_parity(arch, cfg=no_drop(cfg) if cfg.moe else cfg,
                            tag="arch-parity")
     llava_embeds_parity()
-    runs = [lm_card_vs_cpu("deepseek-moe-16b", steps=1)]
+    runs = [lm_card_vs_cpu(arch, steps=1) for arch in (
+        "deepseek-moe-16b", "granite-20b", "mixtral-8x7b",
+        "llava-next-mistral-7b")]
     whisper = whisper_smoke()
     phase_smoke_parity("whisper-tiny", cfg=whisper, prompt_len=40,
                        tag="arch-parity")
@@ -2426,20 +2431,21 @@ def lm_backward_rows():
     float32 dh-32 one, whisper-tiny's non-causal ones over 1500
     frames: (m) the encoder (Sq = Skv = 1500) and (n) cross attention
     (N1b: Sq 128 decoder tokens, Skv 1500), a granite-like 48:1 group
-    (one kv head, so the dK/dV grid is 16 CTAs, each walking 48 q
-    heads), recurrentgemma's local attention at dh 256 (10:1, window
+    (one kv head: 16 key tiles, the group's q heads split over 9 CTAs
+    each) and granite_train's (4, 512, 48:1; 32 tiles, 5 splits),
+    recurrentgemma's local attention at dh 256 (10:1, window
     2048) at its train shape (4, 512) and at (1, 4096), where the window
     is shorter than S, stablelm-3b's train shape at its native head
     dim 80 (4, 512, MHA 32:32), deepseek-moe-16b's (4, 512, MHA
-    16:16, dh 128) and one batch row of gemma2_train's (1, 8192, 32:16,
-    dh 128, soft-cap 50) at a local layer (window 4096) and a global
-    one; then in float32 (the split-TF32 kernels) phi4's, stablelm's
-    (dh 80) and recurrentgemma's (dh 256) train shapes and whisper's (m):
-    within ``BWD_TOL`` of the largest |gradient| (2e-2 bf16, 1e-5
-    float32), identical run to run; kernel, plain and library times
-    beside the bound (SDPA under an explicit window mask where the
-    window is shorter than S, null where no backend takes that).  The
-    forward's row LSE is held to
+    16:16, dh 128), llava_train's (1, 4096, 32:8, dh 128) and one batch
+    row of gemma2_train's (1, 8192, 32:16, dh 128, soft-cap 50) at a
+    local layer (window 4096) and a global one; then in float32 (the
+    split-TF32 kernels) phi4's, stablelm's (dh 80) and recurrentgemma's
+    (dh 256) train shapes and whisper's (m): within ``BWD_TOL`` of the
+    largest |gradient| (2e-2 bf16, 1e-5 float32), identical run to run;
+    kernel, plain and library times beside the bound (SDPA under an
+    explicit window mask where the window is shorter than S, null where
+    no backend takes that).  The forward's row LSE is held to
     ``ref.attention_plain``'s, and N1's gradients (from K3's o and LSE)
     also to the plain backward from the plain forward's own o and LSE,
     so that forward and backward together are held to the plain
@@ -2461,6 +2467,8 @@ def lm_backward_rows():
          False),
         ("granite_like", 1, 1024, 1024, 48, 1, 128, torch.bfloat16, 0, 0.0,
          True),
+        ("granite_train", 4, 512, 512, 48, 1, 128, torch.bfloat16, 0, 0.0,
+         True),
         ("recurrentgemma_train", 4, 512, 512, 10, 1, 256, torch.bfloat16,
          2048, 0.0, True),
         ("recurrentgemma_long", 1, 4096, 4096, 10, 1, 256, torch.bfloat16,
@@ -2469,6 +2477,8 @@ def lm_backward_rows():
          True),
         ("deepseek_train", 4, 512, 512, 16, 16, 128, torch.bfloat16, 0,
          0.0, True),
+        ("llava_train", 1, 4096, 4096, 32, 8, 128, torch.bfloat16, 0, 0.0,
+         True),
         # one batch row of gemma2_train's step: a local layer (the window
         # binds) and a global one, both soft-capped
         ("gemma2_train_local", 1, 8192, 8192, 32, 16, 128, torch.bfloat16,
@@ -2806,18 +2816,28 @@ def lm_train_data(cfg, S):
                             seed=1)["train"]
 
 
-def first_lm_batch(data, B):
-    """The first batch lm_full_train's data loader yields, on the card."""
+def first_lm_batch(data, B, extra=None):
+    """The first batch lm_full_train's data loader yields, on the card,
+    with ``extra``'s entries (llava's embeddings) beside its tokens."""
     from repro_torch.data import TokenDataset
-    return {k: torch.from_numpy(v).cuda() for k, v in
-            next(iter(TokenDataset(data).batches(B, steps=1))).items()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             next(iter(TokenDataset(data).batches(B, steps=1))).items()}
+    return {**batch, **(extra or {})}
 
 
-def lm_full_train(cfg, smi, steps=8, B=4, S=512):
+def text_len(cfg, S):
+    """The token columns of a row of S positions: S less the frontend's
+    stub embeddings (llava's 2880), all S elsewhere."""
+    return S - cfg.frontend_embeds
+
+
+def lm_full_train(cfg, smi, steps=8, B=4, S=512, extra=None, lr=3e-4):
     """``launch.train.train_lm`` on ``cfg`` at full width: bf16 compute
     on float32 masters (random weights from a seeded generator), AdamW,
-    remat, B x S tokens a step (4 x 512 unless given), ``steps`` steps,
-    warmup 2, lr 3e-4.  Exact
+    remat, B x S positions a step (4 x 512 unless given; for llava
+    ``extra``'s stub embeddings and ``text_len(cfg, S)`` tokens, the
+    loss over the tokens alone), ``steps`` steps, warmup 2, peak
+    learning rate ``lr``.  Exact
     launches a step (``train_launches``), losses finite, the first about
     ln(vocab) (near-uniform logits): within [ln V rounded to 0.01, that
     + 1.79] ([12.21, 14] at phi4-mini's 200,064), and falling: the first
@@ -2838,18 +2858,20 @@ def lm_full_train(cfg, smi, steps=8, B=4, S=512):
     del module
     n_params = sum(t.numel() for t in tree_leaves(params))
     tcfg = TrainConfig(batch_size=B, seq_len=S, steps=steps,
-                       warmup_steps=2, learning_rate=3e-4)
-    data = lm_train_data(cfg, S)
+                       warmup_steps=2, learning_rate=lr)
+    data = lm_train_data(cfg, text_len(cfg, S))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_lm_counts()
     out = train_lm(model, TokenDataset(data), tcfg, params=params,
-                   log_every=1, verbose=False, device="cuda")
+                   log_every=1, extra_batch=extra, verbose=False,
+                   device="cuda")
     torch.cuda.synchronize()
     got = _lm_counts()
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
-        again = float(model.loss(out["params"], first_lm_batch(data, B)))
+        again = float(model.loss(out["params"],
+                                 first_lm_batch(data, B, extra)))
     L = cfg.num_layers
     want = {k: n * steps for k, n in step_launches(cfg).items()}
     if got != want:
@@ -2859,7 +2881,8 @@ def lm_full_train(cfg, smi, steps=8, B=4, S=512):
     step_ms = [1e3 * (b - a) for a, b in zip(secs, secs[1:])]
     med = float(np.median(step_ms[-6:]))
     row = {"arch": cfg.name, "layers": L, "params": n_params,
-           "dtype": cfg.dtype, "B": B, "S": S, "steps": steps,
+           "dtype": cfg.dtype, "B": B, "S": S,
+           "text_tokens": text_len(cfg, S), "steps": steps, "lr": lr,
            "losses": losses, "first_batch_loss_after": again,
            "step_ms": step_ms, "step_ms_median_last6": med,
            "tokens_per_s": B * S / med * 1e3, "peak_mem_bytes": peak,
@@ -2962,9 +2985,10 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
     """``make_train_step`` on the card and on the CPU from one init (the
     port's, drawn on the CPU and moved) at ``arch``'s smoke widths (or
     ``cfg``'s) in float32; an encoder-decoder's batches carry seeded
-    random frames.  With AdamW (the main path's optimizer): losses within
-    1e-4 relative and the first step's gradients within 1e-4 of each
-    leaf's largest |gradient|.  AdamW's first step moves an element by
+    random frames, llava's seeded random stub embeddings.  With AdamW
+    (the main path's optimizer): losses within 1e-4 relative and the
+    first step's gradients within 1e-4 of each leaf's largest
+    |gradient|.  AdamW's first step moves an element by
     the learning rate times the SIGN of its gradient, so an element whose
     gradient is a cancelling sum near 0 (whose sign the two devices'
     orders round differently) moves one way on the card and the other
@@ -2998,14 +3022,18 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
     init = model.init_tree(prng.PRNGKey(0), "cpu")
     data = synthetic.tokens(n_seqs=32, seq_len=97, vocab=cfg.vocab_size,
                             seed=2)["train"]
-    frames = np.random.default_rng(3).normal(
-        0, 1, (steps, 4, cfg.encoder_seq_len, cfg.d_model)).astype(
-            np.float32) if cfg.is_encoder_decoder else None
+    # an encoder-decoder's frames, or a VLM's stub patch embeddings
+    extra_key, n_extra = (
+        ("frames", cfg.encoder_seq_len) if cfg.is_encoder_decoder
+        else ("embeds", cfg.frontend_embeds))
+    extra = np.random.default_rng(3).normal(
+        0, 1, (steps, 4, n_extra, cfg.d_model)).astype(
+            np.float32) if n_extra else None
 
     def batches(dev):
         for i, b in enumerate(TokenDataset(data, 0).batches(4, steps=steps)):
-            if frames is not None:
-                b = dict(b, frames=frames[i])
+            if extra is not None:
+                b = dict(b, **{extra_key: extra[i]})
             yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
 
     def first_grads(dev):
@@ -3342,6 +3370,75 @@ def gemma2_train_config():
     return get_config("gemma2-27b").replace(num_layers=GEMMA2_TRAIN_LAYERS)
 
 
+# granite-20b's cut: 8 of its 52 layers (MQA 48:1, dh 128) at full
+# width.  52 layers' float32 masters, gradients and AdamW moments are
+# 20.3 B x 16 B = 325 GB; the dry-run prices 8 layers at 64.23 GB and 10
+# at 76.36, at B 4 x S 512
+GRANITE_TRAIN_LAYERS = 8
+
+
+def granite_train_config():
+    """granite-20b at ``GRANITE_TRAIN_LAYERS`` of its 52 layers: N1's
+    dK/dV pass at 48:1 on a train path, its q heads split over
+    ``bwd_head_splits`` CTAs."""
+    from repro_torch.configs import get_config
+    return get_config("granite-20b").replace(
+        num_layers=GRANITE_TRAIN_LAYERS)
+
+
+# mixtral-8x7b's train cut: 2 of its 32 layers (each 8 experts of 176 M
+# parameters).  32 layers' state is 46.7 B x 16 B = 747 GB; the dry-run
+# prices 2 layers at 61.91 GB and 3 at 85.13, at B 4 x S 512.  Not
+# MIXTRAL_LAYERS, the serving cut (bf16 weights alone)
+MIXTRAL_TRAIN_LAYERS = 2
+
+
+def mixtral_train_config():
+    """mixtral-8x7b at ``MIXTRAL_TRAIN_LAYERS`` of its 32 layers, at its
+    own capacity factor 1.25 (top-2 of 8 experts, no shared expert;
+    picks drop as in its training); window 4096, which S 512 never
+    reaches."""
+    from repro_torch.configs import get_config
+    return get_config("mixtral-8x7b").replace(
+        num_layers=MIXTRAL_TRAIN_LAYERS)
+
+
+# llava-next-mistral-7b's cut: 16 of its 32 layers at B 1 x S 4096, the
+# 2880 stub patch embeddings and 1216 tokens a row (the loss over the
+# tokens alone).  32 layers' state is 7.24 B x 16 B = 116 GB; the
+# dry-run prices 16 layers at 62.68 GB and 18 at 69.66
+LLAVA_TRAIN_LAYERS = 16
+LLAVA_TRAIN_B, LLAVA_TRAIN_S = 1, 4096
+
+
+def llava_train_config():
+    """llava-next-mistral-7b at ``LLAVA_TRAIN_LAYERS`` of its 32 layers,
+    full width (32:8 heads of 128)."""
+    from repro_torch.configs import get_config
+    return get_config("llava-next-mistral-7b").replace(
+        num_layers=LLAVA_TRAIN_LAYERS)
+
+
+# The peak learning rate of the granite and llava cuts.  At lm_train's
+# 3e-4 their first batch's loss rose over the 8 steps while the step
+# losses fell (granite 12.077 -> 12.475, llava 11.185 -> 11.505 on an
+# NVIDIA H100 80GB HBM3 at 700 W): AdamW's sign-like early updates at
+# 2048 (granite) and 1216 (llava) loss tokens a step overshoot.  At
+# 1e-4 it falls (to 10.864 and 10.789), as it does at 3e-5
+WIDE_CUT_LR = 1e-4
+
+
+def stub_embeds(cfg, B, seed=0):
+    """llava's frontend stub on the card: (B, cfg.frontend_embeds,
+    d_model) pre-projected patch embeddings, seeded normals at the
+    embedding's scale 0.02 (as phase_llava's), in the compute dtype."""
+    from repro_torch.models.layers import dtype_of
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"embeds": (torch.randn((B, cfg.frontend_embeds, cfg.d_model),
+                                   generator=g, device="cuda") * 0.02).to(
+                                       dtype_of(cfg.dtype))}
+
+
 def train_step_repeat(model, params, batch, remat=True):
     """One train step's loss and gradients (``distill``'s: the float32
     masters cast inside autograd, the blocks recomputed in the backward
@@ -3368,20 +3465,25 @@ def train_step_repeat(model, params, batch, remat=True):
                 bool(torch.isfinite(g).all()) for g in g1.values())}
 
 
-def cut_train(smi, cfg, tag, B=4, S=512):
+def cut_train(smi, cfg, tag, B=4, S=512, extra=None, lr=3e-4):
     """``cfg`` (a depth cut, or a whole arch in float32) trained at full
     width through ``lm_full_train`` (8 steps of B x S, AdamW, remat,
-    ``cfg.dtype`` compute on float32 masters), then one step's loss and
-    gradients taken twice from the
-    trained masters on the first batch (``train_step_repeat``): equal
-    bit for bit.  ``lm_full_train`` holds the launches a step to
-    ``train_launches``, the repeat to twice that.  Prints one ``[tag]``
-    summary line.  Returns (the train row, the launches of both runs,
-    each counted from 0)."""
+    ``cfg.dtype`` compute on float32 masters, peak learning rate
+    ``lr``; ``extra`` in every batch), then one step's loss and
+    gradients taken twice from the trained masters on the first batch
+    (``train_step_repeat``): equal bit for bit.  ``lm_full_train``
+    holds the launches a step to ``train_launches``, the repeat to twice
+    that.  Prints one ``[tag]`` summary line, with the dry-run's
+    predicted peak (``train_price``) beside the measured one and the
+    time the whole took.  Returns (the train row, the launches of both
+    runs, each counted from 0)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model
-    params, counts, row = lm_full_train(cfg, smi, B=B, S=S)
-    batch = first_lm_batch(lm_train_data(cfg, S), B)
+    t0 = time.time()
+    params, counts, row = lm_full_train(cfg, smi, B=B, S=S, extra=extra,
+                                        lr=lr)
+    batch = first_lm_batch(lm_train_data(cfg, text_len(cfg, S)), B, extra)
     torch.cuda.synchronize()
     _zero_lm_counts()
     rep = train_step_repeat(Model(cfg), params, batch)
@@ -3404,6 +3506,7 @@ def cut_train(smi, cfg, tag, B=4, S=512):
         "step_ms_median_last6": row["step_ms_median_last6"],
         "tokens_per_s": row["tokens_per_s"],
         "peak_mem_bytes": row["peak_mem_bytes"],
+        "dryrun_peak_bytes": train_price(cfg, B, S)["peak_memory_bytes"],
         "repeat_identical": rep["identical"], "repeat_loss": rep["loss"],
         "repeat_grad_leaves": rep["leaves"],
         "repeat_differing_leaves": rep["differing"],
@@ -3411,6 +3514,12 @@ def cut_train(smi, cfg, tag, B=4, S=512):
         "layer_kinds": list(cfg.layer_kinds), "window": cfg.window,
         "attn_softcap": cfg.attn_softcap, "final_softcap": cfg.final_softcap,
         "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+        "lr": lr, "text_tokens": text_len(cfg, S),
+        "frontend_embeds": cfg.frontend_embeds if extra else 0,
+        "head_splits": fa.bwd_head_splits(
+            B, S, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim_,
+            torch.cuda.get_device_properties(0).multi_processor_count),
+        "seconds": time.time() - t0,
         "card": smi}
     log(f"[{tag}] " + json.dumps(summary))
     if rep_counts != want:
@@ -3446,6 +3555,39 @@ def gemma2_train(smi):
     Returns ``cut_train``'s."""
     return cut_train(smi, gemma2_train_config(), "gemma2_train",
                      B=GEMMA2_TRAIN_B, S=GEMMA2_TRAIN_S)
+
+
+def granite_train(smi):
+    """granite-20b cut to ``GRANITE_TRAIN_LAYERS`` through ``cut_train``
+    at B 4 x S 512 and peak learning rate ``WIDE_CUT_LR``: N1 at MQA
+    48:1 (dh 128), its dK/dV walk split over ``bwd_head_splits`` CTAs
+    (5 on 132 SMs); 16 K3 and 24 N1 launches a step at 8 layers; the
+    first loss within [10.80, 12.59] (ln 49,152 rounded, + 1.79).
+    Returns ``cut_train``'s."""
+    return cut_train(smi, granite_train_config(), "granite_train",
+                     lr=WIDE_CUT_LR)
+
+
+def mixtral_train(smi):
+    """mixtral-8x7b cut to ``MIXTRAL_TRAIN_LAYERS`` through ``cut_train``
+    at B 4 x S 512 and capacity factor 1.25: top-2 of 8 experts with no
+    shared expert, its dispatch, combine and the experts' backward on
+    the card; 4 K3 and 6 N1 launches a step at 2 layers.  Returns
+    ``cut_train``'s."""
+    return cut_train(smi, mixtral_train_config(), "mixtral_train")
+
+
+def llava_train(smi):
+    """llava-next-mistral-7b cut to ``LLAVA_TRAIN_LAYERS`` through
+    ``cut_train`` at B 1 x S 4096: each row the 2880 seeded stub patch
+    embeddings (``stub_embeds``, bf16, on the card) and 1216 tokens,
+    the loss over the tokens alone; K3 and N1 at (1, 4096, 32:8, dh
+    128), 32 K3 and 48 N1 launches a step at 16 layers; peak learning
+    rate ``WIDE_CUT_LR``.  Returns ``cut_train``'s."""
+    cfg = llava_train_config()
+    return cut_train(smi, cfg, "llava_train", B=LLAVA_TRAIN_B,
+                     S=LLAVA_TRAIN_S, extra=stub_embeds(cfg, LLAVA_TRAIN_B),
+                     lr=WIDE_CUT_LR)
 
 
 def recurrentgemma_f32_config():
@@ -3492,7 +3634,11 @@ def phase_lm_train(smi, profile=False):
     once its masters are freed, gemma2-27b cut to
     ``GEMMA2_TRAIN_LAYERS`` at B 2 x S 8192 (``gemma2_train``: the
     window and soft-caps on a train path, one step repeated bit for
-    bit).  Returns (the
+    bit), then, each once the last one's masters are freed, granite-20b,
+    mixtral-8x7b and llava-next-mistral-7b at their cuts
+    (``granite_train``: N1 at 48:1 with its q heads split;
+    ``mixtral_train``: top-2 routing at capacity 1.25; ``llava_train``:
+    2880 stub embeddings + 1216 tokens a row).  Returns (the
     backward rows {"n1", "n2a", "n2b"}, their worst errors, the main
     path's launches, the measured rows of the full-width train and label
     steps)."""
@@ -3542,6 +3688,12 @@ def phase_lm_train(smi, profile=False):
     measured["gemma2-27b"], g2_runs = gemma2_train(smi)
     runs += g2_runs
     log(f"[lm_train] gemma2-27b training at {time.time() - t0:.1f} s")
+    for name, run in (("granite-20b", granite_train),
+                      ("mixtral-8x7b", mixtral_train),
+                      ("llava-next-mistral-7b", llava_train)):
+        measured[name], cut_runs = run(smi)
+        runs += cut_runs
+        log(f"[lm_train] {name} training at {time.time() - t0:.1f} s")
     # the main path's launches: the sum of the runs above, each counted
     # from 0 just before it and read just after, so that no launch made
     # to compare a kernel with its plain version is in it
@@ -3596,6 +3748,23 @@ def dryrun_pairs(smi, archs=DRYRUN_ARCHS):
         raise AssertionError(f"dry-run skips {skipped} != SKIPS {want}")
 
 
+@functools.lru_cache(maxsize=None)
+def train_price(cfg, B=4, S=512):
+    """The dry-run's record of lm_full_train's exact step of ``cfg`` (B x
+    S positions, remat, AdamW, float32 masters) on a one-device mesh,
+    priced on meta tensors once a (cfg, B, S): ``cut_train`` prints its
+    peak beside the measured one, ``dryrun_train`` the whole record."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    tcfg = TrainConfig(batch_size=B, seq_len=S, steps=8, warmup_steps=2,
+                       learning_rate=3e-4)
+    return dryrun.price(cfg.name, InputShape("lm_train", S, B, "train"),
+                        Mesh(("data",), (1,)), "local_1", cfg=cfg,
+                        tcfg=tcfg)
+
+
 def dryrun_train(smi, measured, cfg, B=4, S=512):
     """lm_train's exact step of ``cfg`` (B x S tokens) on a one-device
     mesh, predicted beside the phase's measured row.  Raises if the
@@ -3604,19 +3773,12 @@ def dryrun_train(smi, measured, cfg, B=4, S=512):
     calls it predicts of any kernel (K3, N1, K4, N2a, K5, N2b: each
     call's launches as the wrappers count them) differ from the
     launches the card counted a step."""
-    from repro_torch.configs import TrainConfig
-    from repro_torch.configs.base import InputShape
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rgs
     from repro_torch.kernels import wkv6 as wk
-    from repro_torch.launch import analysis, dryrun
-    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch import analysis
     from repro_torch.models import Model
-    # lm_full_train's step: B x S, remat, AdamW, float32 masters
-    tcfg = TrainConfig(batch_size=B, seq_len=S, steps=8, warmup_steps=2,
-                       learning_rate=3e-4)
-    rec = dryrun.price(cfg.name, InputShape("lm_train", S, B, "train"),
-                       Mesh(("data",), (1,)), "local_1", cfg=cfg, tcfg=tcfg)
+    rec = train_price(cfg, B, S)
     n = analysis.count_params(Model(cfg).init_shapes(), exclude_embed=False)
     state = 4 * 4 * n          # float32 params, gradients, mu and nu
     calls = rec["kernels"]
@@ -3697,9 +3859,10 @@ def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     """Phase 10 (after lm_train, whose measured rows it reads): every
     pair of ``archs``, then the train step of phi4-mini, recurrentgemma,
     rwkv6's cut, stablelm-3b, deepseek-moe-16b's cut, recurrentgemma in
-    float32 and gemma2-27b's
-    cut (at its B 2 x S 8192) and the label step beside their measured
-    rows (peak memory and launches a step)."""
+    float32, gemma2-27b's cut (at its B 2 x S 8192), the cuts of
+    granite-20b, mixtral-8x7b and llava-next-mistral-7b (at its B 1 x S
+    4096) and the label step beside their measured rows (peak memory
+    and launches a step)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     dryrun_pairs(smi, archs)
@@ -3714,6 +3877,11 @@ def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     train.append(dryrun_train(smi, measured["gemma2-27b"],
                               gemma2_train_config(), B=GEMMA2_TRAIN_B,
                               S=GEMMA2_TRAIN_S))
+    for cfg in (granite_train_config(), mixtral_train_config()):
+        train.append(dryrun_train(smi, measured[cfg.name], cfg))
+    train.append(dryrun_train(smi, measured["llava-next-mistral-7b"],
+                              llava_train_config(), B=LLAVA_TRAIN_B,
+                              S=LLAVA_TRAIN_S))
     label = dryrun_label(smi, measured["label"])
     log(f"[dryrun] train and label at {time.time() - t0:.1f} s")
     return train, label

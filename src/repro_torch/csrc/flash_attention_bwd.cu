@@ -50,8 +50,20 @@
 //     loads are one contiguous run of rows; in float32 bwd_dot, a warp
 //     a row.
 //  2. dK and dV: one CTA owns one 64-key tile of one kv head of one batch
-//     row and walks every q head of its group, then every 64-row query
-//     tile the mask lets see its keys, in that order.
+//     row and walks every q head of its group (or of its split of the
+//     group, below), then every 64-row query tile the mask lets see its
+//     keys, in that order.  Where the tiles alone leave the card short
+//     (MQA: granite-20b's 48:1 at B 4 x S 512 is 32 tiles for 132 SMs,
+//     tile 0 walking 48 x 8 (head, query tile) pairs under the causal
+//     mask), the group's q heads are split over `splits` CTAs a tile
+//     (kernels/flash_attention.py: bwd_head_splits; 5 there, 160 CTAs,
+//     at most 80 pairs a CTA); each split writes float32 partial dK and
+//     dV to a workspace (2 x splits x B x Skv x KV x dh floats: 10.5 MB
+//     at granite's shape), and the dQ launch's CTAs past its tiles
+//     (merge_dkdv) add them in split order, scale dK and round both
+//     once.  The dK/dV launch has ended before the dQ launch starts (one
+//     stream), so the merge needs no flag and no atomic; at one split
+//     the dK/dV kernel writes dK and dV itself.
 //  3. dQ: one CTA owns one 64-row query tile of one q head and walks the
 //     key tiles the mask lets through, in order.
 // Both grids are flat, the tile index slowest, so the CTAs with the most
@@ -99,16 +111,9 @@
 //  bwd_dq_wg2 the same with S and dP, P (1 - t^2) and dS crossing, dQ
 //  += dS K a half each.  Four full-dh products a pair in the dK/dV pass
 //  and three in the dQ pass, where two CTAs a tile, a half each, would
-//  make six and five.  recurrentgemma's 10:1 MQA would leave
-//  the dK/dV grid at B x 8 key tiles = 32 CTAs for 132 SMs, key tile 0
-//  walking all 80 (head, query tile) pairs under the causal mask, so the
-//  group's q heads are split over `splits` CTAs as well (kernels/
-//  flash_attention.py: bwd_head_splits, 5 at the train shape: 160 CTAs,
-//  at most 16 pairs a CTA); each split writes float32 partial dK and dV
-//  to a workspace, and the dQ launch's CTAs past its tiles (merge_dkdv)
-//  add them in split order, scale dK and round both to bf16 once.  The
-//  dK/dV launch has ended before the dQ launch starts (one stream), so
-//  the merge needs no flag and no atomic.
+//  make six and five.  recurrentgemma's 10:1 MQA leaves the dK/dV grid
+//  at B x 8 key tiles = 32 CTAs, so its heads split as in 2. (5 splits
+//  at the train shape: 160 CTAs, at most 16 pairs a CTA).
 //  At stablelm-3b's dh 80 the tiles are five 16-column boxes with the
 //  32-byte swizzle (Tile<80>, as K3's forward at 80): S^T and dP^T take
 //  five k-steps of 16, one a box, and dV, dK and dQ are m64n80 products
@@ -144,8 +149,8 @@
 // block of query rows and streams (K, V) tiles: S, dP, dS, then dQ +=
 // dS K.  Every head dim runs natively (dh 80: rows of 96 floats; dh
 // 256: a block of 32 rows, each 16-row block split over two warps a
-// half of the output columns, both making its S and dP), and dh 256
-// splits the group's q heads over CTAs as the bf16 path does
+// half of the output columns, both making its S and dP), and the
+// group's q heads split over CTAs as the bf16 path's do
 // (bwd_head_splits), their float32 partials merged in split order by
 // merge_dkdv.
 // A refused launch returns its error: no path stands in for another.
@@ -379,7 +384,7 @@ __global__ void __launch_bounds__(WG_THREADS)
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv,
                    int H, int KV, float scale, int causal, int window,
-                   float softcap) {
+                   float softcap, int hsplit, float* __restrict__ part) {
   static_assert(DH <= 128, "dh 256 runs bwd_dkdv_wg2");
   using W = Tile<DH>;
   constexpr int NO = DH;          // the dK, dV columns
@@ -397,15 +402,18 @@ __global__ void __launch_bounds__(WG_THREADS)
   float* rows = reinterpret_cast<float*>(smem_kv + (sRows - raw));
 
   // the tile index slowest: key tile 0, which the most query tiles see
-  // under a causal mask, starts first
-  const int kvh = blockIdx.x % KV;
-  const int b = (blockIdx.x / KV) % B;
-  const int k0 = (blockIdx.x / (KV * B)) * BK;
+  // under a causal mask, starts first; the head split fastest
+  const int sp = blockIdx.x % hsplit;
+  const int cta = blockIdx.x / hsplit;
+  const int kvh = cta % KV;
+  const int b = (cta / KV) % B;
+  const int k0 = (cta / (KV * B)) * BK;
   const int group = H / KV;
+  const int h_lo = sp * group / hsplit, h_hi = (sp + 1) * group / hsplit;
   int qt_start, qt_end;
   query_tiles(k0, Sq, Skv, causal, window, &qt_start, &qt_end);
   const int per_head = max(qt_end - qt_start, 0);
-  const int n_iter = group * per_head;
+  const int n_iter = (h_hi - h_lo) * per_head;
 
   if (threadIdx.x == 0) {
     mbar_init(bKV, 1);
@@ -432,7 +440,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     }
     for (int i = 0; i < n_iter; ++i) {
       const int stage = i % STAGES;
-      const int h = kvh * group + i / per_head;
+      const int h = kvh * group + h_lo + i / per_head;
       const int q0 = (qt_start + i % per_head) * BQ;
       if (i >= STAGES) mbar_wait(bFree + 8 * stage, (i / STAGES - 1) & 1);
       float* lr = rows + stage * 2 * BQ;
@@ -549,6 +557,9 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 
   const size_t kv_step = (size_t)KV * DH;
+  const size_t plane = (size_t)B * Skv * kv_step;
+  float* pk = part != nullptr ? part + (size_t)sp * plane : nullptr;
+  float* pv = part != nullptr ? pk + (size_t)hsplit * plane : nullptr;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int s = k0 + r0 + g + 8 * hf;
@@ -557,10 +568,17 @@ __global__ void __launch_bounds__(WG_THREADS)
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
         const int e = 4 * d + 2 * hf;
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * d + 2 * t) =
-            __floats2bfloat162_rn(dK[e] * scale, dK[e + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d + 2 * t) =
-            __floats2bfloat162_rn(dV[e], dV[e + 1]);
+        if (part != nullptr) {  // a split's float32 partials, dK unscaled
+          *reinterpret_cast<float2*>(pk + off + 8 * d + 2 * t) =
+              make_float2(dK[e], dK[e + 1]);
+          *reinterpret_cast<float2*>(pv + off + 8 * d + 2 * t) =
+              make_float2(dV[e], dV[e + 1]);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * d + 2 * t) =
+              __floats2bfloat162_rn(dK[e] * scale, dK[e + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d + 2 * t) =
+              __floats2bfloat162_rn(dV[e], dV[e + 1]);
+        }
       }
     }
   }
@@ -883,11 +901,19 @@ __global__ void __launch_bounds__(WG_THREADS)
                  const float* __restrict__ lse, const float* __restrict__ Dv,
                  __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv,
                  int H, int KV, float scale, int causal, int window,
-                 float softcap) {
+                 float softcap, int n_dq, int hsplit,
+                 const float* __restrict__ part,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv) {
   static_assert(DH <= 128, "dh 256 runs bwd_dq_wg2");
   using W = Tile<DH>;
   constexpr int NO = DH;          // the dQ columns
   constexpr int DT = NO / 8;      // their 8-wide n-tiles
+  if ((int)blockIdx.x >= n_dq) {  // the CTAs past the dQ tiles
+    merge_dkdv<DH>(part, dk, dv, blockIdx.x - n_dq, B * Skv * KV, hsplit,
+                   scale);
+    return;
+  }
   extern __shared__ __align__(1024) unsigned char smem_q[];
   const uint32_t raw = smem_u32(smem_q);
   const uint32_t sQ = (raw + 1023u) & ~1023u;
@@ -1571,7 +1597,7 @@ int launch_dot(const void* o, const void* dout, float* Dv, int B, int Sq,
 // float32: the plan (kernels/flash_attention.py: bwd_plan) owns the
 // threads, the block and step sizes and the shared memory, and the
 // launcher refuses threads or sizes it was not built for; head splits
-// at dh 256 as the bf16 path's, the dQ launch's extra CTAs merging them
+// as the bf16 path's, the dQ launch's extra CTAs merging them
 template <int DH, int CAP>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* Dv, void* dq,
@@ -1633,16 +1659,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                                        H, DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // the dK/dV tiles split over hsplit CTAs a group, then the dQ tiles
+  // and the CTAs that merge the splits' dK and dV (the dK/dV launch has
+  // ended before the dQ launch starts: one stream)
   const int n_kt = (Skv + BK - 1) / BK, n_qt = (Sq + BQ - 1) / BQ;
+  float* kv_part = hsplit > 1 ? part : nullptr;
+  const int rows = B * Skv * KV;
+  const int n_merge =
+      kv_part != nullptr ? (rows + MERGE_ROWS - 1) / MERGE_ROWS : 0;
+  const int n_dq = n_qt * H * B;
   if constexpr (DH == 256) {
-    // the dK/dV tiles split over hsplit CTAs a group, then the dQ tiles
-    // and the CTAs that merge the splits' dK and dV (the dK/dV launch
-    // has ended before the dQ launch starts: one stream)
-    float* kv_part = hsplit > 1 ? part : nullptr;
-    const int rows = B * Skv * KV;
-    const int n_merge =
-        kv_part != nullptr ? (rows + MERGE_ROWS - 1) / MERGE_ROWS : 0;
-    const int n_dq = n_qt * H * B;
     if ((err = cudaFuncSetAttribute(
              bwd_dkdv_wg2<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
              (int)Wg2Smem<CAP>::bytes)) != cudaSuccess ||
@@ -1671,14 +1697,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
              (int)QSmem<DH>::bytes)) != cudaSuccess)
       return (int)err;
     bwd_dkdv_wgmma<DH, CAP>
-        <<<n_kt * KV * B, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
+        <<<n_kt * KV * B * hsplit, WG_THREADS, KvSmem<DH>::bytes, stream>>>(
             tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-            B, Sq, Skv, H, KV, scale, causal, window, softcap);
+            B, Sq, Skv, H, KV, scale, causal, window, softcap, hsplit,
+            kv_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     bwd_dq_wgmma<DH, CAP>
-        <<<n_qt * H * B, WG_THREADS, QSmem<DH>::bytes, stream>>>(
+        <<<n_dq + n_merge, WG_THREADS, QSmem<DH>::bytes, stream>>>(
             tq, tk, tv, tdo, lse, Dv, (__nv_bfloat16*)dq, B, Sq, Skv, H, KV,
-            scale, causal, window, softcap);
+            scale, causal, window, softcap, n_dq, hsplit, kv_part,
+            (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
   }
   return (int)cudaGetLastError();
 }
@@ -1719,9 +1747,9 @@ int launch_dh(int bf16, const void* q, const void* k, const void* v,
 // is dh^-0.5 rounded to float32; dh is 32, 64, 80, 128 or 256; a causal
 // call needs Sq == Skv.  splits is the caller's count of CTAs that share
 // one (batch, kv head, key block)'s walk over the group's q heads
-// (kernels/flash_attention.py: bwd_head_splits owns it): 1, or at dh 256
-// up to H / KV, with `part` a float32 workspace of 2 x splits x B x Skv
-// x KV x dh for the partial dK and dV (null at 1).  threads, block, step
+// (kernels/flash_attention.py: bwd_head_splits owns it): 1, or up to H
+// / KV, with `part` a float32 workspace of 2 x splits x B x Skv x KV x
+// dh for the partial dK and dV (null at 1).  threads, block, step
 // and smem are the float32 plan's (kernels/flash_attention.py:
 // bwd_plan); bfloat16 calls pass zeros (its launcher sizes its own
 // tiles).  Launches three kernels on `stream`; returns the first nonzero
@@ -1738,7 +1766,7 @@ extern "C" int flash_attention_bwd_launch(
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaGetLastError();
   if (Skv == 0 || (causal && Sq != Skv)) return (int)cudaErrorInvalidValue;
   if (splits < 1 || KV < 1 || splits > H / KV ||
-      (splits > 1 && (dh != 256 || part == nullptr)))
+      (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
@@ -1747,20 +1775,20 @@ extern "C" int flash_attention_bwd_launch(
   switch (dh) {
     case 32:
       return launch_dh<32>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                           Skv, H, KV, scale, causal, window, softcap, 1, P,
-                           threads, block, step, smem, s);
+                           Skv, H, KV, scale, causal, window, softcap,
+                           splits, P, threads, block, step, smem, s);
     case 64:
       return launch_dh<64>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                           Skv, H, KV, scale, causal, window, softcap, 1, P,
-                           threads, block, step, smem, s);
+                           Skv, H, KV, scale, causal, window, softcap,
+                           splits, P, threads, block, step, smem, s);
     case 80:
       return launch_dh<80>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                           Skv, H, KV, scale, causal, window, softcap, 1, P,
-                           threads, block, step, smem, s);
+                           Skv, H, KV, scale, causal, window, softcap,
+                           splits, P, threads, block, step, smem, s);
     case 128:
       return launch_dh<128>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
-                            Skv, H, KV, scale, causal, window, softcap, 1, P,
-                            threads, block, step, smem, s);
+                            Skv, H, KV, scale, causal, window, softcap,
+                            splits, P, threads, block, step, smem, s);
     case 256:
       return launch_dh<256>(bf16, q, k, v, o, dout, l, D, dq, dk, dv, B, Sq,
                             Skv, H, KV, scale, causal, window, softcap,

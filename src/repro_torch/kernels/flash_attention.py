@@ -61,7 +61,6 @@ bwd_launches = 0
 f32_launches = 0
 f32_bwd_launches = 0
 BWD_KERNELS = 3     # D = rowsum(dO * O), then dK/dV, then dQ
-BWD_SPLIT_DH = 256  # the head dim whose dK/dV walk splits the q heads
 
 HEAD_DIMS = (32, 64, 80, 128, 256)       # the forward, both dtypes
 BWD_HEAD_DIMS = (32, 64, 80, 128, 256)   # the backward, both dtypes
@@ -145,7 +144,7 @@ def bwd_plan(dh, dtype):
     one at 128 (128.5 KB) and 256 (192.5 KB)."""
     if dtype != torch.float32:
         return None
-    block = 32 if dh == BWD_SPLIT_DH else 64
+    block = 32 if dh == 256 else 64
     step = 64 if dh <= 64 else 32
     smem = (4 * f32_pitch(dh) * (2 * block + STAGES * 2 * step)
             + 4 * 2 * STAGES * step)
@@ -174,17 +173,18 @@ def _bwd_lib():
 def bwd_head_splits(B, Skv, KV, H, dh, sms):
     """How many CTAs share one (batch, kv head, key block)'s walk over
     its group's H / KV q heads in the backward's dK/dV pass, on a card
-    of ``sms`` SMs.  At ``BWD_SPLIT_DH`` (one CTA an SM in both dtypes)
-    enough for one CTA an SM counting 64-key tiles, at most one q head a
-    split: recurrentgemma's train shape (B 4, S 512, 10:1) has 32 tiles
-    and gets 5 splits of 2 heads, so that under the causal mask the CTA
-    of key block 0 walks 2 heads' query tiles (the float32 kernels'
-    32-key blocks make 320 CTAs of it).  Elsewhere 1: the dh <= 128
-    kernels walk the whole group.  Each split's float32 partial dK and dV
-    are added in split order (``csrc/flash_attention_bwd.cu``:
-    merge_dkdv)."""
-    if dh != BWD_SPLIT_DH:
-        return 1
+    of ``sms`` SMs, in both dtypes and at every head dim: the smallest
+    count that gives the launch one CTA an SM counting 64-key tiles, at
+    most one q head a split.  granite-20b's train shape (B 4, S 512,
+    48:1) has 32 tiles and gets 5 splits of 9-10 heads (160 CTAs, the
+    CTA of key block 0 walking 80 (head, query tile) pairs under the
+    causal mask, not 384); recurrentgemma's (10:1, dh 256) 5 splits of
+    2 heads (the float32 kernels' 32-key blocks at dh 256 make 320 CTAs
+    of it).  1 wherever the tiles alone fill the card (phi4-mini's,
+    stablelm's, deepseek's, gemma2's, mixtral's and llava's train
+    shapes), and there the kernels write dK and dV themselves.  Above 1
+    each split's float32 partial dK and dV are added in split order
+    (``csrc/flash_attention_bwd.cu``: merge_dkdv)."""
     tiles = -(-Skv // BK) * KV * B
     return max(1, min(H // KV, -(-sms // tiles)))
 
@@ -286,11 +286,11 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
     between them padded to the next one).  bfloat16 runs the wgmma
     kernels (at dh 256 two warpgroups a CTA, one a half of the output
     columns, sharing each tile's scores), float32 the split-TF32 kernels
-    (``bwd_plan``); at dh 256 both split the q heads of a group over
-    ``bwd_head_splits`` CTAs whose partial dK and dV are added in split
-    order.  Every product accumulates in float32 in a fixed order (no
-    atomics): the gradients are identical run to run.  The outputs are
-    in q's dtype."""
+    (``bwd_plan``); where the key tiles leave the card short both split
+    the q heads of a group over ``bwd_head_splits`` CTAs whose partial
+    dK and dV are added in split order.  Every product accumulates in
+    float32 in a fixed order (no atomics): the gradients are identical
+    run to run.  The outputs are in q's dtype."""
     global bwd_launches, f32_bwd_launches
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention_backward: q and k must be 4-d, "

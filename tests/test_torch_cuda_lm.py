@@ -1,5 +1,6 @@
 """The LM training path on the card: the flash-attention backward kernel
-(N1, dh 80 and 256 included, and at gemma2-27b's train shape) against
+(N1, dh 80 and 256 included, and at gemma2-27b's and granite-20b's
+train shapes, the latter's q heads split over CTAs) against
 its plain version, the forward's row log-sum-exp, launch counts of a
 train step, the recurrences' backward kernels (N2a, N2b) against
 theirs, the recurrent smokes fitting on the card, and deepseek-moe's
@@ -39,12 +40,13 @@ def _qkv(cuda, B, S, H, KV, dh, dtype, seed=0):
 
 
 # (B, S, H, KV, window, softcap): MHA, GQA, MQA, windows and caps,
-# ragged S; a granite-like 48:1 group (one kv head's CTAs walk 48 q
-# heads); a window whose edge cuts a key tile, uncapped
+# ragged S; a granite-like 48:1 group (one kv head: its q heads split
+# over CTAs, bwd_head_splits); a window whose edge cuts a key tile,
+# uncapped; granite-20b's train shape (4, 512, 48:1: 5 splits)
 SHAPES = [(2, 128, 4, 4, 0, 0.0), (2, 200, 6, 2, 0, 0.0),
           (1, 130, 4, 1, 64, 0.0), (2, 150, 4, 2, 0, 50.0),
           (1, 257, 8, 2, 100, 30.0), (1, 256, 48, 1, 0, 0.0),
-          (2, 320, 8, 4, 90, 0.0)]
+          (2, 320, 8, 4, 90, 0.0), (4, 512, 48, 1, 0, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -67,6 +69,29 @@ def test_backward_kernel_matches_plain(cuda, dtype, dh, B, S, H, KV, window,
         assert a.dtype == dtype and torch.equal(a, b)
         scale = float(w.float().abs().max())
         assert float((a.float() - w.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_granite_train_shape_backward_splits_and_repeats(cuda, dtype):
+    """N1 at granite-20b's train shape (4, 512, 48:1, dh 128, causal):
+    its dK/dV walk split over more than one CTA a key tile on this card
+    (``bwd_head_splits``), three launches a call, and dQ, dK and dV
+    identical on two calls (the splits' partials added in split order,
+    no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.bwd_head_splits(4, 512, 1, 48, 128, sms) > 1
+    q, k, v, do = _qkv(cuda, 4, 512, 48, 1, 128, dtype, seed=31)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    n = fa.bwd_launches
+    got = fa.flash_attention_backward(q, k, v, o, do, lse)
+    again = fa.flash_attention_backward(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches - n == 2 * fa.BWD_KERNELS
+    for a, b in zip(got, again):
+        assert a.dtype == dtype and torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -334,7 +359,7 @@ def test_wkv6_backward_kernel_matches_plain(cuda, dtype, B, S, H, nonzero):
 # window 2048: 5 head splits of 2), and groups the split count does not
 # divide, at ragged S (bwd_head_splits on 132 SMs: 10:1 at S 1000 in 9
 # splits, 12:2 at S 620 in 4, 20:2 at S 777 in 6, 48:1 at S 256 in 33,
-# SHAPES' last but one)
+# SHAPES' sixth)
 SHAPES_256 = SHAPES + [(4, 512, 10, 1, 2048, 0.0), (1, 1000, 10, 1, 300,
                                                     0.0),
                        (2, 620, 12, 2, 0, 0.0), (1, 777, 20, 2, 0, 30.0)]

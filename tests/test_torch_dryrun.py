@@ -559,6 +559,88 @@ def test_recurrentgemma_f32_train_fits_one_card_by_the_dry_run():
             bf16["flash_attention_backward_f32"]) == (0, 0)
 
 
+# chip_smoke's cuts of granite-20b, mixtral-8x7b and llava: (config
+# function, layers constant, its value, B, S, the full config's layers)
+NEW_CUTS = {"granite": ("granite_train_config", "GRANITE_TRAIN_LAYERS", 8,
+                        4, 512, 52),
+            "mixtral": ("mixtral_train_config", "MIXTRAL_TRAIN_LAYERS", 2,
+                        4, 512, 32),
+            "llava": ("llava_train_config", "LLAVA_TRAIN_LAYERS", 16, 1,
+                      4096, 32)}
+
+
+@pytest.mark.parametrize("name", list(NEW_CUTS))
+def test_new_train_cuts_fit_one_card_by_the_dry_run(name):
+    """chip_smoke's granite-20b, mixtral-8x7b and llava-next-mistral-7b
+    cuts, each priced at its step (granite and mixtral B 4 x S 512;
+    llava B 1 x S 4096, 2880 stub embeddings and 1216 tokens; remat,
+    AdamW, float32 masters) on one device: the full config at its own
+    widths but for depth (mixtral at capacity 1.25), a predicted peak of
+    at most 72 GB, and predicted K3 and N1 launches a step equal to
+    ``chip_smoke.step_launches`` (2 K3 and 3 N1 launches a layer)."""
+    import chip_smoke
+    fn, const, layers, B, S, full_layers = NEW_CUTS[name]
+    cut = getattr(chip_smoke, fn)()
+    assert getattr(chip_smoke, const) == cut.num_layers == layers
+    full = get_config(cut.name)
+    assert full.num_layers == full_layers
+    assert cut.replace(num_layers=full_layers) == full
+    if cut.moe:
+        assert (cut.moe.capacity_factor, cut.moe.top_k,
+                cut.moe.num_experts) == (1.25, 2, 8)
+    if cut.frontend_embeds:
+        assert (B, S) == (chip_smoke.LLAVA_TRAIN_B, chip_smoke.LLAVA_TRAIN_S)
+        assert chip_smoke.text_len(cut, S) == 1216
+    want = chip_smoke.step_launches(cut)
+    row = chip_smoke.dryrun_train("cpu", {
+        "step_ms_median_last6": 1.0, "peak_mem_bytes": 1 << 40,
+        "launches_per_step": want}, cut, B=B, S=S)
+    assert row["predicted_launches_per_step"] == {
+        "flash_attention": 2 * layers,
+        "flash_attention_backward": 3 * layers}
+    assert row["predicted_launches_per_step"] == {
+        k: v for k, v in want.items() if v}
+    assert row["predicted"]["peak_memory_bytes"] <= 72e9
+
+
+# N1's dK/dV head splits on 132 SMs at the train shapes the card runs:
+# (label, B, S, H, KV, dh, splits)
+TRAIN_SPLITS = [("granite_train", 4, 512, 48, 1, 128, 5),
+                ("granite_like", 1, 1024, 48, 1, 128, 9),
+                ("phi4_train", 4, 512, 24, 8, 128, 1),
+                ("stablelm_train", 4, 512, 32, 32, 80, 1),
+                ("deepseek_train", 4, 512, 16, 16, 128, 1),
+                ("gemma2_train", 2, 8192, 32, 16, 128, 1),
+                ("mixtral_train", 4, 512, 32, 8, 128, 1),
+                ("llava_train", 1, 4096, 32, 8, 128, 1),
+                ("recurrentgemma_train", 4, 512, 10, 1, 256, 5)]
+
+
+@pytest.mark.parametrize("label,B,S,H,KV,dh,want", TRAIN_SPLITS,
+                         ids=[c[0] for c in TRAIN_SPLITS])
+def test_bwd_head_splits_at_the_train_shapes(label, B, S, H, KV, dh, want):
+    """``bwd_head_splits`` on the H100's 132 SMs: above 1 where MQA
+    leaves the dK/dV grid short of the card (granite-20b's train shape
+    and the granite-like row), enough for one CTA an SM; 1 where the key
+    tiles alone fill it (the dK/dV kernel then writes dK and dV
+    itself); recurrentgemma's dh 256 keeps its 5.  Each named
+    arch's own heads are the case's."""
+    from repro_torch.kernels import flash_attention as fa
+    n = fa.bwd_head_splits(B, S, KV, H, dh, 132)
+    assert n == want
+    tiles = -(-S // fa.BK) * KV * B
+    assert (tiles >= 132) == (n == 1)
+    if n > 1:
+        assert tiles * n >= 132 > tiles * (n - 1)
+    arch = {"granite": "granite-20b", "phi4": "phi4-mini-3.8b",
+            "stablelm": "stablelm-3b", "deepseek": "deepseek-moe-16b",
+            "gemma2": "gemma2-27b", "mixtral": "mixtral-8x7b",
+            "llava": "llava-next-mistral-7b",
+            "recurrentgemma": "recurrentgemma-2b"}[label.split("_")[0]]
+    cfg = get_config(arch)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_) == (H, KV, dh)
+
+
 def test_adamw_on_the_tied_embedding_sets_the_gemma2_cut_peak():
     """``tools/train_peak.py`` at gemma2_train's cut and step: the peak
     of live storages is reached inside AdamW's update (at the root of

@@ -242,21 +242,23 @@ def test_attention_backward_plain_at_head_dim_80(window):
 
 # (B, Skv, H, KV, dh, splits on 132 SMs): recurrentgemma's train shape
 # (32 dK/dV tiles: 5 splits of 2 heads) and its long row; groups the count
-# does not divide; a granite-like 48:1 group; dh <= 128 never splits
-# (stablelm-3b's train shape at dh 80: 1024 dK/dV CTAs, MHA 32:32)
+# does not divide; a granite-like 48:1 group at dh 256 and at its own dh
+# 128 (16 tiles: 9 splits); dh <= 128 splits by the same rule, and not
+# where the tiles fill the card (stablelm-3b's train shape at dh 80:
+# 1024 dK/dV CTAs, MHA 32:32)
 HEAD_SPLITS = [(4, 512, 10, 1, 256, 5), (1, 4096, 10, 1, 256, 3),
                (1, 1000, 10, 1, 256, 9), (2, 620, 12, 2, 256, 4),
                (1, 777, 20, 2, 256, 6), (1, 256, 48, 1, 256, 33),
-               (16, 4096, 10, 1, 256, 1), (1, 1024, 48, 1, 128, 1),
+               (16, 4096, 10, 1, 256, 1), (1, 1024, 48, 1, 128, 9),
                (4, 512, 32, 32, 80, 1)]
 
 
 @pytest.mark.parametrize("B,Skv,H,KV,dh,want", HEAD_SPLITS)
 def test_bwd_head_splits_fill_the_card(B, Skv, H, KV, dh, want):
-    """N1's dK/dV split count at dh 256 gives the launch at least one CTA
-    an SM, at most one q head a split; the kernel's split sp walks heads
-    [sp G / n, (sp + 1) G / n) of a group of G: every head once, the
-    splits' sizes at most one apart."""
+    """N1's dK/dV split count gives the launch at least one CTA an SM, at
+    most one q head a split, at every head dim; the kernel's split sp
+    walks heads [sp G / n, (sp + 1) G / n) of a group of G: every head
+    once, the splits' sizes at most one apart."""
     from repro_torch.kernels import flash_attention as fa
     n = fa.bwd_head_splits(B, Skv, KV, H, dh, 132)
     assert n == want
@@ -265,7 +267,7 @@ def test_bwd_head_splits_fill_the_card(B, Skv, H, KV, dh, want):
     sizes = [b - a for a, b in zip(bounds, bounds[1:])]
     assert bounds[0] == 0 and bounds[-1] == G and min(sizes) >= 1
     assert max(sizes) - min(sizes) <= 1
-    if dh == 256 and n < G:
+    if n < G:
         assert -(-Skv // 64) * KV * B * n >= 132
 
 

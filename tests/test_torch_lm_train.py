@@ -307,6 +307,68 @@ def test_gemma2_train_step_past_its_window_matches_reference_and_repeats():
     assert rep["leaves"] == len(flatten_tree(init))
 
 
+# (arch, capacity factor for an MoE smoke): granite's smoke (8 q heads
+# on one kv head), mixtral's (top-2 of 4, no shared expert) at mixtral's
+# own capacity 1.25, llava's (16 stub embeddings before the tokens)
+NEW_TRAIN_ARCHS = [("granite-20b", None), ("mixtral-8x7b", 1.25),
+                   ("llava-next-mistral-7b", None)]
+
+
+@pytest.mark.parametrize("arch,capacity", NEW_TRAIN_ARCHS,
+                         ids=[a for a, _ in NEW_TRAIN_ARCHS])
+def test_new_arch_train_step_matches_reference_and_repeats(arch, capacity):
+    """The smokes of the archs chip_smoke trains at its granite, mixtral
+    and llava cuts, in float32, trained as those paths train (AdamW,
+    remat): two ``make_train_step`` steps against the reference's from
+    its init carried across, at B 2 x S 96 tokens; llava's batches carry
+    one seeded numpy array of stub embeddings, merged into each batch as
+    ``train_lm``'s ``extra_batch`` is in both packages.  Loss, gradient
+    norm and learning rate within 1e-5 relative at each step (mixtral's
+    picks dropping at capacity 1.25); then one step's loss and gradients
+    taken twice from that init on one batch
+    (``chip_smoke.train_step_repeat``): equal bit for bit."""
+    import chip_smoke
+    from conftest import smoke_model
+    from test_torch_moe import port_config as moe_port_config
+    jcfg = smoke_model(arch, dtype="float32", param_dtype="float32")[0]
+    if capacity is not None:
+        jcfg = jcfg.replace(moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=capacity))
+    jm, cfg = JModel(jcfg), moe_port_config(jcfg)
+    model = Model(cfg)
+    kw = dict(batch_size=2, seq_len=96, steps=2, learning_rate=3e-3,
+              warmup_steps=1)
+    jstep, jopt = jdistill.make_train_step(jm, JTrainConfig(**kw))
+    step, opt = distill.make_train_step(model, TrainConfig(**kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    params = lm_tree_from_reference(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    init = tree_map(torch.clone, params)
+    data = synthetic.tokens(n_seqs=16, seq_len=97, vocab=cfg.vocab_size,
+                            seed=6)["train"]
+    extra = {}
+    if cfg.frontend_embeds:
+        extra["embeds"] = np.random.default_rng(7).normal(
+            0, 1, (2, cfg.frontend_embeds, cfg.d_model)).astype(np.float32)
+    jbatches = [{**b, **extra} for b in
+                pipeline.TokenDataset(data, 0).batches(2, steps=2)]
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in jbatches]
+    jstate, state = jopt.init(jp), opt.init(params)
+    jstep = jax.jit(jstep)
+    with chip_smoke.DropCount() as drops:
+        for jb, b in zip(jbatches, batches):
+            jp, jstate, jm_ = jstep(jp, jstate, {k: jnp.asarray(v)
+                                                 for k, v in jb.items()})
+            params, state, m = step(params, state, b)
+            for name in ("loss", "grad_norm", "lr"):
+                want = float(jm_[name])
+                assert abs(float(m[name]) - want) <= 1e-5 * abs(want), name
+    assert (drops.share > 0.0) == (capacity is not None)
+    rep = chip_smoke.train_step_repeat(model, init, batches[0])
+    assert rep["identical"] and rep["finite"], rep
+    assert rep["leaves"] == len(flatten_tree(init))
+
+
 @pytest.mark.parametrize("vocab,gamma", [(64, 0.0), (64, 0.1),
                                          (4096, 0.0), (4096, 0.5)],
                          ids=["hist", "hist_noise", "sort", "vocab_noise"])

@@ -24,10 +24,14 @@ checkpoints writes them); N1 in bf16 at phi4-mini's training shape (B
 4, S 512, 24:8, dh 128, causal), at whisper-tiny's (m) encoder (8, 1500
 x 1500, 6:6, dh 64) and (n) cross attention (8, 128 x 1500), at
 recurrentgemma-2b's local attention in training (4, 512, 10:1, dh 256,
-window 2048) and at stablelm-3b's (4, 512, 32:32, dh 80, causal), and
-in float32 at phi4's, stablelm's and recurrentgemma's train shapes, at
-a dh-32 one (2, 384, 8:2, window 64) and at whisper's (m), from this
-tree's forward (K3) o and row log-sum-exp; N2a at recurrentgemma-2b's
+window 2048), at stablelm-3b's (4, 512, 32:32, dh 80, causal), at
+granite-20b's (4, 512, 48:1, dh 128), a granite-like (1, 1024, 48:1)
+and llava's (1, 4096, 32:8, dh 128), and in float32 at granite's,
+phi4's, stablelm's and recurrentgemma's train shapes, at a dh-32 one
+(2, 384, 8:2, window 64) and at whisper's (m), from this tree's forward
+(K3) o and row log-sum-exp, each tree with its own dK/dV head-split
+rule (``bwd_head_splits``), its gradients compared bit for bit with
+the other tree's (``same_bits_as_parent``); N2a at recurrentgemma-2b's
 train shape (x, log_a, dh (4, 512, 2560) bf16, h0 and dh_last nonzero),
 at S 1024, at a ragged S 1000 and in float32 (2, 1000, 512); and N2b at
 rwkv6-7b's training shape (r, k, v, w, dO (4, 512, 64, 64) bf16, zero
@@ -183,7 +187,12 @@ def build_tree(tree: Path, tag: str):
     # the tree's own float32 backward head dims: a dh between them its
     # wrapper padded, a dh above them it refused
     f32_dims = getattr(tree_fa, "BWD_F32_HEAD_DIMS", tree_fa.BWD_HEAD_DIMS)
-    SIGNATURES[tag] = {"n1_splits": splits, "n1_dh80": "case 80" in bwd_src,
+    # the tree's own dK/dV head-split rule (1 at dh <= 128 before the
+    # split reached them)
+    SIGNATURES[tag] = {"n1_splits": splits,
+                       "head_splits": getattr(tree_fa, "bwd_head_splits",
+                                              None),
+                       "n1_dh80": "case 80" in bwd_src,
                        "k3_dh80": k3_dh80, "k3_keys": k3_keys,
                        "k3_plan": tree_fa.plan, "n1_plan": n1_plan,
                        "bwd_plan": getattr(tree_fa, "bwd_plan", None),
@@ -436,9 +445,9 @@ def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, dt,
     def geometry(tree, d):
         sig = SIGNATURES[tree]
         bp = sig["bwd_plan"](d, dt) if sig["bwd_plan"] else None
-        splits = fa.bwd_head_splits(B, Skv, KV, H, d, sms)
         if not sig["n1_splits"] or (dt == torch.float32 and bp is None):
-            splits = 1
+            return bp, 1
+        splits = sig["head_splits"](B, Skv, KV, H, d, sms)
         return bp, splits
 
     def launch(fn, tree, ins, grads):
@@ -472,6 +481,7 @@ def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, dt,
         return outs
     want = ref.attention_backward_plain(q, k, v, o, do, lse, **kw)
     tol = BWD_TOL[dt]
+    seen = {}  # each checked tree's gradients
 
     def check(call, fn, tree):
         first = call(fn, tree)
@@ -490,9 +500,14 @@ def attention_bwd_case(label, B, Sq, Skv, H, KV, dh, causal, window, dt,
         if rel > tol:
             raise AssertionError(f"N1 {label}: {rel} > {tol} of the "
                                  f"largest |gradient|")
+        # whether dQ, dK and dV equal each earlier tree's bit for bit
+        same = {f"same_bits_as_{t}": all(torch.equal(a, b)
+                                         for a, b in zip(got, other))
+                for t, other in seen.items()}
+        seen[tree] = got
         return {"max_rel_err": rel, "tol": tol, "run_to_run": True,
                 "head_splits": geometry(tree, launched_dh(tree))[1],
-                "launched_dh": launched_dh(tree)}
+                "launched_dh": launched_dh(tree), **same}
 
     def library():
         ms, backend, _ = sdpa_backward_best(q, k, v, do, want, ATT_TOL[dt],
@@ -605,6 +620,14 @@ def main():
                        True, 2048, bf),
                       ("stablelm_train", 4, 512, 512, 32, 32, 80, True, 0,
                        bf),
+                      ("granite_train", 4, 512, 512, 48, 1, 128, True, 0,
+                       bf),
+                      ("granite_like", 1, 1024, 1024, 48, 1, 128, True, 0,
+                       bf),
+                      ("llava_train", 1, 4096, 4096, 32, 8, 128, True, 0,
+                       bf),
+                      ("granite_train_f32", 4, 512, 512, 48, 1, 128, True,
+                       0, f32),
                       ("phi4_train_f32", 4, 512, 512, 24, 8, 128, True, 0,
                        f32),
                       ("stablelm_train_f32", 4, 512, 512, 32, 32, 80, True,
