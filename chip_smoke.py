@@ -251,14 +251,32 @@ non-zero before printing a result):
                 float32 (26 layers, full width) the same way: K3 and N1
                 on their float32 kernels at dh 256 (16 and 24 launches
                 a step, all counted as float32), K4 and N2a in float32,
-                the repeated step bit for bit.
+                the repeated step bit for bit.  After gemma2, the cuts
+                of granite-20b (8 of 52), mixtral-8x7b (2 of 32) and
+                llava-next-mistral-7b (16 of 32, B 1 x S 4096) the same
+                way.  Last, the LM FedKT round (``launch.train.
+                fedkt_lm``, the CLI's ``--fedkt`` config: 2 parties, s
+                2, t 2, B 8 x S 128, in-process transport) at
+                phi4-mini-3.8b's full width cut to 8 of its 32 layers,
+                8 steps a fit, at L0 and at L2 (gamma 0.1): launches
+                exactly as derived from the config (K1 once a party
+                partition under L2, none under L0: the sort path), each
+                L2 party vote's K1 bit for bit ``ref.vote_aggregate_
+                plain`` on the card on the recorded predictions and
+                noise, each L0 party vote and the server's vote
+                recomputed on the CPU, epsilon, the update wire bytes
+                equal to ``codec.lm_protocol_bytes``' price, the peak
+                under 72 GB beside its price, K1 timed at the round's
+                shape (2, 4096, 200,064); one ``[lm-fedkt-cut]`` line
+                a level.
   10. dryrun  : the port's dry-run on the meta device (no kernel
                 launch; host time): one arch per family (phi4-mini,
                 mixtral, recurrentgemma, whisper) x the four input
                 shapes x both production meshes, each pair's dominant
                 term, per-device peak against the card's 80 GB and the
-                seconds of its terms, the skips equal to ``SKIPS``; then
-                lm_train's exact steps (phi4-mini, recurrentgemma-2b,
+                seconds of its terms, the skips equal to ``SKIPS``
+                (these pairs are priced in phase 1, while nvcc runs);
+                then lm_train's exact steps (phi4-mini, recurrentgemma-2b,
                 rwkv6-7b's 12-layer cut, stablelm-3b, deepseek-moe-16b's
                 6-layer cut and recurrentgemma-2b in float32 at B 4 x S
                 512, gemma2-27b's 4-layer cut at B 2 x S 8192; remat,
@@ -297,6 +315,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -305,6 +324,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # the H100's rates (one owner: the port's roofline, launch/analysis.py)
+from repro_torch.federation.engines import LMEngine  # noqa: E402
 from repro_torch.launch.analysis import (FP32_FLOPS, HBM_BW,  # noqa: E402
                                          PEAK_FLOPS, TF32_FLOPS)
 ADULT_ROWS, ADULT_FEATURES = 48_842, 14
@@ -439,7 +459,11 @@ def ptxas_summary(report):
 # ---------------------------------------------------------------------------
 # Phase 1
 # ---------------------------------------------------------------------------
-def phase_device():
+def phase_device(during_build=None):
+    """The card's name and ``nvidia-smi`` line; the kernel sources built
+    (one nvcc each, all started together) and their ptxas reports.
+    ``during_build(smi)``, where given, runs on this thread while the
+    build runs on another (host work that needs no kernel)."""
     from repro_torch.kernels import build
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -450,7 +474,13 @@ def phase_device():
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
     t0 = time.time()
-    reports = build.build()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(build.build)
+        if during_build is not None:
+            during_build(smi)
+            log(f"[device] host work during the build took "
+                f"{time.time() - t0:.1f} s")
+        reports = building.result()
     log(f"[device] built {sorted(reports)} in {time.time() - t0:.1f} s")
     for kname, rep in reports.items():
         for line in rep.splitlines():
@@ -3618,6 +3648,381 @@ def recurrent_train_configs():
             get_config("rwkv6-7b").replace(num_layers=RWKV_TRAIN_LAYERS))
 
 
+# phi4-mini-3.8b's FedKT cut: the CLI's ``--fedkt`` round at full width
+# and 8 of its 32 layers, 1.420 B parameters a member (5.68 GB in
+# float32).  A party holds its s * t = 4 teachers and a finished student
+# on the card while the next student fits: at 32 layers (15.4 GB a
+# member) that does not fit one card
+FEDKT_CUT_LAYERS = 8
+FEDKT_CUT_B, FEDKT_CUT_S = 8, 128      # the CLI's batch and sequence
+FEDKT_CUT_STEPS = 8                    # a fit's steps (the CLI's 100)
+FEDKT_CUT_LR = 3e-4                    # peak learning rate (the CLI's 1e-3)
+FEDKT_CUT_PEAK_LIMIT = 72e9            # every depth cut's peak stays under it
+
+
+def fedkt_cut_config():
+    """phi4-mini-3.8b at ``FEDKT_CUT_LAYERS`` of its 32 layers, full width
+    (d 3072, 24:8 heads of 128, vocabulary 200,064), bf16 compute."""
+    from repro_torch.configs import get_config
+    return get_config("phi4-mini-3.8b").replace(num_layers=FEDKT_CUT_LAYERS)
+
+
+def fedkt_round_inputs(cfg, level, gamma, B=FEDKT_CUT_B, S=FEDKT_CUT_S,
+                       steps=FEDKT_CUT_STEPS, lr=FEDKT_CUT_LR, n_seqs=256):
+    """(FedKTConfig, TrainConfig, token splits) of the CLI's ``--fedkt``
+    round (``launch/train.main``) over ``cfg``: 2 parties, s 2, t 2,
+    ``num_classes`` the vocabulary, at ``level`` with ``gamma``;
+    ``steps`` steps of B x S a fit at peak learning rate ``lr``;
+    ``synthetic.tokens(n_seqs, S + 1, vocabulary)``."""
+    from repro_torch.configs import FedKTConfig, TrainConfig
+    from repro_torch.data import synthetic
+    fcfg = FedKTConfig(num_parties=2, num_partitions=2, num_subsets=2,
+                       num_classes=cfg.vocab_size, privacy_level=level,
+                       gamma=gamma)
+    tcfg = TrainConfig(batch_size=B, seq_len=S, steps=steps,
+                       learning_rate=lr)
+    data = synthetic.tokens(n_seqs=n_seqs, seq_len=S + 1,
+                            vocab=cfg.vocab_size)
+    return fcfg, tcfg, data
+
+
+class _PredictTap:
+    """``model`` with every ``predict`` result also appended to
+    ``out``."""
+
+    def __init__(self, model, out):
+        self._model, self._out = model, out
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def predict(self, params, batch):
+        preds = self._model.predict(params, batch)
+        self._out.append(preds)
+        return preds
+
+
+class RecordingLMEngine(LMEngine):
+    """``LMEngine`` that keeps, on the CPU, what a round's checks need:
+    each partition vote's member predictions (M, T), labels, clean gaps,
+    key and gamma (``votes``, in call order: party by party, partition by
+    partition), and each party's student predictions (s, T) at the
+    server (``student_preds``, in fold order).  The vote still runs
+    ``LMLearner.vote_members``' label step, on a copy of the learner
+    whose model's ``predict`` is tapped, so the round computes what an
+    ``LMEngine`` round computes.  ``seconds`` sums the host time of its
+    calls by kind (teacher fits, votes, student fits, the students'
+    predictions at the server), each ended by a synchronise."""
+
+    def __init__(self):
+        self.votes, self.student_preds = [], []
+        self.seconds = {"teacher_fits": 0.0, "votes": 0.0,
+                        "student_fits": 0.0, "server_predicts": 0.0}
+
+    @contextlib.contextmanager
+    def _timed(self, kind):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.seconds[kind] += time.perf_counter() - t0
+
+    def fit_teachers(self, keys, learner, datasets):
+        with self._timed("teacher_fits"):
+            return super().fit_teachers(keys, learner, datasets)
+
+    def label_queries(self, learner, bank, X, num_classes, *, gamma=0.0,
+                      key=None):
+        taps = []
+        tapped = dataclasses.replace(
+            learner, model=_PredictTap(learner.model, taps))
+        with self._timed("votes"):
+            labels, gap = super().label_queries(tapped, bank, X, num_classes,
+                                                gamma=gamma, key=key)
+        self.votes.append({
+            "preds": torch.stack(taps).reshape(len(bank), -1).cpu(),
+            "labels": labels.cpu(), "gaps": gap.cpu(), "key": key,
+            "gamma": gamma})
+        return labels, gap
+
+    def fit_students(self, keys, learner, X, labelsets):
+        with self._timed("student_fits"):
+            return super().fit_students(keys, learner, X, labelsets)
+
+    def predict_students(self, learner, states, X):
+        with self._timed("server_predicts"):
+            preds = super().predict_students(learner, states, X)
+        self.student_preds.append(preds.cpu())
+        return preds
+
+
+def fedkt_round_launches(cfg, fcfg, tcfg):
+    """The kernel launches of one ``fedkt_lm`` round over ``cfg`` (engine
+    "lm", a vocabulary over 2048), by counter, from the protocol: n (s t
+    + s) + 1 fits of ``tcfg.steps`` train steps (``step_launches``); a
+    no-grad forward (half a step's forward kernels: no recompute) for
+    each teacher of each partition vote, each student at the server and
+    the final model's accuracy; K1 once a (party, partition) under L2
+    with noise, none else (a noise-free vote over the vocabulary is
+    ``ops.votes_sort``)."""
+    n, s, t = fcfg.num_parties, fcfg.num_partitions, fcfg.num_subsets
+    step = step_launches(cfg)
+    fits = n * (s * t + s) + 1
+    forwards = n * s * t + n * s + 1
+    want = {k: fits * tcfg.steps * v for k, v in step.items()}
+    for k in ("flash_attention", "flash_attention_f32", "rglru_scan",
+              "wkv6"):
+        want[k] += forwards * step[k] // 2
+    noisy = fcfg.privacy_level == "L2" and fcfg.gamma > 0
+    want["vote_aggregate"] = n * s if noisy else 0
+    return want
+
+
+def fedkt_round_checks(rec, res, model, fcfg, tcfg, data, device):
+    """A recorded ``fedkt_lm`` round (``RecordingLMEngine`` ``rec``,
+    result ``res``) held to what its recorded inputs give, at a
+    vocabulary over 2048 and level L0 or L2 (where the server adds no
+    noise):
+
+    - each party vote under L2: on ``device``, K1 on a CUDA device and
+      ``ref.vote_aggregate_plain`` on the recorded predictions and the
+      noise drawn again from the vote's key (``voting.laplace``), all
+      five outputs bit for bit, the session's labels and clean gaps
+      equal to them; under L0 the session's labels and gaps equal
+      ``ops.votes_sort`` of the predictions on the CPU;
+    - the server vote on the CPU: ``party_vote_counts`` of the recorded
+      student predictions summed over the parties equal to the session's
+      counts, ``finalize_vote`` of them to its labels and gaps;
+    - epsilon: ``fedkt_l2_epsilon`` of each party's recorded gaps (L2),
+      else None;
+    - the update wire bytes: the payload n s times
+      ``codec.lm_protocol_bytes``' member payload (the member's state
+      and a party's query tokens' gaps), the labels n times its label
+      payload, and the framed bytes the codec's price of each party's
+      frame from shapes (the member's ``init_shapes``).
+
+    Returns a row of the checked values; raises at the first
+    mismatch."""
+    from repro_torch.core import privacy, voting
+    from repro_torch.core.learners import LMLearner
+    from repro_torch.core.partition import dirichlet_partition
+    from repro_torch.data.pipeline import lm_session_data
+    from repro_torch.federation import codec
+    from repro_torch.federation.bindings import learner_kind
+    from repro_torch.federation.domain import (fingerprint_queries,
+                                               token_domain)
+    from repro_torch.federation.messages import PartyUpdate, ShapeDtype
+    from repro_torch.federation.party import query_budget
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import vote_aggregate as va
+    n, s, t = fcfg.num_parties, fcfg.num_partitions, fcfg.num_subsets
+    U = model.cfg.vocab_size
+    if U <= 2048 or fcfg.privacy_level not in ("L0", "L2"):
+        raise ValueError(f"fedkt_round_checks: vocabulary {U} at "
+                         f"{fcfg.privacy_level}")
+    if len(rec.votes) != n * s or len(rec.student_preds) != n:
+        raise AssertionError(f"recorded {len(rec.votes)} votes and "
+                             f"{len(rec.student_preds)} parties' students")
+    k1_identical = 0
+    for i, v in enumerate(rec.votes):
+        if v["gamma"] > 0:
+            preds = v["preds"].to(device)
+            noise = voting.laplace(v["key"], (preds.shape[1], U),
+                                   1.0 / v["gamma"], device)
+            want = ref.vote_aggregate_plain(preds, U, noise)
+            if preds.is_cuda:
+                got = va.vote_aggregate(preds, noise, num_classes=U)
+                if not all(same_bits(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"K1 != plain at vote {i}")
+                k1_identical += 1
+                del got
+            labels, gaps = want[0].cpu(), (want[3] - want[4]).cpu()
+            del preds, noise, want
+        else:
+            labels, top1, top2 = ops.votes_sort(v["preds"])
+            gaps = top1 - top2
+        if not torch.equal(labels, v["labels"]) or \
+                not same_bits(gaps, v["gaps"]):
+            raise AssertionError(f"party vote {i} differs from its "
+                                 f"recomputation")
+    (row,) = res.by_domain.values()
+    vote, dom = row["vote"], row["domain"]
+    counts = sum(voting.party_vote_counts(
+        p, dom, consistent=fcfg.consistent_voting) for p in rec.student_preds)
+    if not torch.equal(counts, vote.counts.cpu()):
+        raise AssertionError("server counts differ from the CPU's sum")
+    again = voting.finalize_vote(counts, dom)
+    if not torch.equal(again.labels, vote.labels.cpu()) or \
+            not same_bits(again.top_gap, vote.top_gap.cpu()):
+        raise AssertionError("server labels differ from the CPU's vote")
+    del counts, again
+    eps = None
+    if fcfg.privacy_level == "L2":
+        eps = privacy.fedkt_l2_epsilon(
+            [np.concatenate([v["gaps"].numpy()
+                             for v in rec.votes[p * s:(p + 1) * s]])
+             for p in range(n)], fcfg.gamma, U)
+    if eps != res.epsilon:
+        raise AssertionError(f"epsilon {res.epsilon} != {eps}")
+    # the wire: each party's frame priced from shapes
+    public = np.asarray(data["public"], np.int32)
+    tq_party, tq_server = query_budget(fcfg, len(public))
+    S = public.shape[1] - 1
+    member = model.init_shapes()
+    per_member = codec.lm_protocol_bytes(member, s * t, tq_party, S)
+    dom_wire = token_domain(tq_server * S, U, fingerprint=fingerprint_queries(
+        public[:tq_server]))
+    kind = learner_kind(LMLearner(model, tcfg, device=device))
+    sizes = [len(ix) for ix in dirichlet_partition(lm_session_data(
+        data["train"], public, data["test"])["y_train"], n, fcfg.beta,
+        fcfg.seed)]
+    framed = sum(codec.update_encoded_nbytes(PartyUpdate(
+        party_id=pid, student_states=[member] * s,
+        vote_gaps=ShapeDtype((s * tq_party * S,), np.float32),
+        num_examples=size, learner_kind=kind, domain=dom_wire,
+        meta={"num_teachers": s * t, "num_query_labels": tq_party * S,
+              "label_payload_bytes": tq_party * S * 4}))
+        for pid, size in enumerate(sizes))
+    wire = res.meta["wire_bytes"]
+    priced = {"updates": framed,
+              "updates_payload": n * s * per_member[
+                  "update_payload_bytes_per_member"],
+              "labels": n * per_member["label_payload_bytes"]}
+    got = {k: wire[k] for k in priced}
+    if got != priced:
+        raise AssertionError(f"wire bytes {got} != priced {priced}")
+    return {"party_votes": len(rec.votes), "k1_identical": k1_identical,
+            "server_tokens": int(vote.labels.numel()), "epsilon": eps,
+            "wire_bytes": got, "protocol_per_member": per_member}
+
+
+def k1_round_row(rec, U):
+    """K1 at the round's shape (the first recorded noisy vote's
+    predictions and its noise): CUDA-event time of 20 wrapper calls, the
+    device time of 20 in a CUDA graph, the plain version's, and the
+    bound (``phase_votes``' formula: the noise read once dominates)."""
+    from repro_torch.core import voting
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import vote_aggregate as va
+    v = next(v for v in rec.votes if v["gamma"] > 0)
+    preds = v["preds"].cuda()
+    M, T = preds.shape
+    noise = voting.laplace(v["key"], (T, U), 1.0 / v["gamma"], "cuda")
+    ms = cuda_ms(lambda: va.vote_aggregate(preds, noise, num_classes=U))
+    dev = graph_ms(lambda: va.vote_aggregate(preds, noise, num_classes=U))
+    plain = cuda_ms(lambda: ref.vote_aggregate_plain(preds, U, noise),
+                    reps=2, warmup=1)
+    nbytes = 4 * (M * T + T * U + 5 * T)
+    b_ms, b_by = bound(nbytes, M * T + T * U)
+    del preds, noise
+    torch.cuda.empty_cache()
+    return {"shape": f"fedkt_cut ({M}, {T}, {U}) noise", "M": M, "T": T,
+            "U": U, "kernel_ms": ms, "graph_ms": dev, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": 0.0}
+
+
+def lm_fedkt_cut(smi, level, gamma):
+    """``launch.train.fedkt_lm`` at full width: the CLI's ``--fedkt``
+    round (``fedkt_round_inputs``) over phi4-mini-3.8b cut to
+    ``FEDKT_CUT_LAYERS`` of 32 layers (``fedkt_cut_config``), bf16
+    compute on float32 masters, ``FEDKT_CUT_STEPS`` steps a fit at peak
+    learning rate ``FEDKT_CUT_LR``, engine "lm" (``RecordingLMEngine``),
+    in-process transport, at ``level`` with ``gamma``.  Holds the
+    round's launches to ``fedkt_round_launches`` exactly, the round to
+    ``fedkt_round_checks`` (every K1 launch of an L2 round bit for bit
+    the plain version on the card, every vote recomputed, epsilon, wire
+    bytes), its device peak to ``FEDKT_CUT_PEAK_LIMIT``, printed beside
+    its price (``train_price`` of a fit plus the members a party holds
+    while its last student fits), the accuracy to [0, 1] and the final
+    model's ``eval_lm`` loss to a finite value.  Prints one
+    ``[lm-fedkt-cut]`` line.  Returns (the round's and the evaluation's
+    launches, K1's row at the round's shape or None under L0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch.train import eval_lm, fedkt_lm
+    from repro_torch.models import Model
+    from repro_torch.tree_util import tree_leaves
+    cfg = fedkt_cut_config()
+    model = Model(cfg)
+    fcfg, tcfg, data = fedkt_round_inputs(cfg, level, gamma)
+    n_params = sum(leaf.numel() for leaf in tree_leaves(model.init_shapes()))
+    member_bytes = 4 * n_params
+    held = fcfg.num_partitions * fcfg.num_subsets + fcfg.num_partitions - 1
+    fit_price = train_price(cfg, FEDKT_CUT_B, FEDKT_CUT_S)["peak_memory_bytes"]
+    price = fit_price + held * member_bytes
+    rec = RecordingLMEngine()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    t0 = time.perf_counter()
+    res = fedkt_lm(model, data["train"], data["public"], fcfg, tcfg,
+                   test=data["test"], engine=rec, verbose=False,
+                   device="cuda")["result"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _zero_lm_counts()
+    eval_batches = 8
+    test_loss = eval_lm(model, res.final_state, TokenDataset(data["test"]),
+                        batch_size=tcfg.batch_size, max_batches=eval_batches,
+                        device="cuda")
+    torch.cuda.synchronize()
+    eval_counts = _lm_counts()
+    res.final_state = None
+    torch.cuda.empty_cache()
+    log(f"[lm_train] fedkt cut {level}: round {wall:.1f} s "
+        f"{res.meta['seconds']}, peak {peak}, launches {counts}")
+    t1 = time.perf_counter()
+    checked = fedkt_round_checks(rec, res, model, fcfg, tcfg, data, "cuda")
+    check_s = time.perf_counter() - t1
+    k1 = k1_round_row(rec, cfg.vocab_size) if gamma > 0 else None
+    want = fedkt_round_launches(cfg, fcfg, tcfg)
+    # each evaluated batch a no-grad forward: K3 once an attention layer
+    step = step_launches(cfg)
+    fwd = {k: eval_batches * step[k] // 2 if k in (
+        "flash_attention", "flash_attention_f32") else 0 for k in want}
+    of_layers = get_config(cfg.name).num_layers
+    row = {"level": level, "gamma": gamma, "arch": cfg.name,
+           "layers": cfg.num_layers, "of_layers": of_layers,
+           "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "cuts": {"layers": f"{cfg.num_layers} of {of_layers}",
+                    "steps_a_fit": f"{tcfg.steps} (the CLI's 100)",
+                    "lr": f"{tcfg.learning_rate} (the CLI's 1e-3)"},
+           "parties": fcfg.num_parties, "s": fcfg.num_partitions,
+           "t": fcfg.num_subsets, "B": tcfg.batch_size,
+           "S": tcfg.seq_len, "params_a_member": n_params,
+           "state_bytes_a_member": member_bytes, "round_wall_s": wall,
+           "seconds": res.meta["seconds"], "engine_seconds": rec.seconds,
+           "check_s": check_s,
+           "peak_mem_bytes": peak, "price_bytes": price,
+           "price_fit_bytes": fit_price, "price_held_members": held,
+           "peak_limit_bytes": FEDKT_CUT_PEAK_LIMIT,
+           "launches": counts, "launches_derived": want,
+           "eval_launches": eval_counts, "k1": k1, **checked,
+           "accuracy": res.accuracy, "test_loss": test_loss, "card": smi}
+    log("[lm-fedkt-cut] " + json.dumps(row))
+    if counts != want:
+        raise AssertionError(f"fedkt cut {level}: launches {counts} != "
+                             f"{want}")
+    if eval_counts != fwd:
+        raise AssertionError(f"fedkt cut {level}: eval launches "
+                             f"{eval_counts} != {fwd}")
+    if peak > FEDKT_CUT_PEAK_LIMIT:
+        raise AssertionError(f"fedkt cut {level}: peak {peak} B over "
+                             f"{FEDKT_CUT_PEAK_LIMIT}")
+    if not 0.0 <= res.accuracy <= 1.0 or not math.isfinite(test_loss):
+        raise AssertionError(f"fedkt cut {level}: accuracy {res.accuracy}, "
+                             f"test loss {test_loss}")
+    return [counts, eval_counts], k1
+
+
 def phase_lm_train(smi, profile=False):
     """The LM training path (phase lm_train), in order: N1 against its
     plain version (dh 256 included); full-width phi4-mini training; card
@@ -3638,7 +4043,11 @@ def phase_lm_train(smi, profile=False):
     mixtral-8x7b and llava-next-mistral-7b at their cuts
     (``granite_train``: N1 at 48:1 with its q heads split;
     ``mixtral_train``: top-2 routing at capacity 1.25; ``llava_train``:
-    2880 stub embeddings + 1216 tokens a row).  Returns (the
+    2880 stub embeddings + 1216 tokens a row), then, once llava's
+    masters are freed, the LM FedKT round at phi4-mini's full width cut
+    to ``FEDKT_CUT_LAYERS`` (``lm_fedkt_cut``) at L0 and at L2 (gamma
+    0.1): exact launches, every vote recomputed, K1 bit for bit the
+    plain version on the card.  Returns (the
     backward rows {"n1", "n2a", "n2b"}, their worst errors, the main
     path's launches, the measured rows of the full-width train and label
     steps)."""
@@ -3694,6 +4103,12 @@ def phase_lm_train(smi, profile=False):
         measured[name], cut_runs = run(smi)
         runs += cut_runs
         log(f"[lm_train] {name} training at {time.time() - t0:.1f} s")
+    for level, gamma in (("L0", 0.0), ("L2", 0.1)):
+        fedkt_runs, k1 = lm_fedkt_cut(smi, level, gamma)
+        runs += fedkt_runs
+        if k1 is not None:
+            measured["fedkt_cut_k1"] = k1
+        log(f"[lm_train] fedkt cut {level} at {time.time() - t0:.1f} s")
     # the main path's launches: the sum of the runs above, each counted
     # from 0 just before it and read just after, so that no launch made
     # to compare a kernel with its plain version is in it
@@ -3855,9 +4270,10 @@ def dryrun_label(smi, measured):
     return {"pod": pod, "one": row}
 
 
-def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
-    """Phase 10 (after lm_train, whose measured rows it reads): every
-    pair of ``archs``, then the train step of phi4-mini, recurrentgemma,
+def phase_dryrun(smi, measured):
+    """Phase 10 (after lm_train, whose measured rows it reads; ``main``
+    prices ``dryrun_pairs`` while the kernels build): the train step of
+    phi4-mini, recurrentgemma,
     rwkv6's cut, stablelm-3b, deepseek-moe-16b's cut, recurrentgemma in
     float32, gemma2-27b's cut (at its B 2 x S 8192), the cuts of
     granite-20b, mixtral-8x7b and llava-next-mistral-7b (at its B 1 x S
@@ -3865,8 +4281,6 @@ def phase_dryrun(smi, measured, archs=DRYRUN_ARCHS):
     and launches a step)."""
     from repro_torch.configs import get_config
     t0 = time.time()
-    dryrun_pairs(smi, archs)
-    log(f"[dryrun] pairs at {time.time() - t0:.1f} s")
     train = [dryrun_train(smi, measured["train"],
                           get_config("phi4-mini-3.8b"))]
     for cfg in (*recurrent_train_configs(), get_config("stablelm-3b"),
@@ -3909,7 +4323,8 @@ def main():
     from repro_torch.data.synthetic import tabular_binary
 
     t_start = time.time()
-    device_name, smi = phase_device()
+    # the dry-run's pairs (host work on meta tensors) while nvcc runs
+    device_name, smi = phase_device(during_build=dryrun_pairs)
     torch.cuda.synchronize()
 
     data = tabular_binary(n=ADULT_ROWS, num_features=ADULT_FEATURES,
@@ -4040,7 +4455,8 @@ def main():
          "launches": launches["vote_aggregate"], "max_abs_err": vote_err,
          "ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "shapes": shape_rows([lm_measured["fedkt_cut_k1"]])},
         {"name": "tree_hist", "route": "cuda",
          "source": "src/repro_torch/csrc/tree_hist.cu",
          "replaces": "src/repro/kernels/tree_hist.py:61",

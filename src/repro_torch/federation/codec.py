@@ -17,9 +17,12 @@ raises a typed ``CodecError`` (a ValueError).
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -37,6 +40,7 @@ _DECODABLE = (2, VERSION)
 _PREFIX = MAGIC + bytes([VERSION])
 _LEN = struct.Struct("<I")
 _CRC = struct.Struct("<I")
+_CRC_CHUNK = 1 << 26   # bytes a worker's crc32 piece (a larger frame splits)
 
 
 class CodecError(ValueError):
@@ -118,14 +122,85 @@ def _header(tree, extra: Dict[str, Any] = None) -> Tuple[bytes, list]:
             [(p, flat[p]) for p in order])
 
 
+def _gf2_times(mat, vec: int) -> int:
+    """A 32 x 32 GF(2) matrix (its columns, as ints) times a vector."""
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_shift(nbytes: int):
+    """The operator that moves a crc32 past ``nbytes`` more bytes: the
+    crc of a then b is ``_gf2_times(_crc_shift(len(b)), crc(a)) ^
+    crc(b)`` (zlib's crc32_combine), from the one-bit operator by
+    squaring."""
+    result = [1 << i for i in range(32)]
+    power = [0xEDB88320] + [1 << i for i in range(31)]
+    n = 8 * nbytes
+    while n:
+        if n & 1:
+            result = [_gf2_times(power, col) for col in result]
+        n >>= 1
+        if n:
+            power = [_gf2_times(power, col) for col in power]
+    return result
+
+
+def _crc32(parts) -> int:
+    """``zlib.crc32`` of the parts joined, without joining them: in
+    pieces of ``_CRC_CHUNK`` bytes (the first takes the remainder),
+    each on a worker thread (zlib releases the GIL), chained by
+    ``_crc_shift``.  A frame of full-width students hashes on every
+    core of the host."""
+    views = [memoryview(p).cast("B") for p in parts]
+    total = sum(len(v) for v in views)
+    cuts = [total % _CRC_CHUNK or min(total, _CRC_CHUNK)]
+    while cuts[-1] < total:
+        cuts.append(cuts[-1] + _CRC_CHUNK)
+    pieces, piece, start = [], [], 0
+    for v in views:
+        off = 0
+        while off < len(v):
+            take = min(len(v) - off, cuts[len(pieces)] - start)
+            piece.append(v[off:off + take])
+            off, start = off + take, start + take
+            if start == cuts[len(pieces)]:
+                pieces.append(piece)
+                piece = []
+
+    def crc_of(bufs):
+        crc = 0
+        for b in bufs:
+            crc = zlib.crc32(b, crc)
+        return crc
+
+    if len(pieces) <= 1:
+        return crc_of(pieces[0] if pieces else [])
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        crcs = list(pool.map(crc_of, pieces))
+    shift = _crc_shift(_CRC_CHUNK)
+    crc = crcs[0]
+    for c in crcs[1:]:
+        crc = _gf2_times(shift, crc) ^ c
+    return crc
+
+
 def encode(tree, extra_header: Dict[str, Any] = None) -> bytes:
     """Serializes a state into one self-describing buffer, crc32 of
-    everything before it in the 4-byte trailer."""
+    everything before it in the 4-byte trailer.  Each leaf's host copy
+    is joined into the frame as it is (its bytes viewed, not copied
+    again) and the crc32 runs over the parts (``_crc32``), so a frame
+    of full-width students is copied once from the leaves."""
     hdr, ordered = _header(tree, extra_header)
     parts = [_PREFIX, _LEN.pack(len(hdr)), hdr]
-    parts += [np.ascontiguousarray(leaf).tobytes() for _, leaf in ordered]
-    body = b"".join(parts)
-    return body + _CRC.pack(zlib.crc32(body))
+    parts += [np.ascontiguousarray(leaf).reshape(-1).view(np.uint8)
+              for _, leaf in ordered]
+    return b"".join(parts + [_CRC.pack(_crc32(parts))])
 
 
 def encoded_nbytes(tree, extra_header: Dict[str, Any] = None) -> int:
@@ -186,7 +261,7 @@ def decode(buf: bytes) -> Tuple[Any, Dict[str, Any]]:
             f"{'crc trailer' if trailer else 'payload'}")
     if trailer:
         stored = _CRC.unpack_from(buf, base + payload)[0]
-        computed = zlib.crc32(memoryview(buf)[:base + payload])
+        computed = _crc32([memoryview(buf)[:base + payload]])
         if stored != computed:
             raise CorruptFrameError(
                 f"corrupt codec frame: crc32 trailer says "

@@ -85,9 +85,13 @@ class TransportBase:
 
 
 def _decode_annotated(buf: bytes) -> PartyUpdate:
-    upd = decode_update(buf)
+    # the digest runs on a worker beside the decode: both release the
+    # GIL over a large frame (two full-width students hash in seconds)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        digest = pool.submit(lambda: hashlib.sha256(buf).hexdigest())
+        upd = decode_update(buf)
     upd.meta["encoded_bytes"] = len(buf)
-    upd.meta["frame_sha256"] = hashlib.sha256(buf).hexdigest()
+    upd.meta["frame_sha256"] = digest.result()
     return upd
 
 

@@ -27,6 +27,13 @@ KERNELS = ("vote_aggregate", "tree_hist", "flash_attention",
            "flash_attention_bwd", "rglru_scan", "rglru_scan_bwd", "wkv6",
            "wkv6_bwd")
 
+# sources nvcc compiles with split compilation, over every core of the
+# host: the attention backward's ~40 template instances (bf16 wgmma and
+# float32 split-TF32, each head dim and soft-cap) took 137 s in one
+# nvcc alone on an 8-core H100 host, 48 s split; the other sources take
+# 4-17 s each
+SPLIT_COMPILE = ("flash_attention_bwd",)
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # several host threads launch kernels in one process (the thread and
 # socket transports run a party a thread): one lock makes the first
@@ -55,8 +62,9 @@ def lib_path(name: str) -> Path:
 def command(src: Path, out: Path):
     """The nvcc command that builds the kernel source ``src`` into the
     shared library ``out``."""
-    return [nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-            "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
+    split = ["--split-compile=0"] if src.stem in SPLIT_COMPILE else []
+    return [nvcc(), ARCH, "-std=c++17", "-O3", *split, "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:

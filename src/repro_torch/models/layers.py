@@ -50,12 +50,17 @@ def dense(shape, dtype, device, generator=None, scale=None):
 # ---------------------------------------------------------------------------
 # Threefry draws: the reference's init functions, split for split
 # ---------------------------------------------------------------------------
-def _normal(key, shape, scale):
-    return prng.normal(key, shape) * np.float32(scale)
+def _normal(key, shape, scale, device=None):
+    """``prng.normal(key, shape) * scale`` in float32: a numpy array, or
+    with ``device`` a tensor drawn there (``prng.normal_tensor``)."""
+    if device is None:
+        return prng.normal(key, shape) * np.float32(scale)
+    return prng.normal_tensor(key, shape, device) * float(np.float32(scale))
 
 
-def _dense(key, shape, scale=None):
-    return _normal(key, shape, shape[0] ** -0.5 if scale is None else scale)
+def _dense(key, shape, scale=None, device=None):
+    return _normal(key, shape, shape[0] ** -0.5 if scale is None else scale,
+                   device)
 
 
 def _norm_np(cfg):
@@ -65,22 +70,22 @@ def _norm_np(cfg):
     return p
 
 
-def _attn_np(cfg, key):
+def _attn_np(cfg, key, device=None):
     dh, D = cfg.head_dim_, cfg.d_model
     k1, k2, k3, k4 = prng.split(key, 4)
-    return {"wq": _dense(k1, (D, cfg.num_heads * dh)),
-            "wk": _dense(k2, (D, cfg.num_kv_heads * dh)),
-            "wv": _dense(k3, (D, cfg.num_kv_heads * dh)),
-            "wo": _dense(k4, (cfg.num_heads * dh, D))}
+    return {"wq": _dense(k1, (D, cfg.num_heads * dh), device=device),
+            "wk": _dense(k2, (D, cfg.num_kv_heads * dh), device=device),
+            "wv": _dense(k3, (D, cfg.num_kv_heads * dh), device=device),
+            "wo": _dense(k4, (cfg.num_heads * dh, D), device=device)}
 
 
-def _mlp_np(cfg, key, d_ff=None):
+def _mlp_np(cfg, key, d_ff=None, device=None):
     d_ff = d_ff or cfg.d_ff
     k1, k2, k3 = prng.split(key, 3)
-    p = {"w_up": _dense(k1, (cfg.d_model, d_ff)),
-         "w_down": _dense(k2, (d_ff, cfg.d_model))}
+    p = {"w_up": _dense(k1, (cfg.d_model, d_ff), device=device),
+         "w_down": _dense(k2, (d_ff, cfg.d_model), device=device)}
     if cfg.mlp in GATED_MLPS:
-        p["w_gate"] = _dense(k3, (cfg.d_model, d_ff))
+        p["w_gate"] = _dense(k3, (cfg.d_model, d_ff), device=device)
     return p
 
 

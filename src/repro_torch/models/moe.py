@@ -72,7 +72,7 @@ class MoE(nn.Module):
             self.shared = SharedExperts(cfg, device, generator)
 
 
-def _moe_np(cfg, key):
+def _moe_np(cfg, key, device=None):
     """``repro.models.moe.init_moe``'s draws, key reuse included: the
     router and the shared experts' w_down both come from ks[0], the
     experts' w_up and the shared w_gate both from ks[1]; the expert
@@ -81,16 +81,17 @@ def _moe_np(cfg, key):
     E, D, Fe = m.num_experts, cfg.d_model, cfg.d_ff
     ks = prng.split(key, 5)
     gated = cfg.mlp in L.GATED_MLPS
-    p = {"router": _dense(ks[0], (D, E), 0.02),
-         "w_up": _normal(ks[1], (E, D, Fe), D ** -0.5),
-         "w_down": _normal(ks[2], (E, Fe, D), Fe ** -0.5)}
+    p = {"router": _dense(ks[0], (D, E), 0.02, device),
+         "w_up": _normal(ks[1], (E, D, Fe), D ** -0.5, device),
+         "w_down": _normal(ks[2], (E, Fe, D), Fe ** -0.5, device)}
     if gated:
-        p["w_gate"] = _normal(ks[3], (E, D, Fe), D ** -0.5)
+        p["w_gate"] = _normal(ks[3], (E, D, Fe), D ** -0.5, device)
     if m.num_shared_experts:
         Fs = m.num_shared_experts * Fe
-        sp = {"w_up": _dense(ks[4], (D, Fs)), "w_down": _dense(ks[0], (Fs, D))}
+        sp = {"w_up": _dense(ks[4], (D, Fs), device=device),
+              "w_down": _dense(ks[0], (Fs, D), device=device)}
         if gated:
-            sp["w_gate"] = _dense(ks[1], (D, Fs))
+            sp["w_gate"] = _dense(ks[1], (D, Fs), device=device)
         p["shared"] = sp
     return p
 

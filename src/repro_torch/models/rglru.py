@@ -54,17 +54,19 @@ class RGLRU(nn.Module):
         self.lam = _param(lam)
 
 
-def _rglru_np(cfg, key):
+def _rglru_np(cfg, key, device=None):
     D, width = cfg.d_model, cfg.rglru_conv_width
     ks = prng.split(key, 7)
     a0 = prng.uniform(ks[0], (D,), 0.9, 0.999)
     z = -np.log(a0) / np.float32(cfg.rglru_c)
-    return {"w_in": _dense(ks[1], (D, D)), "w_gate": _dense(ks[2], (D, D)),
-            "conv_w": _normal(ks[3], (width, D), width ** -0.5),
+    return {"w_in": _dense(ks[1], (D, D), device=device),
+            "w_gate": _dense(ks[2], (D, D), device=device),
+            "conv_w": _normal(ks[3], (width, D), width ** -0.5, device),
             "conv_b": np.zeros((D,), np.float32),
-            "w_a": _dense(ks[4], (D, D)), "w_x": _dense(ks[5], (D, D)),
+            "w_a": _dense(ks[4], (D, D), device=device),
+            "w_x": _dense(ks[5], (D, D), device=device),
             "lam": np.log(np.expm1(z)).astype(np.float32),
-            "w_out": _dense(ks[6], (D, D))}
+            "w_out": _dense(ks[6], (D, D), device=device)}
 
 
 def init_rglru(cfg: ModelConfig, key):

@@ -71,27 +71,30 @@ class RWKV(nn.Module):
         self.cm_w_down = mat((cfg.d_ff, D))
 
 
-def _rwkv_np(cfg, key):
+def _rwkv_np(cfg, key, device=None):
     D, H, dh = cfg.d_model, cfg.num_heads, cfg.rwkv_head_dim
     ks = prng.split(key, 12)
 
     def mix(k):
         return prng.uniform(k, (D,))
 
+    def mat(k, shape, scale=None):
+        return _dense(k, shape, scale, device)
+
     return {"mu_r": mix(ks[0]), "mu_k": mix(ks[1]), "mu_v": mix(ks[2]),
             "mu_w": mix(ks[3]), "mu_g": mix(ks[4]),
-            "w_r": _dense(ks[5], (D, D)), "w_k": _dense(ks[6], (D, D)),
-            "w_v": _dense(ks[7], (D, D)), "w_g": _dense(ks[8], (D, D)),
-            "w_o": _dense(ks[9], (D, D)),
+            "w_r": mat(ks[5], (D, D)), "w_k": mat(ks[6], (D, D)),
+            "w_v": mat(ks[7], (D, D)), "w_g": mat(ks[8], (D, D)),
+            "w_o": mat(ks[9], (D, D)),
             "w0": np.full((D,), -0.6, np.float32),
-            "w_lora_a": _dense(ks[10], (D, _W_LORA), 0.01),
-            "w_lora_b": _dense(ks[11], (_W_LORA, D), 0.01),
-            "u": _normal(ks[0], (H, dh), 0.1),
+            "w_lora_a": mat(ks[10], (D, _W_LORA), 0.01),
+            "w_lora_b": mat(ks[11], (_W_LORA, D), 0.01),
+            "u": _normal(ks[0], (H, dh), 0.1, device),
             "ln_scale": np.ones((H, dh), np.float32),
             "cm_mu_k": mix(ks[1]), "cm_mu_r": mix(ks[2]),
-            "cm_w_r": _dense(ks[3], (D, D)),
-            "cm_w_up": _dense(ks[4], (D, cfg.d_ff)),
-            "cm_w_down": _dense(ks[5], (cfg.d_ff, D))}
+            "cm_w_r": mat(ks[3], (D, D)),
+            "cm_w_up": mat(ks[4], (D, cfg.d_ff)),
+            "cm_w_down": mat(ks[5], (cfg.d_ff, D))}
 
 
 def init_rwkv(cfg: ModelConfig, key):

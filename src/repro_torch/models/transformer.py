@@ -223,18 +223,18 @@ def to_module(cfg: ModelConfig, tree, device=None) -> nn.Module:
     return module
 
 
-def _block_np(cfg, key, kind, use_moe=False, dense_ff=None):
+def _block_np(cfg, key, kind, use_moe=False, dense_ff=None, device=None):
     ks = prng.split(key, 6)
     p = {"norm1": _norm_np(cfg), "norm2": _norm_np(cfg)}
     if kind == RWKV:
-        p["tm"] = _rwkv_np(cfg, ks[0])
+        p["tm"] = _rwkv_np(cfg, ks[0], device)
         return p
     if kind in ATTN_KINDS:
-        p["attn"] = _attn_np(cfg, ks[0])
+        p["attn"] = _attn_np(cfg, ks[0], device)
     else:
-        p["rglru"] = _rglru_np(cfg, ks[0])
-    p["ffn"] = _moe_np(cfg, ks[1]) if use_moe \
-        else _mlp_np(cfg, ks[1], dense_ff)
+        p["rglru"] = _rglru_np(cfg, ks[0], device)
+    p["ffn"] = _moe_np(cfg, ks[1], device) if use_moe \
+        else _mlp_np(cfg, ks[1], dense_ff, device)
     if cfg.post_norm:
         p["post_norm1"] = _norm_np(cfg)
         p["post_norm2"] = _norm_np(cfg)
@@ -249,28 +249,33 @@ def init_tree(cfg: ModelConfig, key, device):
     period's blocks (keys[1 + fkd] split over the periods, each period
     key split over the pattern), tail block i (keys[2 + fkd + i]) and
     the head (keys[-1]), and ``prng``'s draws (normal within 2.5e-7 of
-    ``jax.random.normal``).  Drawn on the host: meant for the smoke and
-    test widths."""
+    ``jax.random.normal``).  On the CPU the normal draws are
+    ``prng.normal``'s on the host; on another device
+    ``prng.normal_tensor``'s, the same steps on that device (a
+    full-width model's billions of draws take minutes on the host)."""
     _check_ported(cfg)
+    draw = None if torch.device(device).type == "cpu" else device
     fkd, nper, tail = cfg.layer_plan()
     n = len(cfg.pattern)
     use_moe = cfg.moe is not None
     keys = prng.split(key, 4 + fkd + len(tail))
     dense_ff = cfg.d_ff * (cfg.moe.dense_ff_mult if use_moe else 1)
-    blocks = [_block_np(cfg, keys[1 + i], cfg.pattern[0], dense_ff=dense_ff)
+    blocks = [_block_np(cfg, keys[1 + i], cfg.pattern[0], dense_ff=dense_ff,
+                        device=draw)
               for i in range(fkd)]
     for k in (prng.split(keys[1 + fkd], nper) if nper else []):
         kk = prng.split(k, n)
-        blocks += [_block_np(cfg, kk[j], kind, use_moe)
+        blocks += [_block_np(cfg, kk[j], kind, use_moe, device=draw)
                    for j, kind in enumerate(cfg.pattern)]
-    blocks += [_block_np(cfg, keys[2 + fkd + i], kind, use_moe)
+    blocks += [_block_np(cfg, keys[2 + fkd + i], kind, use_moe, device=draw)
                for i, kind in enumerate(tail)]
     tree = {"embed": {"table": _normal(keys[0], (cfg.vocab_size,
-                                                 cfg.d_model), 0.02)},
+                                                 cfg.d_model), 0.02, draw)},
             "blocks": blocks, "final_norm": _norm_np(cfg)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": _normal(keys[-1], (cfg.d_model,
-                                                   cfg.vocab_size), 0.02)}
+                                                   cfg.vocab_size), 0.02,
+                                        draw)}
     return _init_tensors(cfg, tree, device)
 
 
@@ -286,13 +291,13 @@ def init_dtype(cfg: ModelConfig, name) -> torch.dtype:
 
 
 def _init_tensors(cfg, tree, device, name=""):
-    """A tree of numpy draws as tensors on ``device``, each leaf in
-    ``init_dtype``."""
+    """A tree of draws (numpy arrays or tensors) as tensors on
+    ``device``, each leaf in ``init_dtype``."""
     if isinstance(tree, dict):
         return {k: _init_tensors(cfg, v, device, k) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_init_tensors(cfg, v, device, name) for v in tree]
-    return torch.from_numpy(tree).to(device, init_dtype(cfg, name))
+    return torch.as_tensor(tree).to(device, init_dtype(cfg, name))
 
 
 def init_shapes(cfg: ModelConfig):

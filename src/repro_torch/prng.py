@@ -14,6 +14,8 @@ makes, bit for bit, so whole rounds compare seed for seed:
   randint(key, shape, lo, hi) -> int32 array
   fold_in(key, data)          -> (2,) uint32 key
   normal(key, shape)          -> float32 array (within 2.5e-7)
+  normal_tensor(key, shape, device) -> the same, as a float32 tensor
+                              computed on ``device``
   choice(key, n, shape, p)    -> int64 indices, with replacement
 
 It follows JAX's ``jax_threefry_partitionable=True`` layout (the
@@ -211,6 +213,37 @@ def normal(key, shape) -> np.ndarray:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, lo, 1.0)
     return np.float32(np.sqrt(2)) * _erf_inv(u)
+
+
+def _erf_inv_tensor(x):
+    """``_erf_inv`` on a float32 tensor, step for step on its device:
+    the same float32 and float64 operations, so the result equals
+    ``_erf_inv``'s wherever the device's float64 log1p rounds as the
+    host's (a float64 ulp moves a float32 rounding rarely)."""
+    import torch
+    lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float64, device=x.device)
+    ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float64, device=x.device)
+    w = (-torch.log1p(-(x * x).double())).float()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(lt, lt5[0], ge5[0]).float()
+    for c_lt, c_ge in zip(lt5[1:], ge5[1:]):
+        p = (torch.where(lt, c_lt, c_ge) + p.double() * w).float()
+    return p * x
+
+
+def normal_tensor(key, shape, device="cpu"):
+    """``normal(key, shape)`` computed on ``device`` in passes of
+    ``_CHUNK`` draws: ``uniform_tensor``'s bits and ``_erf_inv_tensor``,
+    so a draw of a billion values (a full-width model's init) takes
+    seconds on the card where the host takes minutes."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform_tensor(key, shape, lo, 1.0, device).reshape(-1)
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    for start in range(0, u.numel(), _CHUNK):
+        part = u[start:start + _CHUNK]
+        part.copy_(sqrt2 * _erf_inv_tensor(part))
+    return u.reshape(tuple(int(d) for d in shape))
 
 
 def _cumsum16(p):

@@ -146,6 +146,23 @@ def test_reference_frame_decodes_in_port(rf_update):
     np.testing.assert_array_equal(dec.vote_gaps, rf_update.vote_gaps)
 
 
+@pytest.mark.parametrize("chunk", [64, 1000])
+def test_frame_crc_in_pieces_byte_identical(rf_update, monkeypatch, chunk):
+    """The codec's crc32 over pieces of ``chunk`` bytes on worker
+    threads (a full-width student's frame takes ~170 pieces of 64 MiB)
+    gives the reference's frame byte for byte, decodes, and still
+    refuses a damaged byte."""
+    monkeypatch.setattr(codec, "_CRC_CHUNK", chunk)
+    frame = codec.encode_update(rf_update)
+    assert len(frame) > 4 * chunk
+    assert frame == jcodec.encode_update(_reference_update(rf_update))
+    assert codec.encode_update(codec.decode_update(frame)) == frame
+    flipped = bytearray(frame)
+    flipped[len(frame) // 3] ^= 0x01
+    with pytest.raises(codec.CorruptFrameError):
+        codec.decode(bytes(flipped))
+
+
 def test_codec_refuses_damaged_frames(rf_update):
     frame = codec.encode_update(rf_update)
     with pytest.raises(codec.TruncatedFrameError):

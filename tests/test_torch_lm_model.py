@@ -115,6 +115,41 @@ def test_init_tree_matches_reference_init(name):
                                    err_msg=path)
 
 
+@pytest.mark.parametrize("name", ["phi4-mini-3.8b", "deepseek-moe-16b",
+                                  *RECURRENT_ARCHS])
+def test_init_draws_on_a_device_match_host_draws(name):
+    """``init_tree`` off the CPU draws its normals on the device
+    (``prng.normal_tensor``): the block builders and the embedding's
+    draw, asked for a device (here the CPU itself), give the host
+    draws' values, bit for bit but where float64 log1p rounds otherwise
+    (a last float32 bit of the draw, at most 3 ulps once scaled), for
+    an attention and MLP block, an MoE block with shared experts, an
+    RG-LRU block and an RWKV block."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import layers, transformer
+    cfg = get_smoke(name)
+    key = prng.PRNGKey(4)
+    moe = cfg.moe is not None
+    host = {"block": transformer._block_np(cfg, key, cfg.pattern[-1], moe),
+            "embed": layers._normal(key, (cfg.vocab_size, cfg.d_model), 0.02)}
+    dev = {"block": transformer._block_np(cfg, key, cfg.pattern[-1], moe,
+                                          device=torch.device("cpu")),
+           "embed": layers._normal(key, (cfg.vocab_size, cfg.d_model), 0.02,
+                                   torch.device("cpu"))}
+    want = flatten_tree(host)
+    got = {p: np.asarray(torch.as_tensor(a)) for p, a in
+           flatten_tree(dev).items()}
+    assert set(got) == set(want)
+    same = total = 0
+    for p, a in got.items():
+        w = np.asarray(want[p])
+        assert a.dtype == w.dtype == np.float32 and a.shape == w.shape, p
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(w)))
+        np.testing.assert_array_less(np.abs(a - w), 3.01 * ulp, err_msg=p)
+        same, total = same + int((a == w).sum()), total + a.size
+    assert same >= 0.999 * total
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_reference(pair, remat):
     cfg, model, tree, jm, jp, batch = pair

@@ -12,6 +12,7 @@ engines of the port give the same labels exactly.  Checkpoints hold
 every array exactly.
 """
 import dataclasses
+import functools
 import pickle
 
 import jax
@@ -49,11 +50,18 @@ def port_config(jcfg):
                           for f in dataclasses.fields(jcfg)})
 
 
+@functools.lru_cache(maxsize=None)
+def _lm(vocab):
+    """(reference model, port model, token splits) at ``tiny_lm_config``'s
+    widths over ``vocab`` tokens."""
+    jcfg = tiny_lm_config(vocab_size=vocab)
+    data = synthetic.tokens(n_seqs=64, seq_len=17, vocab=vocab, seed=0)
+    return JModel(jcfg), Model(port_config(jcfg)), data
+
+
 @pytest.fixture(scope="module")
 def lm():
-    jcfg = tiny_lm_config()
-    data = synthetic.tokens(n_seqs=64, seq_len=17, vocab=64, seed=0)
-    return JModel(jcfg), Model(port_config(jcfg)), data
+    return _lm(64)
 
 
 def _labels(res):
@@ -61,22 +69,31 @@ def _labels(res):
     return np.asarray(row["labels"])
 
 
-@pytest.fixture(scope="module")
-def reference_rounds(lm):
-    jm, _, d = lm
-    return {level: jfedkt_lm(jm, d["train"], d["public"],
-                             JFedKTConfig(**FCFG, **kw),
-                             JTrainConfig(**TCFG), test=d["test"],
-                             engine="lm", verbose=False)["result"]
-            for level, kw in LEVELS.items()}
+@functools.lru_cache(maxsize=None)
+def _reference_round(vocab, level):
+    jm, _, d = _lm(vocab)
+    return jfedkt_lm(jm, d["train"], d["public"],
+                     JFedKTConfig(**dict(FCFG, num_classes=vocab),
+                                  **LEVELS[level]),
+                     JTrainConfig(**TCFG), test=d["test"], engine="lm",
+                     verbose=False)["result"]
 
 
-@pytest.mark.parametrize("level", sorted(LEVELS))
-def test_lm_rounds_match_reference(lm, reference_rounds, level):
-    _, model, d = lm
-    want = reference_rounds[level]
-    got = {engine: fedkt_lm(model, d["train"], d["public"],
-                            FedKTConfig(**FCFG, **LEVELS[level]),
+# at vocabulary 4096 (over 2048) an L0 round's teacher votes take the
+# sort path (no vocabulary-sized histogram) and the server's consistent
+# vote sums (T, 4096) one-hot counts, in both packages; the cases at 64
+# keep their names
+ROUND_CASES = [pytest.param(level, 64, id=level) for level in sorted(LEVELS)
+               ] + [pytest.param(level, 4096, id=f"{level}-vocab4096")
+                    for level in sorted(LEVELS)]
+
+
+@pytest.mark.parametrize("level,vocab", ROUND_CASES)
+def test_lm_rounds_match_reference(level, vocab):
+    _, model, d = _lm(vocab)
+    want = _reference_round(vocab, level)
+    fcfg = FedKTConfig(**dict(FCFG, num_classes=vocab), **LEVELS[level])
+    got = {engine: fedkt_lm(model, d["train"], d["public"], fcfg,
                             TrainConfig(**TCFG), test=d["test"],
                             engine=engine, verbose=False,
                             device="cpu")["result"]
@@ -176,3 +193,49 @@ def test_fedkt_cli_on_cpu():
                           "--seq-len", "8"])
     assert np.isfinite(out["test_loss"])
     assert out["result"].meta["engine"] == "lm"
+
+
+@pytest.mark.parametrize("level,gamma", [("L0", 0.0), ("L2", 0.1)])
+def test_chip_smoke_fedkt_cut_checks_on_cpu(level, gamma):
+    """chip_smoke's lm_fedkt_cut pieces on the CPU, at phi4-mini's smoke
+    widths over 4096 tokens (float32): the CLI's round recorded by
+    ``RecordingLMEngine`` gives the labels, counts, accuracy, epsilon,
+    wire bytes and frame digests of an ``LMEngine`` round, and
+    ``fedkt_round_checks`` finds every recorded vote, the server's
+    counts and labels, epsilon and the wire bytes equal to their
+    recomputation and to ``codec.lm_protocol_bytes``' price."""
+    import chip_smoke
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("phi4-mini-3.8b").replace(vocab_size=4096,
+                                              dtype="float32")
+    model = Model(cfg)
+    fcfg, tcfg, data = chip_smoke.fedkt_round_inputs(
+        cfg, level, gamma, B=4, S=16, steps=2, lr=3e-3, n_seqs=64)
+    rec = chip_smoke.RecordingLMEngine()
+    got, want = (fedkt_lm(model, data["train"], data["public"], fcfg, tcfg,
+                          test=data["test"], engine=engine, verbose=False,
+                          device="cpu")["result"]
+                 for engine in (rec, "lm"))
+    np.testing.assert_array_equal(_labels(got), _labels(want))
+    (g,), (w,) = got.by_domain.values(), want.by_domain.values()
+    assert torch.equal(g["vote"].counts, w["vote"].counts)
+    assert got.epsilon == want.epsilon and got.accuracy == want.accuracy
+    for key in ("wire_bytes", "frame_sha256", "engine"):
+        assert got.meta[key] == want.meta[key], key
+    n, s, t = fcfg.num_parties, fcfg.num_partitions, fcfg.num_subsets
+    T = len(data["public"]) * tcfg.seq_len
+    assert [tuple(v["preds"].shape) for v in rec.votes] == [(t, T)] * n * s
+    assert [tuple(p.shape) for p in rec.student_preds] == [(s, T)] * n
+    row = chip_smoke.fedkt_round_checks(rec, got, model, fcfg, tcfg, data,
+                                        "cpu")
+    assert row["party_votes"] == n * s and row["k1_identical"] == 0
+    assert row["server_tokens"] == T and row["epsilon"] == got.epsilon
+    assert (row["epsilon"] is None) == (level == "L0")
+    priced = row["protocol_per_member"]
+    assert got.meta["wire_bytes"]["updates_payload"] == \
+        n * s * priced["update_payload_bytes_per_member"]
+    # a tampered recording is caught
+    rec.votes[0]["labels"][0] += 1
+    with pytest.raises(AssertionError, match="party vote 0"):
+        chip_smoke.fedkt_round_checks(rec, got, model, fcfg, tcfg, data,
+                                      "cpu")

@@ -129,3 +129,19 @@ def test_normal_within_erf_inv_rounding(seed):
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=2.5e-7)
     assert (got != want).mean() < 0.05
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_tensor_matches_normal(seed, monkeypatch):
+    """``normal_tensor`` (the device-side draw of full-width inits), run
+    on the CPU in passes of 997 draws: ``normal``'s bits, but where
+    torch's float64 log1p rounds otherwise than numpy's (a last float32
+    bit in about 1e-5 of draws)."""
+    monkeypatch.setattr(prng, "_CHUNK", 997)
+    want = prng.normal(prng.PRNGKey(seed), (300, 70))
+    got = prng.normal_tensor(prng.PRNGKey(seed), (300, 70), "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    got = got.numpy()
+    assert (got != want).mean() < 1e-3
+    np.testing.assert_array_less(np.abs(got - want),
+                                 np.spacing(np.abs(want)) * 1.01)
