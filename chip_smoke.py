@@ -308,12 +308,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -339,6 +341,13 @@ WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}    # test_kernels.py
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def _sync(device):
+    """Waits for the card's queued work (nothing to wait for on the
+    CPU)."""
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -631,7 +640,7 @@ def _scatter_yardstick(xb, node, w, n, B, dtype=torch.float32):
     return run
 
 
-def phase_hist(N_teacher, N_student):
+def phase_hist(N_teacher, N_student, extra_shapes=()):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tree_hist as th
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -689,6 +698,8 @@ def phase_hist(N_teacher, N_student):
         shapes += [(f"{who}_level0", G, G, N, F, 1, B),
                    (f"{who}_level5", G, G, N, F, 32, B),
                    (f"{who}_leaves", G, G, N, 1, 1, 64)]
+    # and any other round's (the vertical round's masked widths)
+    shapes += list(extra_shapes)
     for label, G, Gf, N, Fs, n, Bs in shapes:
         xb, node, w = _hist_inputs(G, Gf, N, Fs, Bs, K, n, True, g)
         got = th.tree_hist(xb, node, w, num_nodes=n, num_bins=Bs)
@@ -1123,6 +1134,50 @@ FLEET_FLAGS = ["--parties", "5", "--partitions", "2", "--subsets", "4",
                "--depth", "5", "--engine", "vmap", "--seed", "0"]
 
 
+# the fleet's vertical round: its other flags, 3 feature-split silos
+# (nn, rf and gbdt, each on its own slice of the 14 columns), an MLP
+# final model on the server
+VERTICAL_FLAGS = [*FLEET_FLAGS, "--parties", "3", "--learners",
+                  "nn,rf,gbdt", "--vertical"]
+
+
+def vertical_hist_shapes(flags=VERTICAL_FLAGS):
+    """K2's shapes at the deepest level of the vertical round's masked
+    rf and gbdt parties (``launch/federate --vertical`` with ``flags``),
+    as ``_hist_inputs`` takes them: (label, G, Gf, N, F, nodes, bins),
+    F the party's mask width; the teacher grid (s t models, each rf
+    model a forest) over its largest subset's bucket and the s students
+    over the party's queries' bucket."""
+    from repro_torch.core.learners import (GBDTLearner, RFLearner,
+                                           _pow2_bucket)
+    from repro_torch.core.trees import NUM_BINS
+    from repro_torch.federation.party import query_budget
+    from repro_torch.launch import federate
+    args = federate.parse_args(["local", *flags])
+    sess = federate.build_session(args, "inprocess")
+    cfg = sess.cfg
+    s, t = cfg.num_partitions, cfg.num_subsets
+    n_student = _pow2_bucket(query_budget(cfg, len(sess.data["X_public"]))[0])
+    level = args.depth - 1
+    shapes = []
+    for party in sess.parties:
+        lrn = party.learner
+        if isinstance(lrn, RFLearner):
+            kind, trees = "rf", lrn.num_trees
+        elif isinstance(lrn, GBDTLearner):
+            kind, trees = "gbdt", 1
+        else:
+            continue
+        plan = party.subset_plan()
+        n_teacher = _pow2_bucket(max(len(sub) for p in plan for sub in p))
+        F = len(lrn.feature_mask)
+        shapes += [(f"vertical_{kind}_teachers_level{level}", s * t * trees,
+                    s * t, n_teacher, F, 2 ** level, NUM_BINS),
+                   (f"vertical_{kind}_students_level{level}", s * trees, s,
+                    n_student, F, 2 ** level, NUM_BINS)]
+    return shapes
+
+
 def same_round(name, got, want):
     """Raises unless two rounds agree bit for bit: server labels, vote
     counts, accuracy, epsilon, every party's frame digest and the wire
@@ -1217,7 +1272,8 @@ def phase_fleet_processes(smi):
     processes over TCP, against the ``local`` role in this process; a
     coordinator killed between journaling party 0's frame and its ACK,
     then resumed, against the uninterrupted round; one seeded chaos
-    round (``--chaos``)."""
+    round (``--chaos``); the vertical round (``fleet_vertical``), whose
+    launches it returns."""
     import contextlib
     import io
     from repro_torch.federation import (FaultPlan, QuorumError,
@@ -1309,6 +1365,89 @@ def phase_fleet_processes(smi):
     same_round("parity chaos", res, base)
     if not res.meta["socket"]["chaos"]:
         raise AssertionError("the chaos plan fired no fault")
+    return fleet_vertical(smi)
+
+
+def fleet_vertical(smi, device="cuda", flags=VERTICAL_FLAGS):
+    """The fleet's vertical round: ``launch/federate local --vertical``
+    with ``flags`` (3 feature-split silos, nn, rf and gbdt, each on its
+    own column slice, their updates over TCP sockets), held bit for bit
+    to the same session run in process on ``device`` (``same_round``),
+    both rounds' K1 and K2 launches exactly what the roster implies
+    (``expected_launches``), one shared example domain that every party
+    votes in, its wire bytes those of all updates; then to the same
+    session on the CPU by the whole-round rule: at least 99 % equal
+    server labels and equal epsilon.  Prints one ``[fleet-vertical]``
+    line; returns the two card rounds' launches.  ``device="cpu"``
+    rehearses it on the CPU (no launch counted)."""
+    import io
+    from repro_torch.kernels import tree_hist as th
+    from repro_torch.kernels import vote_aggregate as va
+    from repro_torch.launch import federate
+    argv = ["local", *flags, "--device", device]
+    args = federate.parse_args(argv)
+    sess = federate.build_session(args, "inprocess")
+    want = expected_launches(sess.cfg, federate.party_kinds(args), "nn",
+                             args.depth, args.trees)
+    if device != "cuda":        # the plain versions count no launch
+        want = (0, 0)
+    th.launches = va.launches = 0
+    t0 = time.time()
+    base = sess.run()
+    _sync(device)
+    base_s = time.time() - t0
+    got_base = (th.launches, va.launches)
+    th.launches = va.launches = 0
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = federate.main([*argv, "--port", "0"])
+    _sync(device)
+    socket_s = time.time() - t0
+    got_socket = (th.launches, va.launches)
+    report = _report_json(buf.getvalue())
+    t0 = time.time()
+    cpu = federate.build_session(federate.parse_args(
+        ["local", *flags, "--device", "cpu"]), "inprocess").run()
+    cpu_s = time.time() - t0
+    (ident, row), = res.by_domain.items()
+    (cpu_row,) = cpu.by_domain.values()
+    agree = float((row["labels"] == cpu_row["labels"]).mean())
+    sock = res.meta["socket"]
+    out = {"fleet": "vertical", "flags": flags, "device": device,
+           "inprocess_wall_s": base_s, "socket_wall_s": socket_s,
+           "cpu_wall_s": cpu_s, "seconds": res.meta["seconds"],
+           "launches": {"inprocess": list(got_base),
+                        "socket": list(got_socket)},
+           "expected": list(want),
+           "masks": [b.learner.feature_mask for b in sess.bindings],
+           "domain_unit": row["domain"].unit, "parties": row["parties"],
+           "arrived": sock["arrived"], "framed_bytes": sock["framed_bytes"],
+           "wire_bytes": res.meta["wire_bytes"]["updates"],
+           "accuracy": res.accuracy, "cpu_accuracy": cpu.accuracy,
+           "epsilon": res.epsilon, "label_agreement_vs_cpu": agree,
+           "card": smi}
+    log("[fleet-vertical] " + json.dumps(out, default=str))
+    same_round("vertical socket", res, base)
+    if got_base != want or got_socket != want:
+        raise AssertionError(f"vertical: launches {got_base} in process, "
+                             f"{got_socket} over sockets != {want}")
+    n = sess.cfg.num_parties
+    if row["domain"].unit != "example" or row["parties"] != list(range(n)) \
+            or len(sock["framed_bytes"]) != n or sock["dropped"] \
+            or res.meta["wire_bytes"]["by_domain"][ident] != \
+            res.meta["wire_bytes"]["updates"]:
+        raise AssertionError(f"vertical: not one shared example domain of "
+                             f"{n} arrived parties: {out}")
+    if report["arrived"] != n or report["accuracy"] != \
+            round(float(res.accuracy), 4):
+        raise AssertionError(f"vertical: the launcher reported {report}")
+    if agree < 0.99 or cpu.epsilon != res.epsilon:
+        raise AssertionError(f"vertical: {agree} of the server labels and "
+                             f"epsilon {res.epsilon} against the CPU's "
+                             f"{cpu.epsilon}")
+    return {"tree_hist": got_base[0] + got_socket[0],
+            "vote_aggregate": got_base[1] + got_socket[1]}
 
 
 def phase_parity():
@@ -3166,7 +3305,8 @@ def lm_card_vs_cpu(arch, steps=5, cfg=None):
 
 def lm_fedkt(level, gamma=0.0):
     """``launch.train.fedkt_lm`` at the CLI's ``--fedkt --smoke`` config
-    (phi4-mini's smoke, 2 parties, s 2, t 2, vocab 512; in float32, as
+    (phi4-mini's smoke, 2 parties, s 2, t 2, vocab 512, 10 steps of B 8
+    x S 64 a fit; in float32, as
     an untrained model's near-tied logits would flip labels between
     bf16 runs), card against CPU: >= 99 % equal server labels, equal
     epsilon.  At the smoke's
@@ -3179,7 +3319,7 @@ def lm_fedkt(level, gamma=0.0):
     from repro_torch.models import Model
     cfg = get_smoke("phi4-mini-3.8b").replace(dtype="float32")
     model = Model(cfg)
-    tcfg = TrainConfig(batch_size=8, seq_len=64, steps=20,
+    tcfg = TrainConfig(batch_size=8, seq_len=64, steps=10,
                        learning_rate=3e-3)
     fcfg = FedKTConfig(num_parties=2, num_partitions=2, num_subsets=2,
                        num_classes=cfg.vocab_size, privacy_level=level,
@@ -3650,21 +3790,101 @@ def recurrent_train_configs():
 
 # phi4-mini-3.8b's FedKT cut: the CLI's ``--fedkt`` round at full width
 # and 8 of its 32 layers, 1.420 B parameters a member (5.68 GB in
-# float32).  A party holds its s * t = 4 teachers and a finished student
-# on the card while the next student fits: at 32 layers (15.4 GB a
-# member) that does not fit one card
+# float32).  A party holds 3 finished teachers on the card while its
+# last teacher fits (``fedkt_party_price``): at 32 layers (15.4 GB a
+# member) that and the fit do not fit one card.  The round over party
+# threads (``lm_fedkt_threads``) runs at the deepest cut at which two
+# parties fit at once (``fedkt_threads_layers``)
 FEDKT_CUT_LAYERS = 8
 FEDKT_CUT_B, FEDKT_CUT_S = 8, 128      # the CLI's batch and sequence
 FEDKT_CUT_STEPS = 8                    # a fit's steps (the CLI's 100)
 FEDKT_CUT_LR = 3e-4                    # peak learning rate (the CLI's 1e-3)
 FEDKT_CUT_PEAK_LIMIT = 72e9            # every depth cut's peak stays under it
+# what the thread round's depth leaves free under FEDKT_CUT_PEAK_LIMIT
+# beside its price and what is alive on the card before it: on the H100
+# a round's peak has run 0.10-0.14 GB over the two
+FEDKT_THREADS_MARGIN = 2e9
 
 
-def fedkt_cut_config():
-    """phi4-mini-3.8b at ``FEDKT_CUT_LAYERS`` of its 32 layers, full width
-    (d 3072, 24:8 heads of 128, vocabulary 200,064), bf16 compute."""
+def fedkt_cut_config(layers=FEDKT_CUT_LAYERS):
+    """phi4-mini-3.8b at ``layers`` of its 32 layers, full width (d 3072,
+    24:8 heads of 128, vocabulary 200,064), bf16 compute."""
     from repro_torch.configs import get_config
-    return get_config("phi4-mini-3.8b").replace(num_layers=FEDKT_CUT_LAYERS)
+    return get_config("phi4-mini-3.8b").replace(num_layers=layers)
+
+
+def fedkt_party_price(cfg, fcfg, tcfg=None):
+    """What a party of the ``fedkt_round_inputs`` round over ``cfg``
+    holds on the card at its peak, priced on meta tensors: a fit
+    (``train_price`` at ``tcfg``'s B x S, by default the cut's) beside
+    the most members it holds during a fit: its other s t - 1 teachers
+    while the last one fits, or its other s - 1 students while the last
+    one fits (``Party.local_round`` releases the teachers once they have
+    voted).  Returns {"price", "fit", "held", "member_bytes",
+    "params"}."""
+    from repro_torch.models import Model
+    from repro_torch.tree_util import tree_leaves
+    n_params = sum(leaf.numel()
+                   for leaf in tree_leaves(Model(cfg).init_shapes()))
+    s, t = fcfg.num_partitions, fcfg.num_subsets
+    held = max(s * t, s) - 1
+    B, S = ((tcfg.batch_size, tcfg.seq_len) if tcfg is not None
+            else (FEDKT_CUT_B, FEDKT_CUT_S))
+    fit = train_price(cfg, B, S)["peak_memory_bytes"]
+    return {"price": fit + held * 4 * n_params, "fit": fit, "held": held,
+            "member_bytes": 4 * n_params, "params": n_params}
+
+
+def fedkt_threads_layers():
+    """The deepest cut of phi4-mini-3.8b at which every party of the L0
+    round, each at its peak at once, prices within the room
+    ``FEDKT_CUT_PEAK_LIMIT`` leaves less ``FEDKT_THREADS_MARGIN`` and
+    what is alive on the card now.  Returns (layers, that room)."""
+    from repro_torch.configs import get_config
+    fcfg = fedkt_round_inputs(fedkt_cut_config(1), "L0", 0.0)[0]
+    room = FEDKT_CUT_PEAK_LIMIT - FEDKT_THREADS_MARGIN - _alive()
+    layers = 0
+    for depth in range(1, get_config("phi4-mini-3.8b").num_layers + 1):
+        cut = fedkt_cut_config(depth)
+        if fcfg.num_parties * fedkt_party_price(cut, fcfg)["price"] > room:
+            break
+        layers = depth
+    if layers == 0:
+        raise AssertionError(f"{fcfg.num_parties} parties of one layer "
+                             f"price over {room} B")
+    return layers, room
+
+
+class HostPeak:
+    """The largest resident set of this process while the block runs,
+    sampled from /proc/self/statm every ``every_s`` seconds
+    (``peak_bytes``)."""
+
+    def __init__(self, every_s=0.05):
+        self.every_s, self.peak_bytes = every_s, 0
+        self._stop = threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self):
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * self._page
+        self.peak_bytes = max(self.peak_bytes, rss)
+
+    def _run(self):
+        while not self._stop.wait(self.every_s):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+        return False
 
 
 def fedkt_round_inputs(cfg, level, gamma, B=FEDKT_CUT_B, S=FEDKT_CUT_S,
@@ -3756,6 +3976,25 @@ class RecordingLMEngine(LMEngine):
             preds = super().predict_students(learner, states, X)
         self.student_preds.append(preds.cpu())
         return preds
+
+
+class ThreadSpanLMEngine(LMEngine):
+    """``LMEngine`` that notes, by host thread, when the thread's teacher
+    fits began and its student fits returned (``spans``: thread name ->
+    [start, end] on the ``time.perf_counter`` clock, no synchronise)."""
+
+    def __init__(self):
+        self.spans = {}
+
+    def fit_teachers(self, keys, learner, datasets):
+        self.spans[threading.current_thread().name] = [time.perf_counter(),
+                                                       None]
+        return super().fit_teachers(keys, learner, datasets)
+
+    def fit_students(self, keys, learner, X, labelsets):
+        students = super().fit_students(keys, learner, X, labelsets)
+        self.spans[threading.current_thread().name][1] = time.perf_counter()
+        return students
 
 
 def fedkt_round_launches(cfg, fcfg, tcfg):
@@ -3924,69 +4163,94 @@ def k1_round_row(rec, U):
             "max_abs_err": 0.0}
 
 
-def lm_fedkt_cut(smi, level, gamma):
+def _peak_reset(device):
+    """Empties the allocator's cache and restarts its peak (on a card)."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _alive():
+    """The bytes live on the card once unreachable objects are collected
+    (0 before anything touched it)."""
+    gc.collect()
+    return (torch.cuda.memory_allocated() if torch.cuda.is_initialized()
+            else 0)
+
+
+def _peak(device):
+    """The device peak since ``_peak_reset``, once the queued work has
+    ended (0 on the CPU)."""
+    _sync(device)
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def lm_fedkt_cut(smi, level, gamma, cfg=None, keep=False, device="cuda",
+                 **inputs):
     """``launch.train.fedkt_lm`` at full width: the CLI's ``--fedkt``
-    round (``fedkt_round_inputs``) over phi4-mini-3.8b cut to
-    ``FEDKT_CUT_LAYERS`` of 32 layers (``fedkt_cut_config``), bf16
-    compute on float32 masters, ``FEDKT_CUT_STEPS`` steps a fit at peak
-    learning rate ``FEDKT_CUT_LR``, engine "lm" (``RecordingLMEngine``),
-    in-process transport, at ``level`` with ``gamma``.  Holds the
-    round's launches to ``fedkt_round_launches`` exactly, the round to
+    round (``fedkt_round_inputs``, ``inputs`` passed on) over ``cfg``,
+    by default phi4-mini-3.8b cut to ``FEDKT_CUT_LAYERS`` of 32 layers
+    (``fedkt_cut_config``), bf16 compute on float32 masters,
+    ``FEDKT_CUT_STEPS`` steps a fit at peak learning rate
+    ``FEDKT_CUT_LR``, engine "lm" (``RecordingLMEngine``), in-process
+    transport, at ``level`` with ``gamma``.  Holds the round's launches
+    to ``fedkt_round_launches`` exactly, the round to
     ``fedkt_round_checks`` (every K1 launch of an L2 round bit for bit
     the plain version on the card, every vote recomputed, epsilon, wire
     bytes), its device peak to ``FEDKT_CUT_PEAK_LIMIT``, printed beside
-    its price (``train_price`` of a fit plus the members a party holds
-    while its last student fits), the accuracy to [0, 1] and the final
-    model's ``eval_lm`` loss to a finite value.  Prints one
-    ``[lm-fedkt-cut]`` line.  Returns (the round's and the evaluation's
-    launches, K1's row at the round's shape or None under L0)."""
-    from repro_torch.configs import get_config
+    its price (``fedkt_party_price``) and the host peak, the accuracy to
+    [0, 1] and the final model's ``eval_lm`` loss to a finite value.
+    Prints one ``[lm-fedkt-cut]`` line.  Returns (the round's and the
+    evaluation's launches, K1's row at the round's shape or None under
+    L0, and with ``keep`` the round's result, its final model and its
+    server vote on the host, else None).  ``device="cpu"`` rehearses it
+    on the CPU (no peak, no K1 row)."""
+    from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.data import TokenDataset
     from repro_torch.launch.train import eval_lm, fedkt_lm
     from repro_torch.models import Model
-    from repro_torch.tree_util import tree_leaves
-    cfg = fedkt_cut_config()
+    from repro_torch.tree_util import tree_map
+    cfg = cfg or fedkt_cut_config()
     model = Model(cfg)
-    fcfg, tcfg, data = fedkt_round_inputs(cfg, level, gamma)
-    n_params = sum(leaf.numel() for leaf in tree_leaves(model.init_shapes()))
-    member_bytes = 4 * n_params
-    held = fcfg.num_partitions * fcfg.num_subsets + fcfg.num_partitions - 1
-    fit_price = train_price(cfg, FEDKT_CUT_B, FEDKT_CUT_S)["peak_memory_bytes"]
-    price = fit_price + held * member_bytes
+    fcfg, tcfg, data = fedkt_round_inputs(cfg, level, gamma, **inputs)
+    priced = fedkt_party_price(cfg, fcfg, tcfg)
     rec = RecordingLMEngine()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _peak_reset(device)
     _zero_lm_counts()
     t0 = time.perf_counter()
-    res = fedkt_lm(model, data["train"], data["public"], fcfg, tcfg,
-                   test=data["test"], engine=rec, verbose=False,
-                   device="cuda")["result"]
-    torch.cuda.synchronize()
+    with HostPeak() as host:
+        res = fedkt_lm(model, data["train"], data["public"], fcfg, tcfg,
+                       test=data["test"], engine=rec, verbose=False,
+                       device=device)["result"]
+        peak = _peak(device)
     wall = time.perf_counter() - t0
     counts = _lm_counts()
-    peak = torch.cuda.max_memory_allocated()
     _zero_lm_counts()
     eval_batches = 8
     test_loss = eval_lm(model, res.final_state, TokenDataset(data["test"]),
                         batch_size=tcfg.batch_size, max_batches=eval_batches,
-                        device="cuda")
-    torch.cuda.synchronize()
+                        device=device)
+    _sync(device)
     eval_counts = _lm_counts()
-    res.final_state = None
-    torch.cuda.empty_cache()
-    log(f"[lm_train] fedkt cut {level}: round {wall:.1f} s "
-        f"{res.meta['seconds']}, peak {peak}, launches {counts}")
+    res.final_state = (tree_map(lambda t: t.cpu(), res.final_state)
+                       if keep else None)
+    _peak_reset(device)
+    log(f"[lm_train] fedkt cut {level} at {cfg.num_layers} layers: round "
+        f"{wall:.1f} s {res.meta['seconds']}, peak {peak}, launches "
+        f"{counts}")
     t1 = time.perf_counter()
-    checked = fedkt_round_checks(rec, res, model, fcfg, tcfg, data, "cuda")
+    checked = fedkt_round_checks(rec, res, model, fcfg, tcfg, data, device)
     check_s = time.perf_counter() - t1
-    k1 = k1_round_row(rec, cfg.vocab_size) if gamma > 0 else None
+    k1 = (k1_round_row(rec, cfg.vocab_size)
+          if gamma > 0 and device == "cuda" else None)
     want = fedkt_round_launches(cfg, fcfg, tcfg)
     # each evaluated batch a no-grad forward: K3 once an attention layer
     step = step_launches(cfg)
     fwd = {k: eval_batches * step[k] // 2 if k in (
         "flash_attention", "flash_attention_f32") else 0 for k in want}
-    of_layers = get_config(cfg.name).num_layers
+    of_layers = (get_config(cfg.name).num_layers if cfg.name in ARCH_IDS
+                 else cfg.num_layers)
     row = {"level": level, "gamma": gamma, "arch": cfg.name,
            "layers": cfg.num_layers, "of_layers": of_layers,
            "d_model": cfg.d_model,
@@ -3997,17 +4261,21 @@ def lm_fedkt_cut(smi, level, gamma):
                     "lr": f"{tcfg.learning_rate} (the CLI's 1e-3)"},
            "parties": fcfg.num_parties, "s": fcfg.num_partitions,
            "t": fcfg.num_subsets, "B": tcfg.batch_size,
-           "S": tcfg.seq_len, "params_a_member": n_params,
-           "state_bytes_a_member": member_bytes, "round_wall_s": wall,
-           "seconds": res.meta["seconds"], "engine_seconds": rec.seconds,
-           "check_s": check_s,
-           "peak_mem_bytes": peak, "price_bytes": price,
-           "price_fit_bytes": fit_price, "price_held_members": held,
+           "S": tcfg.seq_len, "params_a_member": priced["params"],
+           "state_bytes_a_member": priced["member_bytes"],
+           "round_wall_s": wall, "seconds": res.meta["seconds"],
+           "engine_seconds": rec.seconds, "check_s": check_s,
+           "peak_mem_bytes": peak, "price_bytes": priced["price"],
+           "price_fit_bytes": priced["fit"],
+           "price_held_members": priced["held"],
            "peak_limit_bytes": FEDKT_CUT_PEAK_LIMIT,
+           "host_peak_bytes": host.peak_bytes,
            "launches": counts, "launches_derived": want,
            "eval_launches": eval_counts, "k1": k1, **checked,
            "accuracy": res.accuracy, "test_loss": test_loss, "card": smi}
     log("[lm-fedkt-cut] " + json.dumps(row))
+    if device != "cuda":        # the plain versions count no launch
+        want = fwd = {k: 0 for k in want}
     if counts != want:
         raise AssertionError(f"fedkt cut {level}: launches {counts} != "
                              f"{want}")
@@ -4020,7 +4288,112 @@ def lm_fedkt_cut(smi, level, gamma):
     if not 0.0 <= res.accuracy <= 1.0 or not math.isfinite(test_loss):
         raise AssertionError(f"fedkt cut {level}: accuracy {res.accuracy}, "
                              f"test loss {test_loss}")
-    return [counts, eval_counts], k1
+    if not keep:
+        return [counts, eval_counts], k1, None
+    # on the host, out of the next round's device peak: the server's
+    # (4096, 200,064) counts alone are 3.3 GB
+    for dom_row in res.by_domain.values():
+        dom_row["vote"] = dom_row["vote"]._replace(**{
+            f: getattr(dom_row["vote"], f).cpu()
+            for f in dom_row["vote"]._fields
+            if torch.is_tensor(getattr(dom_row["vote"], f))})
+    res.meta["round_wall_s"] = wall
+    _peak_reset(device)
+    return [counts, eval_counts], k1, res
+
+
+def same_lm_round(name, got, want):
+    """Raises unless two LM rounds agree bit for bit: ``same_round``'s
+    checks, the server's clean top-2 gaps, and every leaf of every
+    student and of the final model (``want``'s on the host)."""
+    from repro_torch.tree_util import flatten_tree
+    same_round(name, got, want)
+    (g,), (w,) = ([row["vote"] for row in res.by_domain.values()]
+                  for res in (got, want))
+    if not same_bits(g.top_gap.cpu(), w.top_gap.cpu()):
+        raise AssertionError(f"{name}: the server's gaps differ")
+    for what, a, b in (("students", got.student_states,
+                        want.student_states),
+                       ("final model", got.final_state, want.final_state)):
+        fa, fb = flatten_tree(a), flatten_tree(b)
+        if list(fa) != list(fb):
+            raise AssertionError(f"{name}: {what}' leaves differ in name")
+        for leaf in fa:
+            if not same_bits(torch.as_tensor(fa[leaf]).cpu(),
+                             torch.as_tensor(fb[leaf])):
+                raise AssertionError(f"{name}: {what}' leaf {leaf} "
+                                     f"differs")
+
+
+def lm_fedkt_threads(smi, want, cfg, device="cuda", **inputs):
+    """The L0 round of ``lm_fedkt_cut`` over ``cfg`` over party threads:
+    ``launch.train.fedkt_lm`` with ``ThreadTransport(parallelism=2)``
+    and engine "lm" (``ThreadSpanLMEngine``), both parties fitting,
+    voting and encoding at once on the card's default stream.  Held bit
+    for bit to ``want``, the recorded in-process round at the same depth
+    (``same_lm_round``), its launches to ``fedkt_round_launches``
+    exactly (counted under ``build.COUNT_LOCK``), its device peak to
+    ``FEDKT_CUT_PEAK_LIMIT``, printed beside two parties' price and what
+    was alive before it.
+    Prints one ``[lm-fedkt-threads]`` line: the round's wall beside the
+    in-process round's, each party thread's start of its teacher fits
+    and end of its student fits (seconds from the round's start), the
+    peaks.  Returns the round's launches.
+    ``device="cpu"`` rehearses it on the CPU (no device peak)."""
+    from repro_torch.federation.transport import ThreadTransport
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import fedkt_lm
+    from repro_torch.models import Model
+    model = Model(cfg)
+    fcfg, tcfg, data = fedkt_round_inputs(cfg, "L0", 0.0, **inputs)
+    priced = fedkt_party_price(cfg, fcfg, tcfg)
+    engine = ThreadSpanLMEngine()
+    _peak_reset(device)
+    alive = _alive()
+    _zero_lm_counts()
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        res = fedkt_lm(model, data["train"], data["public"], fcfg, tcfg,
+                       test=data["test"], engine=engine,
+                       transport=ThreadTransport(
+                           parallelism=fcfg.num_parties),
+                       verbose=False, device=device)["result"]
+        peak = _peak(device)
+    wall = time.perf_counter() - t0
+    with build.COUNT_LOCK:
+        counts = _lm_counts()
+    spans = {name: {"start_s": a - t0, "end_s": b - t0}
+             for name, (a, b) in sorted(engine.spans.items())}
+    want_counts = fedkt_round_launches(cfg, fcfg, tcfg)
+    row = {"level": "L0", "arch": cfg.name, "layers": cfg.num_layers,
+           "transport": res.meta["transport"],
+           "parallelism": res.meta["parallelism"],
+           "round_wall_s": wall,
+           "inprocess_round_wall_s": want.meta["round_wall_s"],
+           "seconds": res.meta["seconds"],
+           "inprocess_seconds": want.meta["seconds"],
+           "party_threads": spans, "alive_bytes": alive,
+           "peak_mem_bytes": peak, "price_two_parties_bytes":
+           fcfg.num_parties * priced["price"],
+           "price_a_party_bytes": priced["price"],
+           "peak_limit_bytes": FEDKT_CUT_PEAK_LIMIT,
+           "host_peak_bytes": host.peak_bytes,
+           "launches": counts, "launches_derived": want_counts,
+           "accuracy": res.accuracy,
+           "wire_bytes": res.meta["wire_bytes"]["updates"], "card": smi}
+    log("[lm-fedkt-threads] " + json.dumps(row))
+    same_lm_round("fedkt threads", res, want)
+    if device != "cuda":        # the plain versions count no launch
+        want_counts = {k: 0 for k in want_counts}
+    if counts != want_counts:
+        raise AssertionError(f"fedkt threads: launches {counts} != "
+                             f"{want_counts}")
+    if peak > FEDKT_CUT_PEAK_LIMIT:
+        raise AssertionError(f"fedkt threads: peak {peak} B over "
+                             f"{FEDKT_CUT_PEAK_LIMIT}")
+    if len(spans) != fcfg.num_parties:
+        raise AssertionError(f"fedkt threads: party threads {spans}")
+    return counts
 
 
 def phase_lm_train(smi, profile=False):
@@ -4044,10 +4417,13 @@ def phase_lm_train(smi, profile=False):
     (``granite_train``: N1 at 48:1 with its q heads split;
     ``mixtral_train``: top-2 routing at capacity 1.25; ``llava_train``:
     2880 stub embeddings + 1216 tokens a row), then, once llava's
-    masters are freed, the LM FedKT round at phi4-mini's full width cut
-    to ``FEDKT_CUT_LAYERS`` (``lm_fedkt_cut``) at L0 and at L2 (gamma
-    0.1): exact launches, every vote recomputed, K1 bit for bit the
-    plain version on the card.  Returns (the
+    masters are freed, the LM FedKT round at phi4-mini's full width
+    (``lm_fedkt_cut``: exact launches, every vote recomputed, K1 bit for
+    bit the plain version on the card): at L0 in process at the depth
+    where two parties fit the card at once (``fedkt_threads_layers``),
+    then the same round over two party threads (``lm_fedkt_threads``),
+    bit for bit the in-process one, then at L2 (gamma 0.1) cut to
+    ``FEDKT_CUT_LAYERS``.  Returns (the
     backward rows {"n1", "n2a", "n2b"}, their worst errors, the main
     path's launches, the measured rows of the full-width train and label
     steps)."""
@@ -4103,12 +4479,24 @@ def phase_lm_train(smi, profile=False):
         measured[name], cut_runs = run(smi)
         runs += cut_runs
         log(f"[lm_train] {name} training at {time.time() - t0:.1f} s")
-    for level, gamma in (("L0", 0.0), ("L2", 0.1)):
-        fedkt_runs, k1 = lm_fedkt_cut(smi, level, gamma)
-        runs += fedkt_runs
-        if k1 is not None:
-            measured["fedkt_cut_k1"] = k1
-        log(f"[lm_train] fedkt cut {level} at {time.time() - t0:.1f} s")
+    # L0 at the depth where two parties fit at once: the in-process
+    # round, recorded and checked, is the one the thread round is held
+    # to; L2 at FEDKT_CUT_LAYERS, where K1 runs at (2, 4096, 200,064)
+    layers, room = fedkt_threads_layers()
+    log(f"[lm_train] fedkt threads at {layers} layers: two parties' "
+        f"price within {room:.0f} B")
+    cut = fedkt_cut_config(layers)
+    fedkt_runs, _, inprocess = lm_fedkt_cut(smi, "L0", 0.0, cfg=cut,
+                                            keep=True)
+    runs += fedkt_runs
+    log(f"[lm_train] fedkt cut L0 at {cut.num_layers} layers at "
+        f"{time.time() - t0:.1f} s")
+    runs.append(lm_fedkt_threads(smi, inprocess, cut))
+    del inprocess
+    log(f"[lm_train] fedkt threads at {time.time() - t0:.1f} s")
+    fedkt_runs, measured["fedkt_cut_k1"], _ = lm_fedkt_cut(smi, "L2", 0.1)
+    runs += fedkt_runs
+    log(f"[lm_train] fedkt cut L2 at {time.time() - t0:.1f} s")
     # the main path's launches: the sum of the runs above, each counted
     # from 0 just before it and read just after, so that no launch made
     # to compare a kernel with its plain version is in it
@@ -4338,7 +4726,8 @@ def main():
     vote_rows, vote_err = phase_votes(T, round_vote_shapes(
         [(r[2], T) for r in tree_rounds()]
         + [(r["cfg"], len(r["data"]["X_public"])) for r in rounds]))
-    hist_rows, hist_err = phase_hist(n_teacher, n_student)
+    hist_rows, hist_err = phase_hist(n_teacher, n_student,
+                                     vertical_hist_shapes())
     att_rows, att_err = phase_attention()
     rg_rows, rg_err = phase_rglru()
     wk_rows, wk_err = phase_wkv()
@@ -4351,7 +4740,8 @@ def main():
         launches[kname] += n
     torch.cuda.synchronize()
     log(f"[phase] fleet transports ok at {time.time() - t_start:.1f} s")
-    phase_fleet_processes(smi)
+    for kname, n in phase_fleet_processes(smi).items():
+        launches[kname] += n
     torch.cuda.synchronize()
     log(f"[phase] fleet processes ok at {time.time() - t_start:.1f} s")
     phase_parity()

@@ -640,21 +640,25 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+EncodeTiled find_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
 #else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
 #endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? (EncodeTiled)p
+             : nullptr;
+}
+
+// looked up once, by the first launcher to ask: a function-local static
+// is initialised once however many host threads launch at once
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = find_encode_tiled();
   return fn;
 }
 

@@ -200,6 +200,7 @@ class ChaosProxy:
         self._stopping = False
         self._lsock: Optional[socket.socket] = None
         self._thread: Optional[threading.Thread] = None
+        self._relays: List[threading.Thread] = []
 
     def start(self) -> "ChaosProxy":
         self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -222,8 +223,12 @@ class ChaosProxy:
             with self._lock:
                 ordinal = self.connections
                 self.connections += 1
-            threading.Thread(target=self._relay, args=(conn, ordinal),
-                             daemon=True).start()
+                relay = threading.Thread(target=self._relay,
+                                         args=(conn, ordinal),
+                                         daemon=True,
+                                         name="fedkt-chaos-relay")
+                self._relays.append(relay)
+            relay.start()
 
     def _relay(self, party: socket.socket, ordinal: int) -> None:
         fault = self.plan.fault_for(ordinal)
@@ -276,6 +281,11 @@ class ChaosProxy:
             self.plan.record(f"conn {ordinal}: relay ended ({err!r})")
 
     def stop(self) -> None:
+        """Closes the listener, then joins the accept thread and every
+        relay it started, all within 5 s.  Once it returns, the plan's
+        log holds every record a finished relay made (a duplicate's
+        re-ACK lands after the coordinator has the frame)."""
+        deadline = time.monotonic() + 5.0
         self._stopping = True
         if self._lsock is not None:
             try:
@@ -290,7 +300,11 @@ class ChaosProxy:
             except OSError:
                 pass
         if self._thread is not None:
-            self._thread.join(timeout=5.0)
+            self._thread.join(timeout=max(0.0, deadline - time.monotonic()))
+        with self._lock:
+            relays = list(self._relays)
+        for relay in relays:
+            relay.join(timeout=max(0.0, deadline - time.monotonic()))
 
     def __enter__(self) -> "ChaosProxy":
         return self

@@ -631,6 +631,12 @@ class SocketTransport(TransportBase):
             dropped = sorted(set(expected) - set(arrived))
             with failed_lock:
                 report_failed = dict(failed)
+            if proxy is not None:
+                # a relay records some faults (a duplicate's re-ACK)
+                # after the coordinator has the frame: join the relays
+                # before the report copies the plan's log
+                proxy.stop()
+                proxy = None
             self.round_report = {
                 "port": coord.port,
                 "expected": len(expected),

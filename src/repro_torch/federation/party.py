@@ -70,6 +70,14 @@ class Party:
         return self._key_schedule(key, cfg.num_partitions,
                                   cfg.num_subsets)[3]
 
+    def subset_plan(self):
+        """The party's teacher subsets: for each of the s partitions of
+        its shard, the t index arrays its teachers fit on."""
+        cfg = self.cfg
+        return subsets_of_partition(self.indices, cfg.num_partitions,
+                                    cfg.num_subsets,
+                                    seed=cfg.seed + 17 * self.party_id)
+
     def local_round(self, key, X_public, num_queries: int,
                     engine: Engine = None):
         """Runs the party side of the single round.  Returns
@@ -92,8 +100,7 @@ class Party:
                              fingerprint=fingerprint_queries(Xq_server))
         s, t, u = cfg.num_partitions, cfg.num_subsets, dom.num_classes
         Xq = X_public[:num_queries]
-        plan = subsets_of_partition(self.indices, s, t,
-                                    seed=cfg.seed + 17 * self.party_id)
+        plan = self.subset_plan()
         gamma = cfg.gamma if cfg.privacy_level == "L2" else 0.0
 
         teacher_keys, vote_keys, student_keys, key = \
@@ -111,6 +118,9 @@ class Party:
                 key=vote_keys[j])
             gaps.append(gap.cpu().numpy())
             labelsets.append(labels.cpu().numpy())
+        # the teachers have voted: release them before the students fit
+        # (at LM scale s t members would sit on the card beside the fits)
+        del bank, bank_j
         students: List[Any] = engine.fit_students(
             student_keys, self.student_learner, Xq, labelsets)
 

@@ -199,7 +199,7 @@ def _chaos_plan(args):
     return FaultPlan.random(args.chaos_seed, 3 * args.parties)
 
 
-def run_local(args) -> None:
+def run_local(args):
     transport = SocketTransport(parallelism=args.parallelism,
                                 port=args.port,
                                 deadline_s=args.deadline_s,
@@ -209,9 +209,10 @@ def run_local(args) -> None:
                                 chaos_plan=_chaos_plan(args))
     result = build_session(args, transport).run(verbose=args.verbose)
     _report(result)
+    return result
 
 
-def run_coordinator(args) -> None:
+def run_coordinator(args):
     transport = SocketTransport(host=args.host, port=args.port,
                                 spawn=False,
                                 deadline_s=args.deadline_s,
@@ -227,6 +228,7 @@ def run_coordinator(args) -> None:
              if args.journal else ""))
     result = build_session(args, transport).run(verbose=args.verbose)
     _report(result)
+    return result
 
 
 def run_party(args) -> None:
@@ -321,9 +323,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    """Runs one role; the local and coordinator roles return the
+    session's RoundResult (after printing its report)."""
     args = parse_args(argv)
-    {"local": run_local, "coordinator": run_coordinator,
-     "party": run_party}[args.role](args)
+    return {"local": run_local, "coordinator": run_coordinator,
+            "party": run_party}[args.role](args)
 
 
 if __name__ == "__main__":

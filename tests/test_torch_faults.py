@@ -301,6 +301,29 @@ def test_duplicate_delivery_never_double_folds(data, serial):
     assert any("duplicate delivery" in line for line in sock["chaos"])
 
 
+class _LateRecordPlan(FaultPlan):
+    """A plan whose duplicate record lands a second after the re-ACK,
+    by when the coordinator has had every update for a while."""
+
+    def record(self, msg):
+        if "duplicate delivery" in msg:
+            time.sleep(1.0)
+        super().record(msg)
+
+
+def test_report_waits_for_a_relays_late_record(data, serial):
+    """The round's report copies the plan's log only after the proxy
+    has joined its relays, so a record made after the last update
+    arrived is in it."""
+    plan = _LateRecordPlan({0: Fault("duplicate")})
+    res = socket_round(data, "rf", SocketTransport(parallelism=1,
+                                                   chaos_plan=plan))
+    sock = res.meta["socket"]
+    assert_same_round(res, serial["rf"])
+    assert any("duplicate delivery" in line for line in sock["chaos"])
+    assert sock["chaos"] == plan.log
+
+
 @pytest.mark.parametrize("fault", [Fault("corrupt", at_byte=64),
                                    Fault("kill_after", at_byte=100),
                                    Fault("delay", delay_s=0.05)],

@@ -70,35 +70,67 @@ def _labels(res):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_round(vocab, level):
+def _reference_round(vocab, level, transport="inprocess"):
     jm, _, d = _lm(vocab)
+    par = 2 if transport == "thread" else None
     return jfedkt_lm(jm, d["train"], d["public"],
                      JFedKTConfig(**dict(FCFG, num_classes=vocab),
                                   **LEVELS[level]),
                      JTrainConfig(**TCFG), test=d["test"], engine="lm",
+                     transport=transport, parallelism=par,
                      verbose=False)["result"]
+
+
+@functools.lru_cache(maxsize=None)
+def _port_round(vocab, level, engine="lm", transport="inprocess"):
+    _, model, d = _lm(vocab)
+    fcfg = FedKTConfig(**dict(FCFG, num_classes=vocab), **LEVELS[level])
+    par = 2 if transport == "thread" else None
+    return fedkt_lm(model, d["train"], d["public"], fcfg,
+                    TrainConfig(**TCFG), test=d["test"], engine=engine,
+                    transport=transport, parallelism=par, verbose=False,
+                    device="cpu")["result"]
+
+
+def assert_same_lm_round(got, want):
+    """Port against port, bit for bit (``chip_smoke.same_lm_round``): the
+    server's labels, counts and gaps, every student and final-model
+    leaf, accuracy, epsilon, wire bytes and frame digests."""
+    import chip_smoke
+    chip_smoke.same_lm_round("port round", got, want)
+    assert got.meta["engine"] == want.meta["engine"]
 
 
 # at vocabulary 4096 (over 2048) an L0 round's teacher votes take the
 # sort path (no vocabulary-sized histogram) and the server's consistent
-# vote sums (T, 4096) one-hot counts, in both packages; the cases at 64
-# keep their names
-ROUND_CASES = [pytest.param(level, 64, id=level) for level in sorted(LEVELS)
-               ] + [pytest.param(level, 4096, id=f"{level}-vocab4096")
-                    for level in sorted(LEVELS)]
+# vote sums (T, 4096) one-hot counts, in both packages.  The thread
+# cases fan the two parties out over ``ThreadTransport(parallelism=2)``
+# in both packages: the reference requires its thread round to equal its
+# in-process round bit for bit (test_federation_lm.py), and so does the
+# port.  The in-process cases keep their names
+ROUND_CASES = [
+    pytest.param(level, vocab, transport,
+                 id="-".join([level] + ([] if vocab == 64
+                                        else [f"vocab{vocab}"])
+                             + ([] if transport == "inprocess"
+                                else [transport])))
+    for transport in ("inprocess", "thread") for vocab in (64, 4096)
+    for level in sorted(LEVELS)]
 
 
-@pytest.mark.parametrize("level,vocab", ROUND_CASES)
-def test_lm_rounds_match_reference(level, vocab):
-    _, model, d = _lm(vocab)
-    want = _reference_round(vocab, level)
-    fcfg = FedKTConfig(**dict(FCFG, num_classes=vocab), **LEVELS[level])
-    got = {engine: fedkt_lm(model, d["train"], d["public"], fcfg,
-                            TrainConfig(**TCFG), test=d["test"],
-                            engine=engine, verbose=False,
-                            device="cpu")["result"]
-           for engine in ("lm", "loop")}
-    np.testing.assert_array_equal(_labels(got["lm"]), _labels(got["loop"]))
+@pytest.mark.parametrize("level,vocab,transport", ROUND_CASES)
+def test_lm_rounds_match_reference(level, vocab, transport):
+    want = _reference_round(vocab, level, transport)
+    if transport == "inprocess":
+        got = {engine: _port_round(vocab, level, engine)
+               for engine in ("lm", "loop")}
+        np.testing.assert_array_equal(_labels(got["lm"]),
+                                      _labels(got["loop"]))
+    else:
+        got = {"lm": _port_round(vocab, level, "lm", transport)}
+        assert got["lm"].meta["transport"] == transport
+        assert got["lm"].meta["parallelism"] == 2
+        assert_same_lm_round(got["lm"], _port_round(vocab, level))
     for res in got.values():
         assert (_labels(res) == _labels(want)).mean() >= 0.99
         assert res.epsilon == want.epsilon
@@ -108,6 +140,36 @@ def test_lm_rounds_match_reference(level, vocab):
         assert want.epsilon is None
     else:
         assert want.epsilon > 0
+
+
+def test_party_releases_its_teachers_before_its_students_fit(lm):
+    """A party holds its teachers only until they have voted: by its
+    first student fit no teacher's state is alive, so at LM scale the
+    students fit beside no teacher (``chip_smoke.fedkt_party_price``)."""
+    import gc
+    import weakref
+
+    from repro_torch.federation.engines import LMEngine
+    _, model, d = lm
+    alive = []
+
+    class Watching(LMEngine):
+        def fit_teachers(self, keys, learner, datasets):
+            bank = super().fit_teachers(keys, learner, datasets)
+            self.refs = [weakref.ref(t) for m in bank
+                         for t in flatten_tree(m).values()]
+            return bank
+
+        def fit_students(self, keys, learner, X, labelsets):
+            gc.collect()
+            alive.append(sum(r() is not None for r in self.refs))
+            return super().fit_students(keys, learner, X, labelsets)
+
+    res = fedkt_lm(model, d["train"], d["public"], FedKTConfig(**FCFG),
+                   TrainConfig(**TCFG), test=d["test"], engine=Watching(),
+                   verbose=False, device="cpu")["result"]
+    assert alive == [0] * FCFG["num_parties"]
+    assert_same_lm_round(res, _port_round(64, "L0"))
 
 
 def test_engine_registry_includes_lm():
@@ -239,3 +301,62 @@ def test_chip_smoke_fedkt_cut_checks_on_cpu(level, gamma):
     with pytest.raises(AssertionError, match="party vote 0"):
         chip_smoke.fedkt_round_checks(rec, got, model, fcfg, tcfg, data,
                                       "cpu")
+
+
+def test_chip_smoke_threads_depth_prices_what_is_alive(monkeypatch):
+    """chip_smoke picks the thread round's depth as the deepest phi4-mini
+    cut whose two parties price within 72 GB less the margin and what
+    is alive on the card; with too much alive no depth fits."""
+    import chip_smoke
+    fcfg = chip_smoke.fedkt_round_inputs(chip_smoke.fedkt_cut_config(1),
+                                         "L0", 0.0)[0]
+
+    def price(layers):
+        return fcfg.num_parties * chip_smoke.fedkt_party_price(
+            chip_smoke.fedkt_cut_config(layers), fcfg)["price"]
+
+    monkeypatch.setattr(chip_smoke, "_alive", lambda: 0)
+    layers, room = chip_smoke.fedkt_threads_layers()
+    assert room == chip_smoke.FEDKT_CUT_PEAK_LIMIT - \
+        chip_smoke.FEDKT_THREADS_MARGIN
+    assert price(layers) <= room < price(layers + 1)
+    alive = room - price(1) + 1
+    monkeypatch.setattr(chip_smoke, "_alive", lambda: alive)
+    with pytest.raises(AssertionError, match="price over"):
+        chip_smoke.fedkt_threads_layers()
+
+
+def test_chip_smoke_fedkt_threads_on_cpu(capsys):
+    """chip_smoke's ``lm_fedkt_threads`` rehearsed on the CPU at
+    phi4-mini's smoke widths over 4096 tokens (float32): the round over
+    two party threads equals the recorded, checked in-process round of
+    ``lm_fedkt_cut`` bit for bit, each party on its own thread, and a
+    leaf of the in-process students changed by one bit is caught."""
+    import json
+
+    import chip_smoke
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("phi4-mini-3.8b").replace(vocab_size=4096,
+                                              dtype="float32")
+    inputs = dict(B=4, S=16, steps=2, lr=3e-3, n_seqs=64)
+    _, k1, inprocess = chip_smoke.lm_fedkt_cut(
+        None, "L0", 0.0, cfg=cfg, keep=True, device="cpu", **inputs)
+    assert k1 is None and inprocess.meta["round_wall_s"] > 0
+    counts = chip_smoke.lm_fedkt_threads(None, inprocess, cfg,
+                                         device="cpu", **inputs)
+    assert not any(counts.values())     # the plain versions, no launch
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[lm-fedkt-threads] "))
+    row = json.loads(line.split(" ", 1)[1])
+    assert row["transport"] == "thread" and row["parallelism"] == 2
+    spans = row["party_threads"]
+    assert sorted(spans) == ["fedkt-party_0", "fedkt-party_1"]
+    assert all(0 <= sp["start_s"] < sp["end_s"] <= row["round_wall_s"]
+               for sp in spans.values())
+    assert row["host_peak_bytes"] > 0 and row["price_two_parties_bytes"] \
+        == 2 * row["price_a_party_bytes"]
+    leaf = flatten_tree(inprocess.student_states[1][0])["blocks/0/attn/wq"]
+    leaf.view(np.int32).reshape(-1)[0] ^= 1
+    with pytest.raises(AssertionError, match="blocks/0/attn/wq differs"):
+        chip_smoke.lm_fedkt_threads(None, inprocess, cfg, device="cpu",
+                                    **inputs)
